@@ -26,3 +26,7 @@ def pytest_configure(config):
         "markers",
         "slow: high-cardinality soaks -- deselected by the tier-1 "
         "\"-m 'not slow'\" gate, run by the dedicated CI soak steps")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device -- skips without one; run on the "
+        "card with python -m pytest -m cuda tests/test_torch_*.py")

@@ -1,0 +1,129 @@
+"""The port's WindowComputeEngine held against the reference engine
+(windflow_tpu/ops/window_compute.py) at the bucketed launch shapes, for
+every builtin kind the headline and its neighbours launch.
+
+Inputs come from seeded numpy.  Integer-valued data makes every sum,
+count and prefix sum exact in f32, so the two engines must agree
+exactly; on random f32 data max/min (selections) stay exact and sums
+over short extents agree within ``rtol=1e-5``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from windflow_tpu.ops.window_compute import \
+    WindowComputeEngine as RefEngine
+from windflow_tpu_torch.ops.cuda import window_sum as ws
+from windflow_tpu_torch.ops.window_compute import (ResidentPaneCarry,
+                                                   WindowComputeEngine)
+
+# (T, B, widest extent): shapes on both sides of the 2048 bucket floor
+# and of the tile/scan switch at 32
+SHAPES = [(100, 10, 8), (5000, 3000, 16), (5000, 3000, 500),
+          (70_000, 2100, 4096)]
+KINDS = ["sum", "count", "mean", "max", "min", "mean_panes"]
+
+
+def _launch(T, B, max_w, seed, integer=True):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, max_w + 1, B)
+    starts = rng.integers(0, T - max_w, B)
+    ends = starts + lens
+    if integer:
+        vals = rng.integers(0, 97, T).astype(np.float64)
+    else:
+        vals = rng.random(T)
+    cols = {"value": vals, "count": rng.integers(1, 50, T).astype(np.float64)}
+    gwids = np.arange(B, dtype=np.int64)
+    return cols, starts, ends, gwids
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", KINDS)
+def test_engine_matches_reference_on_integer_data(kind, shape):
+    T, B, max_w = shape
+    cols, starts, ends, gwids = _launch(T, B, max_w, seed=hash(shape) % 1000)
+    want = RefEngine(kind).compute(cols, starts, ends, gwids).block()
+    got = WindowComputeEngine(kind, device="cpu").compute(
+        cols, starts, ends, gwids).block()
+    assert got.shape == want.shape == (B,)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["sum", "max", "min"])
+def test_engine_matches_reference_on_random_f32(kind):
+    cols, starts, ends, gwids = _launch(5000, 3000, 16, seed=7,
+                                        integer=False)
+    want = RefEngine(kind).compute(cols, starts, ends, gwids).block()
+    got = WindowComputeEngine(kind, device="cpu").compute(
+        cols, starts, ends, gwids).block()
+    if kind == "sum":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def test_handle_on_cpu_is_ready_and_trimmed():
+    cols, starts, ends, gwids = _launch(100, 10, 8, seed=1)
+    h = WindowComputeEngine("sum", device="cpu").compute(cols, starts, ends,
+                                                         gwids)
+    assert h.ready()
+    assert h.block().shape == (10,)
+
+
+def test_cpu_engine_does_not_launch_the_kernel():
+    cols, starts, ends, gwids = _launch(5000, 3000, 16, seed=2)
+    before = ws.launch_count()
+    WindowComputeEngine("sum", device="cpu").compute(cols, starts, ends,
+                                                     gwids).block()
+    assert ws.launch_count() == before
+
+
+def test_cuda_is_the_default_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WindowComputeEngine("sum", device="cuda")
+    eng = WindowComputeEngine("sum")  # unbound: binds the card on use
+    assert eng.device is None
+    cols, starts, ends, gwids = _launch(100, 10, 8, seed=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eng.compute(cols, starts, ends, gwids)
+
+
+@pytest.mark.parametrize("kind", [("ffat", max, 0.0), lambda g, c, m: 0.0])
+def test_unported_kinds_raise_naming_the_roadmap_item(kind):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
+        WindowComputeEngine(kind, device="cpu")
+
+
+def test_resident_carry_raises_naming_the_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+        ResidentPaneCarry("sum", 2)
+
+
+def test_unknown_kind_is_rejected():
+    with pytest.raises(ValueError):
+        WindowComputeEngine("median", device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_engine_matches_cpu_engine(kind):
+    """On the card: the CUDA lane (the window-sum kernel for the sum
+    kinds) against the CPU lane, exact on integer data; one kernel
+    launch per sum operand."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "python -m pytest -m cuda tests/test_torch_*.py)")
+    cols, starts, ends, gwids = _launch(5000, 3000, 16, seed=5)
+    eng = WindowComputeEngine(kind, device="cuda")
+    before = ws.launch_count()
+    with eng.launch_context():
+        h = eng.compute(cols, starts, ends, gwids)
+    got = h.block()
+    launches = {"sum": 1, "mean": 1, "mean_panes": 2}.get(kind, 0)
+    assert ws.launch_count() - before == launches
+    want = WindowComputeEngine(kind, device="cpu").compute(
+        cols, starts, ends, gwids).block()
+    np.testing.assert_array_equal(got, want)

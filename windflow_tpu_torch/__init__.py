@@ -1,0 +1,102 @@
+"""windflow_tpu_torch: the PyTorch/CUDA port of windflow_tpu.
+
+The same PipeGraph/MultiPipe surface as ``windflow_tpu``, with the
+device lane running on an NVIDIA GPU: batched window sums launch a
+hand-written Hopper kernel (``ops/cuda/window_sum.cu``), and the
+engine's other programs are torch code on CUDA tensors.  The port goes
+slice by slice (ROADMAP.md queue A); this umbrella exports the names
+the ported slices provide, and a name of the reference package that is
+not ported yet raises an ``AttributeError`` naming its ROADMAP item.
+
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.operators.batch_ops import BatchSource
+    from windflow_tpu_torch.operators.basic_ops import Sink
+    from windflow_tpu_torch.operators.tpu.win_seq_tpu import WinSeqTPU
+    g = wf.PipeGraph("app", wf.Mode.DEFAULT)
+    g.add_source(BatchSource(fn)).add(WinSeqTPU("sum", 4096, 2048,
+        wf.WinType.TB)).add_sink(Sink(sink_fn))
+    g.run()     # on the CUDA device; RuntimeConfig(device="cpu") asks
+                # for the CPU
+"""
+from ._unported import ROADMAP_ITEMS
+from .core import (Mode, WinType, OptLevel, RoutingMode, Pattern, WinEvent,
+                   OrderingMode, Role, WinOperatorConfig, RuntimeConfig,
+                   DurabilityConfig, ElasticSpec, BasicRecord, TupleBatch,
+                   EOS, TriggererCB,
+                   TriggererTB, Window, StreamArchive, FlatFAT, Iterable,
+                   Shipper, RuntimeContext, LocalStorage, Expr, F)
+
+__version__ = "0.1.0"
+
+# ported names, imported lazily (no torch/CUDA work at package import)
+_LAZY = {
+    "PipeGraph": "windflow_tpu_torch.graph.pipegraph",
+    "NodeFailureError": "windflow_tpu_torch.graph.pipegraph",
+    "MultiPipe": "windflow_tpu_torch.graph.multipipe",
+    # failure containment (resilience/; docs/RESILIENCE.md)
+    "StallError": "windflow_tpu_torch.resilience",
+    "GraphCancelled": "windflow_tpu_torch.resilience",
+    "FaultPlan": "windflow_tpu_torch.resilience",
+    "InjectedFailure": "windflow_tpu_torch.resilience",
+    "DeadLetterStore": "windflow_tpu_torch.resilience",
+    "DeadLetterEntry": "windflow_tpu_torch.resilience",
+    # adaptive ingestion plane (ingest/; docs/INGEST.md)
+    "SocketSource": "windflow_tpu_torch.ingest",
+    "ReplaySource": "windflow_tpu_torch.ingest",
+    "AsyncGeneratorSource": "windflow_tpu_torch.ingest",
+    "CreditGate": "windflow_tpu_torch.ingest",
+    "MicrobatchController": "windflow_tpu_torch.ingest",
+    "AdmissionConfig": "windflow_tpu_torch.ingest",
+    "ShedTuples": "windflow_tpu_torch.ingest",
+    "encode_batch": "windflow_tpu_torch.ingest",
+    "decode_batch": "windflow_tpu_torch.ingest",
+    "StreamDecoder": "windflow_tpu_torch.ingest",
+    # audit plane (audit/; docs/OBSERVABILITY.md "Audit plane")
+    "GraphAuditor": "windflow_tpu_torch.audit",
+    "SpaceSavingSketch": "windflow_tpu_torch.audit",
+    "watermark_of": "windflow_tpu_torch.audit.progress",
+    # diagnosis plane (diagnosis/; docs/OBSERVABILITY.md)
+    "DiagnosisPlane": "windflow_tpu_torch.diagnosis",
+    "build_report": "windflow_tpu_torch.diagnosis",
+    "render_text": "windflow_tpu_torch.diagnosis",
+}
+
+# names of the reference umbrella that later slices port, by ROADMAP item
+_NOT_YET = {
+    "ffat": ("WinSeqFFATResident",),
+    "farms": (
+        "SourceBuilder", "FilterBuilder", "MapBuilder", "FlatMapBuilder",
+        "AccumulatorBuilder", "SinkBuilder", "WinSeqBuilder",
+        "WinFarmBuilder", "KeyFarmBuilder", "PaneFarmBuilder",
+        "WinMapReduceBuilder", "WinSeqFFATBuilder", "KeyFFATBuilder",
+        "WinSeqTPUBuilder", "WinFarmTPUBuilder", "KeyFarmTPUBuilder",
+        "PaneFarmTPUBuilder", "WinMapReduceTPUBuilder",
+        "WinSeqFFATTPUBuilder", "KeyFFATTPUBuilder"),
+    "host_planes": (
+        "ElasticityConfig", "ElasticController", "RescaleEvent",
+        "RescaleError", "LoadReport", "DistributedSpec", "run_distributed",
+        "WorkerFailure", "plan_partition", "merge_stats", "wire_table",
+        "check_wire_conservation", "MsgDecoder", "Server", "TenantSpec",
+        "TenantHandle", "TenantState", "AdmissionError", "ArbiterConfig",
+        "CrossTenantArbiter", "EpochCoordinator", "EpochStore",
+        "EpochBarrier", "EpochTaggedStore", "run_with_epochs",
+        "restore_epoch", "Watermark", "watermarked", "WatermarkedSource",
+        "EventTimeWindow", "SessionWindow", "IntervalJoin", "WindowJoin",
+        "Sided", "side_tagger", "tag_side", "LEFT", "RIGHT", "StreamQuery",
+        "query"),
+    "mesh": ("KeyFarmMesh", "PaneFarmMesh", "WinMapReduceMesh",
+             "make_mesh", "make_multihost_mesh"),
+}
+
+
+def __getattr__(name):
+    from importlib import import_module
+    if name in _LAZY:
+        return getattr(import_module(_LAZY[name]), name)
+    for item, names in _NOT_YET.items():
+        if name in names:
+            raise AttributeError(
+                f"windflow_tpu_torch.{name} is not ported yet: "
+                f"{ROADMAP_ITEMS[item]}")
+    raise AttributeError(f"module 'windflow_tpu_torch' has no attribute "
+                         f"{name!r}")

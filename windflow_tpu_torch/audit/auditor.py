@@ -1,0 +1,299 @@
+"""GraphAuditor: the audit-plane thread (docs/OBSERVABILITY.md).
+
+One per started PipeGraph when ``RuntimeConfig.audit`` is on (the
+default).  Every ``audit_interval_s`` it snapshots the live topology
+(rebuilt per pass, so elastic rescales are transparent) and runs the
+three pillars -- flow-conservation ledger, frontier propagation,
+keyed-state/skew census -- then publishes:
+
+* violations -> ``conservation_violation`` flight-recorder events +
+  the auditor's ``violations`` list,
+* frontier stalls -> ``frontier_stall`` flight events + per-replica
+  ``Frontier``/``Frontier_lag_ms`` gauges,
+* the ``Conservation`` and ``Skew`` stats-JSON blocks
+  (GraphStats.set_audit), scraped onward by ``/metrics``,
+* ``op_skew`` (top-key share per KEYBY-fed operator) for the elastic
+  signal plane.
+
+``final_check()`` runs at ``wait_end`` on cleanly-ended graphs: with
+every replica joined, the books must balance exactly -- the ledger
+identity ``sources_emitted == sinks_consumed + dead_letters + sheds +
+in_flight`` holds with ``in_flight == 0``.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, List
+
+from .census import SpaceSavingSketch, take_census
+from .ledger import FlowLedger, _op_of
+from .progress import FrontierTracker
+
+MAX_VIOLATIONS = 256
+
+
+class GraphAuditor(threading.Thread):
+    def __init__(self, graph):
+        super().__init__(name=f"windflow-auditor-{graph.name}",
+                         daemon=True)
+        self.graph = graph
+        cfg = graph.config
+        self.interval_s = max(0.02, float(cfg.audit_interval_s))
+        self.topk = int(cfg.audit_topk)
+        self.ledger = FlowLedger(graph)
+        self.tracker = FrontierTracker(float(cfg.frontier_stall_s))
+        self._stop_evt = threading.Event()
+        self.violations: List[dict] = []
+        self.passes = 0
+        self.final_done = False
+        # (consumer-op name, sketch) per KEYBY emitter
+        self._sketches: List[tuple] = []
+        self.op_skew: Dict[str, dict] = {}
+        self.census_rows: List[dict] = []
+        # op -> {str(key): tier name} for the sketch's hot keys, probed
+        # from the owning logics' state_tier_of each skew refresh
+        self.key_tiers: Dict[str, Dict[str, str]] = {}
+
+    # -- wiring (PipeGraph.start / elastic rescale) --------------------
+    def attach(self) -> None:
+        """Attach delivery books, put-fault state and hot-key sketches
+        to every wired node.  Must run after fusion/ingest wiring and
+        fault binding, before any replica thread starts."""
+        for n in self.graph._all_nodes():
+            self.attach_node(n)
+
+    def attach_node(self, node) -> None:
+        self.ledger.attach_node(node)
+        self._attach_sketches(node)
+        self._bind_hot_keys(node)
+
+    def _attach_sketches(self, node) -> None:
+        from .ledger import unwrap
+        owner = None
+        for o in node.outlets:
+            em = o.emitter
+            if not getattr(em, "keyed", False):
+                continue
+            if getattr(em, "key_sketch", None) is not None:
+                continue  # already attached + registered (idempotent)
+            em.key_sketch = SpaceSavingSketch(self.topk)
+            if owner is None:
+                owner = {}
+                for c in self.graph._all_nodes():
+                    if c.channel is not None:
+                        owner[id(unwrap(c.channel))] = c
+            dest_op = None
+            for ch, _pid in o.dests:
+                c = owner.get(id(unwrap(ch)))
+                if c is not None:
+                    dest_op = _op_of(c.name)
+                    break
+            self._sketches.append((dest_op or node.name, em.key_sketch))
+
+    def _bind_hot_keys(self, node) -> None:
+        """Hand the hot-key sketch to this node's keyed stores (tiered
+        state, state/tiers.py): the merged top-K of the sketches
+        feeding the node's operator becomes the store's pinned-hot key
+        set, so the keys the audit plane currently names hot are never
+        demoted off the fast tier."""
+        from ..runtime.node import FusedLogic
+
+        def bind(logic, name):
+            fn = getattr(logic, "bind_hot_sketch", None)
+            if fn is None:
+                return
+            op = _op_of(name)
+
+            def hot_keys(op=op):
+                keys = set()
+                for o, sk in self._sketches:
+                    if o == op:
+                        keys.update(sk.counts)
+                return keys
+            fn(hot_keys)
+
+        if isinstance(node.logic, FusedLogic):
+            for seg in node.logic.segments:
+                bind(seg.logic, seg.name)
+        else:
+            bind(node.logic, node.name)
+
+    def fold_retired(self, node) -> None:
+        """Elastic scale-down accounting (called by rescale before the
+        retired replica leaves the topology): delivery books fold into
+        the retired ledger, and the replica's sketches are dropped --
+        a frozen sketch would misstate the live share forever (and the
+        registry would otherwise grow without bound across rescale
+        cycles)."""
+        self.ledger.fold_retired(node)
+        dead = {id(sk) for sk in
+                (getattr(o.emitter, "key_sketch", None)
+                 for o in node.outlets) if sk is not None}
+        if dead:
+            self._sketches = [(op, sk) for op, sk in self._sketches
+                              if id(sk) not in dead]
+
+    # -- audit passes --------------------------------------------------
+    def run(self) -> None:
+        while not self._stop_evt.wait(self.interval_s):
+            g = self.graph
+            if g._ended or g._cancel.cancelled:
+                return
+            pause = g._pause_ctl
+            if pause is not None and pause.pausing:
+                continue  # checkpoint/rescale barrier: books are moving
+            try:
+                self.audit_once()
+            except Exception:  # pragma: no cover - never kill the graph
+                import traceback
+                traceback.print_exc()
+
+    def audit_once(self) -> None:
+        """One full pass: ledger, frontiers, census, publication."""
+        g = self.graph
+        nodes = g._all_nodes()
+        edges = self.ledger.edges(nodes)
+        fresh = self.ledger.check_pass(edges)
+        self._record_violations(fresh)
+        stalls = self.tracker.update(nodes)
+        for s in stalls:
+            g.flight.record("frontier_stall", **s)
+        self.passes += 1
+        self._refresh_skew(nodes)
+        self._publish(edges, nodes)
+        # diagnosis plane (diagnosis/): audit passes keep the history /
+        # anomaly / bottleneck surfaces live even for untraced graphs
+        # (no monitor thread); rate-limited to diagnosis_interval_s
+        diag = getattr(g, "diagnosis", None)
+        if diag is not None:
+            diag.maybe_tick()
+
+    def _record_violations(self, fresh: List[dict]) -> None:
+        g = self.graph
+        for v in fresh:
+            if len(self.violations) < MAX_VIOLATIONS:
+                self.violations.append(v)
+            fields = {("violation" if k == "kind" else k): val
+                      for k, val in v.items() if k != "at"}
+            g.flight.record("conservation_violation", **fields)
+
+    def _merged_sketches(self) -> Dict[str, dict]:
+        """Merge per-emitter sketches per consumer operator: a KEYBY
+        edge with N upstream replicas has N sketches, and every
+        surface (Skew block, /metrics, elastic signal) must see ONE
+        row per operator -- duplicate samples with identical labels
+        are rejected by strict OpenMetrics parsers."""
+        by_op: Dict[str, dict] = {}
+        for op, sk in self._sketches:
+            agg = by_op.setdefault(op, {"counts": {}, "errs": {},
+                                        "observed": 0})
+            agg["observed"] += sk.total
+            for key, cnt, err in sk.top():
+                agg["counts"][key] = agg["counts"].get(key, 0) + cnt
+                agg["errs"][key] = agg["errs"].get(key, 0) + err
+        return by_op
+
+    def _refresh_skew(self, nodes) -> None:
+        self.census_rows = take_census(nodes)
+        merged = self._merged_sketches()
+        skew: Dict[str, dict] = {}
+        for op, agg in merged.items():
+            if not agg["observed"] or not agg["counts"]:
+                continue
+            key, cnt = max(agg["counts"].items(), key=lambda kv: kv[1])
+            cnt -= agg["errs"].get(key, 0)  # strip the overcount bound
+            share = max(0.0, min(1.0, cnt / agg["observed"]))
+            skew[op] = {"share": round(share, 4), "key": key,
+                        "observed": agg["observed"]}
+        self.op_skew = skew
+        self.key_tiers = self._probe_tiers(nodes, merged)
+
+    def _probe_tiers(self, nodes, merged: Dict[str, dict]
+                     ) -> Dict[str, Dict[str, str]]:
+        """Which tier each sketch-reported hot key lives in, probed
+        from the owning logics' ``state_tier_of`` (gauge-grade, like
+        the census): tiered stores answer hot/warm/cold, the
+        device-resident engines answer "device"."""
+        from ..runtime.node import FusedLogic
+        out: Dict[str, Dict[str, str]] = {}
+
+        def probe(logic, name):
+            fn = getattr(logic, "state_tier_of", None)
+            if fn is None:
+                return
+            op = _op_of(name)
+            agg = merged.get(op)
+            if agg is None:
+                return
+            tiers = out.setdefault(op, {})
+            for k in agg["counts"]:
+                sk = str(k)
+                if sk in tiers:
+                    continue  # another replica already owns it
+                try:
+                    t = fn(k)
+                except Exception:
+                    t = None
+                if t is not None:
+                    tiers[sk] = t
+
+        for n in nodes:
+            if isinstance(n.logic, FusedLogic):
+                for seg in n.logic.segments:
+                    probe(seg.logic, seg.name)
+            else:
+                probe(n.logic, n.name)
+        return out
+
+    def skew_of(self, op_name: str) -> float:
+        """Top-key share signal for the elastic plane (0.0 = unknown)."""
+        info = self.op_skew.get(op_name)
+        return info["share"] if info else 0.0
+
+    def _skew_block(self) -> dict:
+        hot = []
+        for op, agg in self._merged_sketches().items():
+            if not agg["observed"] or not agg["counts"]:
+                continue
+            rows = sorted(agg["counts"].items(),
+                          key=lambda kv: -kv[1])[:8]
+            top = [[k, c, agg["errs"].get(k, 0)] for k, c in rows]
+            info = self.op_skew.get(op)
+            share = info["share"] if info else 0.0
+            entry = {"operator": op, "share": share,
+                     "observed": agg["observed"], "top": top}
+            tiers = self.key_tiers.get(op)
+            if tiers:
+                entry["tiers"] = {str(k): tiers[str(k)] for k, _c in rows
+                                  if str(k) in tiers}
+            hot.append(entry)
+        return {"Census": self.census_rows, "Hot_keys": hot}
+
+    def _publish(self, edges, nodes) -> None:
+        g = self.graph
+        cons = self.ledger.conservation_block(
+            edges, nodes, self.violations, self.passes, self.final_done)
+        g.stats.set_audit(cons, self._skew_block())
+
+    # -- shutdown ------------------------------------------------------
+    def final_check(self) -> List[dict]:
+        """Exact ledger closure after every replica joined (clean end).
+        Returns the violations found (also recorded + published)."""
+        g = self.graph
+        nodes = g._all_nodes()
+        edges = self.ledger.edges(nodes)
+        fresh = self.ledger.final_check(edges)
+        self._record_violations(fresh)
+        self.final_done = True
+        # settle the frontier gauges: every replica is joined and
+        # drained, so watermarks converge to the source frontiers and
+        # lag reads zero on a healthy run
+        self.tracker.update(nodes)
+        self._refresh_skew(nodes)
+        self._publish(edges, nodes)
+        return fresh
+
+    def stop(self) -> None:
+        self._stop_evt.set()
+        if self.is_alive():
+            self.join(timeout=5.0)

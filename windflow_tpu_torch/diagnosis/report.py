@@ -1,0 +1,590 @@
+"""The doctor report: one structured answer to "where does the time
+go and who is the bottleneck" (docs/OBSERVABILITY.md "Diagnosis
+plane").
+
+:func:`build_report` is a pure function of a stats-JSON dict (plus an
+optional flight-event list), so the same code produces the report
+
+* live, via ``PipeGraph.explain()``,
+* server-side, at the dashboard's ``GET /explain``,
+* offline, from a stats-JSON / flight-JSONL dump.
+
+It prefers the precomputed ``Diagnosis`` block a diagnosing runtime
+published, and degrades gracefully on older dumps: the bottleneck walk
+and the attribution fold are recomputed from ``Operators``/``Topology``
+and ``Trace_records`` when the block is missing, and every block is
+optional (``Schema_version`` tolerance is the loader contract).
+
+:func:`render_text` turns the report into the aligned plain-text the
+doctor CLI prints.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+from .attribution import CLASSES, attribution_from_stats
+from .bottleneck import bottleneck_from_stats
+
+# flight events echoed into the report
+FLIGHT_TAIL = 8
+
+
+def build_report(stats: dict, flight: Optional[list] = None) -> dict:
+    """Fold one stats-JSON dict (any schema version, blocks optional)
+    into the structured doctor report."""
+    stats = stats or {}
+    if flight is None:
+        flight = stats.get("Flight") or []
+    diag = stats.get("Diagnosis") or {}
+    bottleneck = diag.get("Bottleneck") or bottleneck_from_stats(stats)
+    attribution = diag.get("Attribution") or attribution_from_stats(stats)
+    anomalies = diag.get("Anomalies") or []
+    cons = stats.get("Conservation")
+    conservation = None
+    if cons:
+        conservation = {
+            "Balanced": bool(cons.get("Edges_balanced")),
+            "Violations": int(cons.get("Violations_total", 0) or 0),
+            "Final_check": bool(cons.get("Final_check")),
+        }
+    skew = stats.get("Skew") or {}
+    hot = []
+    for h in (skew.get("Hot_keys") or []):
+        if not (h.get("share") or 0) > 0:
+            continue
+        key = (h.get("top") or [[None]])[0][0]
+        entry = {"operator": h.get("operator"),
+                 "share": h.get("share"), "key": key}
+        # tiered stores name the tier holding each hot key
+        # (auditor._probe_tiers); absent on non-tiered graphs
+        tier = (h.get("tiers") or {}).get(str(key))
+        if tier is not None:
+            entry["tier"] = tier
+        hot.append(entry)
+    # per-tier keyed-state totals (schema v9 census extras): tiered
+    # stores report hot/warm/cold, device-lane window engines report
+    # their resident forest bytes under "device" (audit/census.py;
+    # windflow_keyed_state_bytes{tier=...} renders the same rows)
+    tier_tot: dict = {}
+    for row in (skew.get("Census") or []):
+        for tier, kb in (row.get("tiers") or {}).items():
+            keys, nbytes = ((int(kb[0] or 0), int(kb[1] or 0))
+                            if isinstance(kb, (list, tuple))
+                            else (0, int(kb or 0)))
+            t = tier_tot.setdefault(tier, [0, 0])
+            t[0] += keys
+            t[1] += nbytes
+    state_tiers = {t: {"keys": v[0], "bytes": v[1]}
+                   for t, v in sorted(tier_tot.items())} or None
+    hist = stats.get("History") or {}
+    series = hist.get("Series") or {}
+    history = None
+    if hist.get("Len"):
+        def last(name):
+            vals = series.get(name) or []
+            return vals[-1] if vals else None
+        history = {"Ticks": hist.get("Len"),
+                   "Throughput_rps": last("throughput_rps"),
+                   "E2e_p99_us": last("e2e_p99_us"),
+                   "Frontier_lag_ms": last("frontier_lag_ms"),
+                   "Queue_depth": last("queue_depth"),
+                   # memory-pressure evidence (SLO plane satellite):
+                   # process RSS + ColumnPool arena occupancy
+                   "Mem_kb": last("mem_kb"),
+                   "Pool_kb": last("pool_kb")}
+    slo_blk = stats.get("Slo")
+    slo = None
+    if slo_blk:
+        slo = {
+            "Objectives": slo_blk.get("Objectives"),
+            "Target": slo_blk.get("Target"),
+            "Breached": bool(slo_blk.get("Breached")),
+            "Breaches_total": int(slo_blk.get("Breaches_total", 0) or 0),
+            "Burn_rate_fast": float(slo_blk.get("Burn_rate_fast", 0)
+                                    or 0.0),
+            "Burn_rate_slow": float(slo_blk.get("Burn_rate_slow", 0)
+                                    or 0.0),
+            "Budget_burned": float(slo_blk.get("Budget_burned", 0)
+                                   or 0.0),
+            "Violating": list(slo_blk.get("Violating") or ()),
+            "Values": dict(slo_blk.get("Values") or {}),
+        }
+    failures = [e for e in flight
+                if e.get("kind") in ("node_failure", "stall")]
+    # serving plane (serving/; docs/SERVING.md): cross-tenant arbiter
+    # decisions involving this graph -- the doctor names victim,
+    # donor, action and evidence for every one
+    arbitrations = [{
+        "t": e.get("t"),
+        "victim": e.get("victim"),
+        "donor": e.get("donor"),
+        "action": e.get("action"),
+        "detail": e.get("detail"),
+        "evidence": e.get("evidence"),
+    } for e in flight if e.get("kind") == "arbitration"]
+    # online re-planning (graph/replanner.py; docs/PLANNER.md): lane
+    # flips with the measured evidence that forced them
+    replacements = [{
+        "t": e.get("t"),
+        "operator": e.get("operator"),
+        "old": e.get("old"),
+        "new": e.get("new"),
+        "trigger": e.get("trigger"),
+        "evidence": e.get("evidence"),
+    } for e in flight if e.get("kind") == "replacement"]
+    # supervised replica self-healing (durability/supervision.py): the
+    # doctor names every heal attempt -- node, backoff, rewind epoch --
+    # and whether the supervisor eventually escalated
+    heals = [{
+        "t": e.get("t"),
+        "node": e.get("node"),
+        "attempt": e.get("attempt"),
+        "delay_s": e.get("delay_s"),
+        "epoch": e.get("epoch"),
+        "outcome": e.get("outcome"),
+        "error": e.get("error"),
+    } for e in flight if e.get("kind") == "replica_restart"]
+    # tolerant-reader fallbacks (durability/store.py): a torn manifest
+    # or a missing delta blob made the restart walk back to an older
+    # fully-loadable epoch instead of crashing
+    fallbacks = [{
+        "t": e.get("t"),
+        "epoch": e.get("epoch"),
+        "reason": e.get("reason"),
+    } for e in flight if e.get("kind") == "epoch_abort"
+        and e.get("reason") in ("manifest_corrupt", "blob_missing")]
+    # tiered keyed state (state/; docs/RESILIENCE.md "Tiered state &
+    # memory pressure"): admission-control sheds under the byte budget
+    # and spill batches re-warmed by a full disk
+    pressure = [{
+        "t": e.get("t"),
+        "kind": e.get("kind"),
+        "node": e.get("node"),
+        "shed": e.get("shed"),
+        "keys": e.get("keys"),
+        "budget": e.get("budget"),
+        "mem_bytes": e.get("mem_bytes"),
+        "error": e.get("error"),
+    } for e in flight if e.get("kind") in ("state_pressure",
+                                           "spill_abort")]
+    # disk-full epoch aborts (durability/coordinator.py): the commit
+    # degraded -- last committed epoch kept, graph stayed up
+    disk_full = [{
+        "t": e.get("t"),
+        "epoch": e.get("epoch"),
+        "final": e.get("final"),
+        "error": e.get("error"),
+    } for e in flight if e.get("kind") == "epoch_abort"
+        and e.get("reason") == "disk_full"]
+    # scheduler plane (scheduler/; docs/SERVING.md "Global
+    # scheduler"): the worker's placement/lease block plus every
+    # fleet-level decision in flight -- placements, crash re-placings,
+    # structured rejections, worker deaths -- so the doctor explains
+    # WHY a tenant sits where it does (or was refused)
+    sched_blk = stats.get("Scheduler")
+    scheduler = None
+    if sched_blk:
+        dev = sched_blk.get("Devices") or {}
+        scheduler = {
+            "Worker": sched_blk.get("Worker"),
+            "Fair_share": bool(sched_blk.get("Fair_share")),
+            "Sched_wait_s": float(sched_blk.get("Sched_wait_s", 0)
+                                  or 0.0),
+            "Placements": list(sched_blk.get("Placements") or ()),
+            "Device_contended": bool(dev.get("Contended")),
+            "Device_holders": int(dev.get("Holders", 0) or 0),
+        }
+    sched_events = [{
+        "t": e.get("t"),
+        "kind": e.get("kind"),
+        "tenant": e.get("tenant"),
+        "worker": e.get("worker"),
+        "operators": e.get("operators"),
+        "reason": e.get("reason"),
+        "hint": e.get("hint"),
+    } for e in flight if e.get("kind") in (
+        "sched_place", "sched_replace", "sched_rejected",
+        "worker_death")]
+    dur = stats.get("Durability")
+    durability = None
+    if dur:
+        durability = {
+            "Committed_epoch": int(dur.get("Committed_epoch", 0) or 0),
+            "Epoch_lag_s": float(dur.get("Epoch_lag_s", 0) or 0),
+            "Last_commit_s": float(dur.get("Last_commit_s", 0) or 0),
+            "Commits": int(dur.get("Commits", 0) or 0),
+            "Aborts": int(dur.get("Aborts", 0) or 0),
+            "Stalled": bool(dur.get("Stalled")),
+            "Restored_from": dur.get("Restored_from"),
+            "Delta": bool(dur.get("Delta")),
+            "Last_commit_bytes": int(dur.get("Last_commit_bytes", 0)
+                                     or 0),
+        }
+    report = {
+        "Graph": stats.get("PipeGraph_name", "?"),
+        "Schema_version": stats.get("Schema_version"),
+        "Verdict": "",
+        "Bottleneck": bottleneck,
+        "Attribution": attribution,
+        "Anomalies": anomalies,
+        "Anomalies_total": diag.get("Anomalies_total", len(anomalies)),
+        "Slo": slo,
+        "Scheduler": scheduler,
+        "Scheduler_events": sched_events[-FLIGHT_TAIL:],
+        "Conservation": conservation,
+        "Durability": durability,
+        "Hot_keys": hot,
+        "State_tiers": state_tiers,
+        "History": history,
+        "Failures": failures,
+        "Arbitrations": arbitrations[-FLIGHT_TAIL:],
+        "Replacements": replacements[-FLIGHT_TAIL:],
+        "Replica_restarts": heals[-FLIGHT_TAIL:],
+        "Recovery_fallbacks": fallbacks[-FLIGHT_TAIL:],
+        "State_pressure": pressure[-FLIGHT_TAIL:],
+        "Disk_full": disk_full[-FLIGHT_TAIL:],
+        "Flight_tail": list(flight)[-FLIGHT_TAIL:],
+    }
+    report["Verdict"] = _verdict(report)
+    return report
+
+
+def _verdict(report: dict) -> str:
+    """One-line human summary, worst news first."""
+    parts: List[str] = []
+    if report["Failures"]:
+        kinds = sorted({e.get("kind") for e in report["Failures"]})
+        parts.append(f"FAILED ({', '.join(kinds)})")
+    cons = report["Conservation"]
+    if cons and cons["Violations"]:
+        parts.append(f"{cons['Violations']} conservation violation(s)")
+    slo = report.get("Slo")
+    if slo and slo["Breached"]:
+        b = slo["Budget_burned"] * 100
+        parts.append("SLO VIOLATED: "
+                     + _slo_detail(slo, report.get("History"))
+                     + ", budget "
+                     + (f"{b:.0f}%" if b >= 1 else "<1%")
+                     + " burned")
+    dur = report.get("Durability")
+    if dur and dur["Stalled"]:
+        # stalled epochs: barriers stopped reaching the sinks (a
+        # wedged operator, a parked source, a dead branch) -- the
+        # recovery point is frozen even though the graph may look live
+        parts.append(f"epochs STALLED (committed "
+                     f"{dur['Committed_epoch']}, oldest uncommitted "
+                     f"{dur['Epoch_lag_s']:.1f}s old)")
+    disk_full = report.get("Disk_full") or []
+    if disk_full:
+        last = disk_full[-1]
+        parts.append(f"DISK FULL: {len(disk_full)} epoch commit(s) "
+                     f"aborted, degraded to last committed epoch "
+                     f"(graph stayed up; last abort at epoch "
+                     f"{last.get('epoch')})")
+    pressure = report.get("State_pressure") or []
+    sheds = [p for p in pressure if p.get("kind") == "state_pressure"]
+    if sheds:
+        dropped = sum(int(p.get("shed") or 0) for p in sheds)
+        parts.append(f"STATE PRESSURE: {dropped} key(s) shed to the "
+                     f"dead-letter store under the byte budget "
+                     f"(last at {sheds[-1].get('node')})")
+    spill_aborts = [p for p in pressure if p.get("kind") == "spill_abort"]
+    if spill_aborts:
+        parts.append(f"{len(spill_aborts)} spill batch(es) re-warmed "
+                     f"in memory (spill disk full at "
+                     f"{spill_aborts[-1].get('node')})")
+    heals = report.get("Replica_restarts") or []
+    if heals:
+        if any(h.get("outcome") == "escalated" for h in heals):
+            parts.append(f"replica self-heal ESCALATED at "
+                         f"{heals[-1].get('node')} "
+                         f"(attempt {heals[-1].get('attempt')})")
+        else:
+            last = heals[-1]
+            parts.append(f"{len(heals)} supervised replica restart(s) "
+                         f"(healed, last {last.get('node')} rewound to "
+                         f"epoch {last.get('epoch')})")
+    fb = report.get("Recovery_fallbacks") or []
+    if fb:
+        parts.append(f"recovery fell back past {len(fb)} unreadable "
+                     f"snapshot(s) ({fb[-1].get('reason')})")
+    sched_ev = report.get("Scheduler_events") or []
+    deaths = [e for e in sched_ev if e.get("kind") == "worker_death"]
+    if deaths:
+        replaced = [e for e in sched_ev
+                    if e.get("kind") == "sched_replace"]
+        parts.append(f"worker {deaths[-1].get('worker')} DIED "
+                     f"({len(replaced)} tenant(s) re-placed)")
+    rejected = [e for e in sched_ev
+                if e.get("kind") == "sched_rejected"]
+    if rejected:
+        last = rejected[-1]
+        what = last.get("tenant") or last.get("operators")
+        parts.append(f"scheduler REJECTED {what}"
+                     + (f" ({last['reason']})"
+                        if last.get("reason") else ""))
+    bn = report["Bottleneck"] or {}
+    if bn.get("Operator"):
+        if bn.get("Verdict") == "input_bound":
+            parts.append(f"input-bound at {bn['Operator']}")
+        else:
+            parts.append(f"bottleneck: {bn['Operator']} "
+                         f"(score {bn.get('Score', 0):.2f}, "
+                         f"{bn.get('Verdict')})")
+    n_anom = len(report["Anomalies"])
+    if n_anom:
+        parts.append(f"{n_anom} active regression(s)")
+    if cons and not cons["Violations"] and cons["Balanced"]:
+        parts.append("ledger balanced")
+    return "; ".join(parts) if parts else "no diagnosis signals"
+
+
+def _slo_detail(slo: dict, history: Optional[dict]) -> str:
+    """Human phrasing of the violating objectives, citing the last
+    judged gauge value (the Slo block's ``Values``; the History row is
+    the fallback for older dumps)."""
+    obj = slo.get("Objectives") or {}
+    vals = slo.get("Values") or {}
+    hist = history or {}
+
+    def ms(v):
+        return f"{float(v):g} ms"
+
+    out = []
+    for name in slo.get("Violating") or ():
+        if name == "e2e_p99":
+            cur = vals.get("e2e_p99_ms") or (
+                (hist.get("E2e_p99_us") or 0) / 1e3 or None)
+            out.append("e2e p99 "
+                       + (ms(cur) + " > " if cur else "over ")
+                       + ms(obj.get("p99_ms", 0)))
+        elif name == "throughput":
+            cur = vals.get("throughput_rps",
+                           hist.get("Throughput_rps"))
+            out.append("throughput "
+                       + (f"{float(cur):g}" + " < " if cur is not None
+                          else "under ")
+                       + f"{float(obj.get('min_throughput_rps', 0)):g}"
+                       " rps")
+        elif name == "frontier_lag":
+            cur = vals.get("frontier_lag_ms",
+                           hist.get("Frontier_lag_ms"))
+            out.append("frontier lag "
+                       + (ms(cur) + " > " if cur else "over ")
+                       + ms(float(obj.get("max_frontier_lag_s", 0))
+                            * 1e3))
+        else:
+            out.append(name)
+    return ", ".join(out) if out else "error budget burning " \
+        f"{slo.get('Burn_rate_fast', 0):g}x"
+
+
+def _pct(v) -> str:
+    return f"{(v or 0) * 100:5.1f}%"
+
+
+def render_text(report: dict) -> str:
+    """Aligned plain-text rendering (the doctor CLI output)."""
+    out: List[str] = []
+    out.append(f"== doctor: {report.get('Graph', '?')} "
+               f"(schema {report.get('Schema_version')}) ==")
+    out.append(f"verdict: {report.get('Verdict')}")
+    bn = report.get("Bottleneck") or {}
+    if bn.get("Operator"):
+        out.append("")
+        out.append(f"bottleneck: {bn['Operator']}  "
+                   f"score={bn.get('Score', 0):.2f}  "
+                   f"verdict={bn.get('Verdict')}")
+        ev = bn.get("Evidence") or {}
+        if ev:
+            out.append(f"  depth_frac={ev.get('depth_frac')}  "
+                       f"sustained={ev.get('sustained_depth')}  "
+                       f"hwm_frac={ev.get('hwm_frac')}  "
+                       f"frontier_lag_ms={ev.get('frontier_lag_ms')}  "
+                       f"svc_us={ev.get('service_time_us')}")
+        for row in bn.get("Sinks") or []:
+            if row is not bn:
+                out.append(f"  sink {row.get('sink')}: "
+                           f"{row.get('operator')} "
+                           f"({row.get('verdict')}, "
+                           f"score {row.get('score', 0):.2f})")
+    attr = report.get("Attribution")
+    if attr:
+        out.append("")
+        out.append(f"attribution ({attr.get('Traces')} traces, "
+                   f"e2e p50 {attr.get('E2e_p50_ms')} ms / "
+                   f"p99 {attr.get('E2e_p99_ms')} ms, "
+                   f"share sum {attr.get('Share_sum')}):")
+        cls = attr.get("Classes") or {}
+        tail = attr.get("Classes_tail") or {}
+        out.append("  class              all     tail(p90+)")
+        for c in CLASSES:
+            out.append(f"  {c:<17}{_pct(cls.get(c))}  {_pct(tail.get(c))}")
+        ops = attr.get("Operators") or []
+        if ops:
+            out.append("  operator breakdown (share of traced time):")
+            for row in ops[:8]:
+                rc = row.get("classes") or {}
+                detail = " ".join(f"{c.split('_')[-1]}={_pct(rc.get(c)).strip()}"
+                                  for c in CLASSES if (rc.get(c) or 0) >= 0.0005)
+                out.append(f"    {_pct(row.get('share'))}  "
+                           f"{row.get('operator')}  [{detail}]")
+    anoms = report.get("Anomalies") or []
+    if anoms:
+        out.append("")
+        out.append("active regressions:")
+        for a in anoms:
+            out.append(f"  {a.get('series')}: {a.get('value')} outside "
+                       f"{a.get('band')}")
+    slo = report.get("Slo")
+    if slo:
+        out.append("")
+        obj = ", ".join(f"{k}={v:g}" for k, v in
+                        (slo.get("Objectives") or {}).items())
+        out.append(f"slo [{obj}] target={slo.get('Target')}: "
+                   + ("BREACHED" if slo.get("Breached") else "ok")
+                   + f"  burn fast={slo.get('Burn_rate_fast', 0):g}x "
+                   f"slow={slo.get('Burn_rate_slow', 0):g}x  "
+                   f"budget {slo.get('Budget_burned', 0) * 100:.0f}% "
+                   f"burned  episodes={slo.get('Breaches_total', 0)}")
+    cons = report.get("Conservation")
+    if cons:
+        out.append("")
+        out.append(f"conservation: balanced={cons['Balanced']} "
+                   f"violations={cons['Violations']} "
+                   f"final={cons['Final_check']}")
+    dur = report.get("Durability")
+    if dur:
+        restored = dur.get("Restored_from")
+        out.append(f"epochs: committed={dur['Committed_epoch']} "
+                   f"commits={dur['Commits']} aborts={dur['Aborts']} "
+                   f"lag={dur['Epoch_lag_s']:.1f}s "
+                   f"stalled={dur['Stalled']}"
+                   + (f" restored_from={restored}"
+                      if restored is not None else "")
+                   + (f" delta_commit_bytes="
+                      f"{dur.get('Last_commit_bytes')}"
+                      if dur.get("Delta") else ""))
+    sched = report.get("Scheduler")
+    sched_ev = report.get("Scheduler_events") or []
+    if sched or sched_ev:
+        out.append("")
+        if sched:
+            out.append(
+                f"scheduler: worker={sched.get('Worker')} "
+                f"fair_share={sched.get('Fair_share')} "
+                f"sched_wait={sched.get('Sched_wait_s', 0):.3f}s "
+                f"placements={len(sched.get('Placements') or ())}"
+                + (f"  chip CONTENDED "
+                   f"({sched.get('Device_holders')} holders)"
+                   if sched.get("Device_contended") else ""))
+            for p in sched.get("Placements") or ():
+                out.append(f"  tenant {p.get('Tenant')} @ worker "
+                           f"{p.get('Worker')}: {p.get('State')} "
+                           f"credits={p.get('Credits')} "
+                           f"prio={p.get('Priority')} "
+                           f"weight={p.get('Weight')} "
+                           f"devices={p.get('Devices')}")
+        for e in sched_ev:
+            fields = " ".join(
+                f"{k}={v}" for k, v in e.items()
+                if k not in ("t", "kind", "hint") and v is not None)
+            out.append(f"  [{e.get('t')}] {e.get('kind')} {fields}")
+            if e.get("hint"):
+                out.append(f"    hint: {e['hint']}")
+    arbs = report.get("Arbitrations") or []
+    if arbs:
+        out.append("")
+        out.append("arbitrations (cross-tenant):")
+        for a in arbs:
+            line = f"  [{a.get('t')}] {a.get('donor')} -> " \
+                   f"{a.get('victim')}: {a.get('action')}"
+            if a.get("detail"):
+                line += f": {a['detail']}"
+            out.append(line)
+    reps = report.get("Replacements") or []
+    if reps:
+        out.append("")
+        out.append("lane replacements (online re-planning):")
+        for r in reps:
+            line = f"  [{r.get('t')}] {r.get('operator')}: " \
+                   f"{r.get('old')} -> {r.get('new')} " \
+                   f"({r.get('trigger')})"
+            ev = r.get("evidence") or {}
+            if ev.get("measured_ms") is not None:
+                line += (f": measured {ev['measured_ms']} ms/launch vs "
+                         f"rtt floor {ev.get('rtt_floor_ms')} ms, "
+                         f"projected device "
+                         f"{ev.get('device_rate_tps')} t/s vs host "
+                         f"{ev.get('host_rate_tps')} t/s")
+            out.append(line)
+    heals = report.get("Replica_restarts") or []
+    if heals:
+        out.append("")
+        out.append("replica restarts (supervised self-healing):")
+        for h in heals:
+            if h.get("outcome") == "escalated":
+                out.append(f"  [{h.get('t')}] {h.get('node')}: heal "
+                           f"ESCALATED on attempt {h.get('attempt')}: "
+                           f"{h.get('error')}")
+            else:
+                out.append(f"  [{h.get('t')}] {h.get('node')}: attempt "
+                           f"{h.get('attempt')} after "
+                           f"{h.get('delay_s')}s backoff, rewound to "
+                           f"epoch {h.get('epoch')} ({h.get('error')})")
+    fb = report.get("Recovery_fallbacks") or []
+    if fb:
+        out.append("")
+        out.append("recovery fallbacks (torn/missing snapshot data):")
+        for e in fb:
+            out.append(f"  [{e.get('t')}] epoch {e.get('epoch')} "
+                       f"unreadable ({e.get('reason')}) -- fell back "
+                       f"to an older fully-loadable cut")
+    pressure = report.get("State_pressure") or []
+    disk_full = report.get("Disk_full") or []
+    if pressure or disk_full:
+        out.append("")
+        out.append("tiered state & disk pressure:")
+        for e in disk_full:
+            out.append(f"  [{e.get('t')}] epoch {e.get('epoch')} commit "
+                       f"aborted: disk full -- kept last committed "
+                       f"epoch, graph stayed up ({e.get('error')})")
+        for e in pressure:
+            if e.get("kind") == "state_pressure":
+                out.append(f"  [{e.get('t')}] {e.get('node')}: shed "
+                           f"{e.get('shed')} key(s) to dead letters "
+                           f"(mem {e.get('mem_bytes')}B over budget "
+                           f"{e.get('budget')}B)")
+            else:
+                out.append(f"  [{e.get('t')}] {e.get('node')}: spill "
+                           f"batch of {e.get('keys')} key(s) re-warmed "
+                           f"-- spill disk full ({e.get('error')})")
+    tiers = report.get("State_tiers") or {}
+    if tiers:
+        out.append("keyed-state tiers: " + ", ".join(
+            f"{t}={v['keys']} key(s)/{v['bytes']}B"
+            for t, v in tiers.items()))
+    hot = report.get("Hot_keys") or []
+    if hot:
+        out.append("hot keys: " + ", ".join(
+            f"{h['operator']} key={h['key']} share={h['share']}"
+            + (f" tier={h['tier']}" if h.get("tier") else "")
+            for h in hot[:4]))
+    hist = report.get("History")
+    if hist:
+        out.append(f"history: {hist['Ticks']} ticks, last sink rate "
+                   f"{hist['Throughput_rps']} results/s, e2e p99 "
+                   f"{hist['E2e_p99_us']} us, frontier lag "
+                   f"{hist['Frontier_lag_ms']} ms"
+                   + (f", rss {hist['Mem_kb']:.0f} KiB"
+                      f" (pool {hist.get('Pool_kb') or 0:.0f} KiB)"
+                      if hist.get("Mem_kb") else ""))
+    tail = report.get("Flight_tail") or []
+    if tail:
+        out.append("")
+        out.append("flight tail:")
+        for e in tail:
+            fields = " ".join(f"{k}={v}" for k, v in e.items()
+                              if k not in ("t", "kind"))
+            out.append(f"  [{e.get('t')}] {e.get('kind')} {fields}")
+    return "\n".join(out)

@@ -1,0 +1,356 @@
+"""Transparent lowering of record chains onto the native C++ pipeline.
+
+When a PipeGraph is a single linear MultiPipe of *declared* operators
+-- SyntheticSource/BatchSource, Filter/Map with ``Expr`` descriptors,
+a builtin-kind WinSeq/KeyFarm window aggregate, and a Sink -- the whole
+chain runs record-at-a-time inside native/record_pipeline.cpp instead
+of Python threads: the fused C++ chain with KeyFarm-parallelism
+key-sharding.  Anything undeclared (arbitrary Python callables, rich
+closing functions, splits/merges, tracing, non-DEFAULT modes) keeps the
+regular Python-plane execution -- lowering is an optimization, never a
+semantic change.
+
+This is the framework-level answer to the reference's "compile the
+user's C++ functor into the operator" model (meta.hpp): declared
+expressions compile onto C++ descriptors; opaque Python stays on the
+interpreted plane.
+
+The reference architecture itself (one thread per operator over SPSC
+queues) is available as ``NativeRecordPipeline(mode="threaded")`` and
+is what bench.py measures as the honest baseline.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from ..core.basic import Mode, WinType
+from ..core.expr import match_affine, match_predicate
+
+
+def _lower_plan(graph) -> Optional[dict]:
+    """Inspect the graph; return a lowering plan or None."""
+    from ..operators.basic_ops import Filter, Map, Sink
+    from ..operators.batch_ops import BatchFilter, BatchMap, BatchSource
+    from ..operators.key_farm import KeyFarm
+    from ..operators.synth import SyntheticSource
+    from ..operators.win_seq import WinSeq
+    from ..runtime.native import native_available
+
+    cfg = graph.config
+    if not getattr(cfg, "native_record_lowering", True):
+        return None
+    if graph.mode != Mode.DEFAULT or cfg.tracing or cfg.trace_runtime:
+        return None
+    # resilience features live in the RtNode/channel plane: a lowered
+    # run has no replicas for a FaultPlan to bind to, no channels for
+    # the watchdog to monitor, and no per-tuple svc boundary for error
+    # policies, so their presence forfeits lowering
+    if getattr(cfg, "fault_plan", None) is not None \
+            or getattr(cfg, "watchdog_timeout_s", None):
+        return None
+    # elastic operators (elastic/; docs/ELASTIC.md) need the threaded
+    # replica plane: a lowered run has no replicas to rescale
+    if getattr(graph, "elastic", None):
+        return None
+    if len(graph.pipes) != 1:
+        return None
+    mp = graph.pipes[0]
+    if mp.children or mp.merged_into is not None or not mp.has_sink:
+        return None
+    ops = getattr(mp, "_ops", None)
+    if not ops or len(ops) < 2:
+        return None
+    if any(getattr(op, "error_policy", "fail") != "fail" for op in ops):
+        return None
+    if not native_available():
+        return None
+
+    plan = {"middles": [], "window": None, "shards": 1}
+    # -- source --
+    src = ops[0]
+    if isinstance(src, SyntheticSource):
+        plan["source"] = ("synth", src)
+    elif isinstance(src, BatchSource) and src.parallelism == 1 \
+            and src.closing_func is None:
+        plan["source"] = ("feed", src)
+    else:
+        return None
+    # -- middles + window + sink --
+    from ..core.tuples import BasicRecord
+    middles, rest = list(ops[1:]), []
+    for pos, op in enumerate(middles):
+        if isinstance(op, (Filter, BatchFilter)) and not op.keyed:
+            e = getattr(op, "expr", None)
+            if e is None or getattr(op, "closing_func", None) is not None:
+                return None
+            m = match_predicate(e)
+            if m is None:
+                return None
+            plan["middles"].append(("filter", m))
+        elif isinstance(op, (Map, BatchMap)) and not op.keyed:
+            e = getattr(op, "expr", None)
+            if e is None or getattr(op, "closing_func", None) is not None:
+                return None
+            m = match_affine(e)
+            if m is None:
+                return None
+            plan["middles"].append(("map", m))
+        elif isinstance(op, (WinSeq, KeyFarm)):
+            if op.win_kind_name is None:
+                return None
+            if isinstance(op, WinSeq):
+                delay = op.kwargs.get("triggering_delay", 0)
+                factory = op.kwargs.get("result_factory", BasicRecord)
+            else:
+                delay = op.triggering_delay
+                factory = op.result_factory
+                if op.closing_func is not None:
+                    return None
+                plan["shards"] = max(1, op.parallelism)
+            # a custom result class would change the sink's record type
+            if delay != 0 or factory is not BasicRecord:
+                return None
+            plan["window"] = op
+            rest = middles[pos + 1:]
+            break
+        else:
+            return None
+    # after the window only the sink may follow: a post-window Filter/
+    # Map must see window RESULTS, which the native chain cannot express
+    if plan["window"] is None or len(rest) != 1:
+        return None
+    sink = rest[0]
+    if not isinstance(sink, Sink) or sink.closing_func is not None:
+        return None
+    plan["sink"] = sink
+    return plan
+
+
+def _window_geometry(w):
+    """(win_len, slide_len, is_tb) of a declared window operator --
+    WinSeq keeps them in kwargs, KeyFarm as attributes."""
+    win_type = w.win_type
+    is_tb = (win_type == WinType.TB if isinstance(win_type, WinType)
+             else bool(win_type))
+    if hasattr(w, "kwargs"):
+        return w.kwargs["win_len"], w.kwargs["slide_len"], is_tb
+    return w.win_len, w.slide_len, is_tb
+
+
+def _columnar_synth_spec(plan):
+    """Fold a declared SyntheticSource chain into the columnar engine's
+    synthesis law: affine value-maps compose into (vscale, voff), and
+    value-predicate filters fold to a residue MASK -- the synthetic
+    value of event e depends only on e % vmod, so each predicate is
+    decidable per residue at plan time.  Returns (mask|None, vtab)
+    when the whole chain folds, else None (record-plane fallback).
+    ``vtab`` is the per-residue value table computed by applying the
+    map chain SEQUENTIALLY -- bit-identical floats to the per-event
+    record plane, where composing the affines into one (scale, offset)
+    pair could differ by ULPs exactly at filter boundaries.
+
+    A window whose tuples are ALL filtered out never opens on the
+    record plane, while the masked engine would fire it empty, so
+    masks are only accepted when every FULL window provably contains
+    an unmasked tuple: win_len must cover a full residue cycle and
+    every per-key residue class must keep at least one unmasked
+    residue.  (The EOS tail window needs no extra proof: the engine
+    advances triggering only on surviving tuples, so an all-masked
+    tail never opens -- matching the record plane.)"""
+    import math
+
+    import numpy as np
+
+    w = plan["window"]
+    if w.win_kind_name not in ("sum", "count", "mean"):
+        return None  # max/min finalization stays on the record plane
+    src = plan["source"][1]
+    vmod = src.vmod
+    # per-residue values, evolved SEQUENTIALLY through the map chain
+    # (mirrors the record plane's per-event float ops bit for bit)
+    vals = np.arange(vmod, dtype=np.float64) * src.vscale + src.voff
+    mask = None
+    for mk, m in plan["middles"]:
+        if mk == "map":
+            field, scale, offset, square = m
+            if field != "value" or square:
+                return None  # value law must stay affine in e % vmod
+            vals = vals * scale + offset
+        else:
+            if m[0] == "mod_eq":
+                if m[1] != "value":
+                    return None
+                keep = (vals % m[2]) == m[3]
+            else:
+                op, field, c = m
+                if field != "value":
+                    return None
+                keep = {"lt": vals < c, "le": vals <= c, "gt": vals > c,
+                        "ge": vals >= c, "eq": vals == c}[op]
+            mask = keep if mask is None else (mask & keep)
+    if mask is not None:
+        if getattr(w, "_renumbering", False):
+            return None  # renumbering compacts ids AFTER the filter
+        g = math.gcd(src.n_keys, vmod)
+        win_len, _, _ = _window_geometry(w)
+        if win_len < vmod // g:
+            return None  # a window might not cover a residue cycle
+        for c in range(g):
+            if not mask[c::g].any():
+                return None  # keys of this class would have no tuples
+        mask = mask.astype(np.uint8)
+    return mask, vals
+
+
+def _run_columnar_synth(graph, plan, mask, vtab) -> bool:
+    """Execute the folded chain: fused C++ generate+filter+fold, numpy
+    window finalization over the staged pane partials, record-plane
+    emission contract at the sink."""
+    import numpy as np
+
+    from ..core.context import RuntimeContext
+    from ..core.meta import with_context
+    from ..core.tuples import BasicRecord
+    from ..runtime.native import NativeWindowEngine
+
+    w = plan["window"]
+    src = plan["source"][1]
+    win_len, slide_len, is_tb = _window_geometry(w)
+    kind = w.win_kind_name
+    # ids are dense from 0, so the renumber lane would assign the same
+    # ids (no filters reach here with renumbering -- see the spec fn)
+    eng = NativeWindowEngine(win_len, slide_len, is_tb, 0,
+                             renumber=False, kind=kind)
+    sink_ctx = RuntimeContext(1, 0)
+    sink_fn = with_context(plan["sink"].fn, 1, sink_ctx)
+
+    def drain():
+        while True:
+            out = eng.flush(1 << 20)
+            if out is None:
+                return
+            vals, starts, ends, d_keys, d_gwids, d_rts = out[:6]
+            cs = np.concatenate([[0.0], np.cumsum(vals)])
+            wins = cs[ends] - cs[starts]
+            if kind == "mean":
+                cc = np.concatenate([[0.0], np.cumsum(out[6])])
+                wins = wins / np.maximum(cc[ends] - cc[starts], 1.0)
+            for j in range(len(d_keys)):
+                sink_fn(BasicRecord(int(d_keys[j]), int(d_gwids[j]),
+                                    int(d_rts[j]), float(wins[j])))
+
+    graph._started = True
+    step = 1 << 20
+    i = 0
+    while i < src.n_events:
+        c = min(step, src.n_events - i)
+        eng.synth_ingest(i, c, src.n_keys, src.vmod, 1.0, 0.0, mask,
+                         vtab)
+        drain()
+        i += c
+    eng.eos()
+    drain()
+    graph._ended = True
+    graph._lowered = True
+    graph._lowered_columnar = True
+    sink_fn(None)
+    return True
+
+
+def try_run_native(graph) -> bool:
+    """Run the graph on the native record plane if it lowers.
+    Returns True when the run completed natively."""
+    plan = _lower_plan(graph)
+    if plan is None:
+        return False
+    if plan["source"][0] == "synth":
+        spec = _columnar_synth_spec(plan)
+        if spec is not None:
+            return _run_columnar_synth(graph, plan, *spec)
+    from ..core.context import RuntimeContext
+    from ..core.meta import with_context
+    from ..core.tuples import BasicRecord
+    from ..runtime.native import NativeRecordPipeline
+
+    w = plan["window"]
+    win_len, slide_len, is_tb = _window_geometry(w)
+    renumber = getattr(w, "_renumbering", False)
+
+    rp = NativeRecordPipeline("fused", plan["shards"], store_results=True)
+    for kind, m in plan["middles"]:
+        if kind == "map":
+            field, scale, offset, square = m
+            if square:
+                rp.add_map_affine(scale, offset, square=True)
+            elif field == "value":
+                rp.add_map_affine(scale, offset)
+            else:
+                rp.add_map_load(field, scale, offset)
+        else:
+            if m[0] == "mod_eq":
+                rp.add_filter(m[1], "mod_eq", m=m[2], r=m[3])
+            else:
+                rp.add_filter(m[1], m[0], const=m[2])
+    rp.add_window(win_len, slide_len, is_tb, w.win_kind_name,
+                  renumber=renumber)
+
+    src_kind, src = plan["source"]
+    if src_kind == "synth":
+        rp.set_synth(src.n_events, src.n_keys, src.vmod, src.vscale,
+                     src.voff)
+    else:
+        rp.set_feed()
+
+    sink_ctx = RuntimeContext(1, 0)
+    sink_fn = with_context(plan["sink"].fn, 1, sink_ctx)
+
+    graph._started = True
+    rp.start()
+    feeder = None
+    if src_kind == "feed":
+        import threading
+
+        feed_err = []
+
+        def _feed():
+            try:
+                src_ctx = RuntimeContext(1, 0)
+                src_fn = with_context(src.fn, 0, src_ctx)
+                while True:
+                    batch = src_fn()
+                    if batch is None:
+                        break
+                    rp.feed(batch.key, batch.id, batch.ts, batch["value"])
+            except BaseException as e:  # noqa: BLE001
+                feed_err.append(e)
+            finally:
+                # ALWAYS close the feed: an unclosed ring leaves shard
+                # workers spinning and poll() blocked forever
+                rp.feed_eos()
+
+        # feed from a side thread so results drain concurrently (the
+        # C++ store would otherwise buffer every window until EOS)
+        feeder = threading.Thread(target=_feed, name="native-feeder",
+                                  daemon=True)
+        feeder.start()
+    while True:
+        keys, wids, ts, vals, done = rp.poll()
+        for j in range(len(keys)):
+            sink_fn(BasicRecord(int(keys[j]), int(wids[j]), int(ts[j]),
+                                float(vals[j])))
+        if done:
+            break
+    if feeder is not None:
+        feeder.join()
+    _count, _total, dropped = rp.wait()
+    if dropped:
+        graph._count_dropped(int(dropped))
+    graph._ended = True
+    graph._lowered = True
+    if feeder is not None and feed_err:
+        from .pipegraph import NodeFailureError
+        raise NodeFailureError(
+            f"node {plan['source'][1].name} failed: "
+            f"{feed_err[0]!r}") from feed_err[0]
+    sink_fn(None)
+    return True

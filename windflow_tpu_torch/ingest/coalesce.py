@@ -1,0 +1,348 @@
+"""Chunk coalescing and double-buffered staging for ingest sources.
+
+The transport thread (the source replica's generation loop) *stages*
+decoded chunks; a dedicated flusher thread *ships* them: it coalesces
+staged chunks up to the controller's target batch size, optionally
+pre-reduces them, acquires credits and emits into the graph.  The
+bounded stage between the two is the double buffer -- the transport
+fills the next batch while the previous one pays the credit wait and
+the channel put, so socket reads overlap host->device staging exactly
+like the window engine's dispatcher overlaps host batching with device
+execution (docs/ARCHITECTURE.md decision 4, applied at the ingest
+boundary).
+
+Overload behaviour at the stage is the admission policy's job
+(`admission.py`): without one, a full stage blocks the transport
+(credit-style backpressure all the way to the peer); with one, the
+policy sheds and the shed tuples are quarantined via the owner's shed
+callback.
+
+``PanePreReducer`` is the ingest-side instance of the architecture's
+"ship partials, not tuples" rule: when the source feeds a device
+window engine whose combine is a pane-decomposable ``sum`` over
+pane-aligned TB windows (`wiring.py` proves this at graph start), each
+coalesced batch collapses to one partial per touched (key, pane)
+before it ever crosses the channel -- host->engine traffic shrinks by
+the pane length while every window result stays bit-identical, because
+window extents are pane-aligned (pane = gcd(win, slide) divides both).
+"""
+from __future__ import annotations
+
+import threading
+import time as _time
+from collections import deque
+from typing import Callable, List, Optional
+
+import numpy as np
+
+from ..core.tuples import TupleBatch
+from ..resilience.cancel import GraphCancelled
+from .admission import POLICY_DROP_NEWEST, POLICY_DROP_OLDEST, AdmissionConfig
+
+
+class PanePreReducer:
+    """Collapse a columnar batch to per-(key, pane) ``sum`` partials.
+
+    ``bin_col`` is the column the downstream engine windows on ("ts"
+    for TB windows).  The pseudo-tuple for pane *p* carries
+    ``id = ts = p * pane`` (the pane start), which lies in exactly the
+    windows that contain the pane, so the engine's firing frontier and
+    window membership are unchanged at pane granularity.  Multiple
+    partials for one pane (chunk boundaries mid-pane) are fine: the
+    engine's pane accumulators combine them like any other tuples.
+    """
+
+    __slots__ = ("pane", "bin_col", "_native")
+
+    # beyond this ratio of dense-grid size to batch length the bincount
+    # grid would be mostly empty and allocation-bound: pass through
+    MAX_GRID_EXPANSION = 4
+
+    def __init__(self, pane: int, bin_col: str = "ts"):
+        if pane < 1:
+            raise ValueError("pane must be >= 1")
+        self.pane = pane
+        self.bin_col = bin_col
+        from ..runtime.native import native_available
+        self._native = native_available()
+
+    def reduce(self, batch: TupleBatch) -> TupleBatch:
+        n = len(batch)
+        if n == 0:
+            return batch
+        keys = batch.key
+        if self._native and keys.dtype == np.int64:
+            # fused native pass (runtime/native.py): min/max scan +
+            # dense-grid accumulate, no numpy temporaries
+            from ..runtime.native import pane_prereduce
+            out = pane_prereduce(keys, batch[self.bin_col],
+                                 batch["value"], self.pane)
+            if out is not None:
+                k, p, s = out
+                return TupleBatch({"key": k, "id": p, "ts": p, "value": s})
+        bins = batch[self.bin_col] // self.pane
+        kmin, kmax = int(keys.min()), int(keys.max())
+        bmin, bmax = int(bins.min()), int(bins.max())
+        krange = kmax - kmin + 1
+        brange = bmax - bmin + 1
+        grid = krange * brange
+        if grid > self.MAX_GRID_EXPANSION * n + 1024:
+            return batch  # sparse key/pane domain: not worth a dense grid
+        comp = (keys - kmin) * brange + (bins - bmin)
+        sums = np.bincount(comp, weights=batch["value"], minlength=grid)
+        counts = np.bincount(comp, minlength=grid)
+        nz = np.nonzero(counts)[0]
+        pane_ids = (nz % brange + bmin) * self.pane
+        return TupleBatch({
+            "key": nz // brange + kmin,
+            "id": pane_ids,
+            "ts": pane_ids,
+            "value": sums[nz],
+        })
+
+
+class ChunkCoalescer:
+    """Stage + flusher pair owned by one ingest source replica."""
+
+    def __init__(self, gate, controller, *,
+                 admission: Optional[AdmissionConfig] = None,
+                 stage_cap: Optional[int] = None,
+                 shed_cb: Optional[Callable] = None,
+                 on_emit: Optional[Callable] = None,
+                 coalesce: bool = True):
+        self.gate = gate
+        self.controller = controller
+        self.admission = admission
+        # stage bound (tuples): defaults to one credit budget, so total
+        # source-side buffering is <= stage + one budget in channels
+        self.stage_cap = stage_cap or gate.budget
+        self.shed_cb = shed_cb
+        self.on_emit = on_emit          # (raw_cum, batch_len, t) hook
+        self.coalesce = coalesce
+        self.pre_reduce: Optional[PanePreReducer] = None
+        self._cond = threading.Condition()
+        self._items: deque = deque()    # staged TupleBatches (raw)
+        self._staged = 0                # staged tuples
+        self._oldest_t: Optional[float] = None
+        self._closed = False
+        self._poisoned = False
+        self._busy = False              # flusher holds popped chunks
+        self._error: Optional[BaseException] = None
+        self._thread: Optional[threading.Thread] = None
+        self._emit = None
+        # -- counters ---------------------------------------------------
+        self.tuples_staged = 0
+        self.tuples_emitted = 0         # post-pre-reduce
+        self.raw_emitted = 0            # pre-pre-reduce (transport tuples)
+        self.batches_emitted = 0
+        self.peak_staged = 0
+
+    # -- lifecycle ------------------------------------------------------
+    def ensure_started(self, emit) -> None:
+        if self._thread is None:
+            self._emit = emit
+            self._thread = threading.Thread(
+                target=self._run, name="windflow-ingest-flush", daemon=True)
+            self._thread.start()
+
+    def check_error(self) -> None:
+        err = self._error
+        if err is not None:
+            self._error = None
+            raise err
+
+    def close(self) -> None:
+        """EOS: flush everything staged, stop the flusher, surface any
+        deferred flusher error."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        self.check_error()
+
+    def abort(self) -> None:
+        """Error-path teardown: stop the flusher without flushing."""
+        self.poison()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+
+    def poison(self) -> None:
+        """CancelToken hook: wake the producer and the flusher."""
+        with self._cond:
+            self._poisoned = True
+            self._cond.notify_all()
+
+    # -- producer side (transport thread) -------------------------------
+    def put(self, batch: TupleBatch) -> None:
+        n = len(batch)
+        if n == 0:
+            return
+        adm = self.admission
+        with self._cond:
+            # a dead flusher can never drain the stage: the wait loops
+            # below must break on its stored error or put() blocks the
+            # transport thread forever with check_error() unreachable
+            # an over-cap batch is admitted once the stage is EMPTY
+            # (the credit gate's min(n, budget) rule mirrored here): a
+            # transport frame larger than the cap must not deadlock
+            if adm is None:
+                while self._staged + n > self.stage_cap \
+                        and self._staged > 0 \
+                        and not self._poisoned and self._error is None:
+                    self._cond.wait(0.1)
+            elif self._staged + n > self.stage_cap and self._staged > 0:
+                # grace period before shedding, so micro-bursts ride out
+                deadline = _time.monotonic() + adm.max_wait_ms / 1e3
+                while self._staged + n > self.stage_cap \
+                        and self._staged > 0 \
+                        and not self._poisoned and self._error is None:
+                    remaining = deadline - _time.monotonic()
+                    if remaining <= 0:
+                        batch, n = self._apply_admission_locked(batch, n)
+                        break
+                    self._cond.wait(min(remaining, 0.1))
+            if self._poisoned:
+                raise GraphCancelled("ingest stage poisoned")
+        self.check_error()
+        with self._cond:
+            if n == 0:
+                return
+            if not self._items:
+                self._oldest_t = _time.monotonic()
+            self._items.append(batch)
+            self._staged += n
+            self.tuples_staged += n
+            if self._staged > self.peak_staged:
+                self.peak_staged = self._staged
+            self._cond.notify_all()
+
+    def _apply_admission_locked(self, batch: TupleBatch, n: int):
+        """Overload: shed per policy; returns the (possibly shrunk)
+        admissible batch.  Caller holds the lock."""
+        adm = self.admission
+        if adm.policy == POLICY_DROP_NEWEST:
+            self._shed(batch, n, adm.policy)
+            return batch, 0
+        if adm.policy == POLICY_DROP_OLDEST:
+            # evict staged tuples until the arrival fits; an over-cap
+            # arrival is admitted whole once the stage is empty (same
+            # rule as the blocking path)
+            while self._items and self._staged + n > self.stage_cap:
+                old = self._items.popleft()
+                self._staged -= len(old)
+                self._shed(old, len(old), adm.policy)
+            return batch, n
+        # sample: admit a seeded-uniform subset sized to the free space
+        free = self.stage_cap - self._staged
+        idx = adm.sample_take(n, free)
+        if idx is None:
+            return batch, n
+        kept = batch.take(idx)
+        shed_n = n - len(kept)
+        if shed_n:
+            self._shed(batch, shed_n, adm.policy)
+        return kept, len(kept)
+
+    def _shed(self, batch, n, policy) -> None:
+        if self.shed_cb is not None:
+            self.shed_cb(batch, n, policy)
+
+    # -- flusher side ----------------------------------------------------
+    def _pop_coalesced_locked(self) -> List[TupleBatch]:
+        target = self.controller.target_batch()
+        out: List[TupleBatch] = []
+        got = 0
+        while self._items and (got == 0 or
+                               (self.coalesce and got < target)):
+            nxt = self._items[0]
+            if got and got + len(nxt) > target * 2:
+                break  # would badly overshoot: leave it for the next batch
+            self._items.popleft()
+            out.append(nxt)
+            got += len(nxt)
+        self._staged -= got
+        self._oldest_t = _time.monotonic() if self._items else None
+        return out
+
+    def _run(self) -> None:
+        emit = self._emit
+        try:
+            while True:
+                with self._cond:
+                    while not self._items and not self._closed \
+                            and not self._poisoned:
+                        self._cond.wait(0.05)
+                    if self._poisoned:
+                        return
+                    if not self._items:
+                        if self._closed:
+                            return
+                        continue
+                    # partial batch: hold for more unless the deadline
+                    # or EOS forces it out
+                    if (self.coalesce and not self._closed
+                            and self._staged
+                            < self.controller.target_batch()):
+                        age = _time.monotonic() - (self._oldest_t
+                                                   or _time.monotonic())
+                        if age < self.controller.flush_deadline_s():
+                            self._cond.wait(0.005)
+                            continue
+                    chunks = self._pop_coalesced_locked()
+                    self._busy = True
+                    self._cond.notify_all()
+                try:
+                    self._ship(chunks, emit)
+                finally:
+                    with self._cond:
+                        self._busy = False
+                        self._cond.notify_all()
+        except GraphCancelled:
+            return  # clean unwind; the node loop raises on its side too
+        except BaseException as e:
+            self._error = e
+            with self._cond:
+                self._cond.notify_all()
+
+    def _ship(self, chunks: List[TupleBatch], emit) -> None:
+        raw_n = sum(len(c) for c in chunks)
+        if self.pre_reduce is not None:
+            # reduce each chunk before any concatenation: the raw
+            # columns are never copied, only the (pane-sized) partials
+            chunks = [self.pre_reduce.reduce(c) for c in chunks]
+        batch = chunks[0] if len(chunks) == 1 else _concat(chunks)
+        # backpressure happens inside emit: each CreditedChannel.put
+        # spends credits per actual delivery (credits.py)
+        emit(batch)
+        self.raw_emitted += raw_n
+        self.tuples_emitted += len(batch)
+        self.batches_emitted += 1
+        if self.on_emit is not None:
+            self.on_emit(self.raw_emitted, len(batch), _time.perf_counter())
+
+    # -- live-checkpoint barrier hook ------------------------------------
+    def wait_idle(self, timeout: float = 30.0) -> bool:
+        """Block until nothing is staged or mid-ship; True if there was
+        anything in flight (the quiesce barrier loops on True)."""
+        deadline = _time.monotonic() + timeout
+        had = False
+        with self._cond:
+            while (self._items or self._busy) and not self._poisoned:
+                had = True
+                if _time.monotonic() > deadline:
+                    raise RuntimeError("ingest stage failed to drain")
+                self._cond.wait(0.01)
+        return had
+
+    def staged(self) -> int:
+        with self._cond:
+            return self._staged
+
+
+def _concat(chunks: List[TupleBatch]) -> TupleBatch:
+    names = chunks[0].cols.keys()
+    return TupleBatch({k: np.concatenate([c.cols[k] for c in chunks])
+                       for k in names})

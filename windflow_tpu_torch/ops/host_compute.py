@@ -1,0 +1,120 @@
+"""Host lane of the placement planner: numpy window computation.
+
+The cost-based placement planner (graph/planner.py) may decide that a
+window operator's batches are too small, or the transport round trip
+too long, for the device lane to pay off -- every launch would cost
+the RTT floor to compute microseconds of work.  For those operators it
+swaps :class:`~windflow_tpu_torch.ops.window_compute.WindowComputeEngine`
+for this engine: the same ``compute(cols, starts, ends, gwids) ->
+handle`` surface, evaluated synchronously in numpy on the dispatching
+thread.
+
+The programs mirror the device ones program-for-program
+(ops/window_compute.py):
+
+* sum/count/mean  -- prefix scan + two gathers (cumsum differencing);
+* max/min         -- sparse table (log-sweep of strided combines), the
+                     identical O(1) range query;
+* mean_panes      -- pane-sum / pane-count pair differencing.
+
+Accumulation runs in float64 (numpy's default), so host-placed results
+can differ from the device lane's float32 staging in the last ulps --
+the planner trades placement for throughput, never bit-identical
+routing (docs/PLANNER.md).  Custom (callable / FFAT) kinds have no
+host program; the planner pins those operators to the device lane.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+HOST_KINDS = ("sum", "count", "mean", "max", "min", "mean_panes")
+
+
+class HostBatchHandle:
+    """Synchronous twin of ops.window_compute.DeviceBatchHandle: the
+    result already materialized when ``compute`` returned."""
+
+    __slots__ = ("_arr",)
+
+    def __init__(self, arr: np.ndarray):
+        self._arr = arr
+
+    def ready(self) -> bool:
+        return True
+
+    def block(self) -> np.ndarray:
+        return self._arr
+
+
+def _scan_ranges(values: np.ndarray, starts: np.ndarray,
+                 ends: np.ndarray) -> np.ndarray:
+    c = np.concatenate([[0.0], np.cumsum(values, dtype=np.float64)])
+    return c[ends] - c[starts]
+
+
+def _sparse_table_ranges(values: np.ndarray, starts: np.ndarray,
+                         ends: np.ndarray, kind: str) -> np.ndarray:
+    """Range max/min over arbitrary (possibly overlapping) [start, end)
+    extents: the numpy transcription of _sparse_table_program."""
+    comb = np.maximum if kind == "max" else np.minimum
+    neutral = -np.inf if kind == "max" else np.inf
+    T = len(values)
+    if T == 0:
+        return np.zeros(len(starts))
+    v = values.astype(np.float64)
+    levels = [v]
+    n_levels = max(1, int(T).bit_length())
+    for j in range(1, n_levels):
+        shift = 1 << (j - 1)
+        shifted = np.concatenate([v[shift:], np.full(shift, neutral)])
+        v = comb(v, shifted)
+        levels.append(v)
+    table = np.stack(levels)
+    length = np.maximum(ends - starts, 1)
+    j = np.clip(np.floor(np.log2(length)).astype(np.int64), 0,
+                n_levels - 1)
+    hi = np.clip(ends - (1 << j), 0, T - 1)
+    lo = np.clip(starts, 0, T - 1)
+    out = comb(table[j, lo], table[j, hi])
+    return np.where(ends > starts, out, 0.0)
+
+
+class HostComputeEngine:
+    """Drop-in host replacement for WindowComputeEngine (builtin kinds
+    only).  ``compute`` evaluates immediately and returns an
+    always-ready handle, so the dispatcher's waitAndFlush protocol
+    degenerates to direct emission -- exactly what a host lane wants:
+    no pipelining, no transfer, no launch floor."""
+
+    def __init__(self, kind: str, value_col: str = "value"):
+        if not (isinstance(kind, str) and kind in HOST_KINDS):
+            raise ValueError(
+                f"host window lane supports {HOST_KINDS}, not {kind!r} "
+                "(custom combines stay on the device lane)")
+        self.kind = kind
+        self.value_col = value_col
+
+    def compute(self, cols: Dict[str, np.ndarray], starts: np.ndarray,
+                ends: np.ndarray, gwids: np.ndarray) -> HostBatchHandle:
+        starts = np.asarray(starts, np.int64)
+        ends = np.asarray(ends, np.int64)
+        if self.kind != "count":  # count never reads the value column
+            values = np.asarray(cols[self.value_col], np.float64)
+        if self.kind == "sum":
+            out = _scan_ranges(values, starts, ends)
+        elif self.kind == "count":
+            out = (ends - starts).astype(np.float64)
+        elif self.kind == "mean":
+            s = _scan_ranges(values, starts, ends)
+            n = np.maximum(ends - starts, 1)
+            out = s / n
+        elif self.kind == "mean_panes":
+            s = _scan_ranges(values, starts, ends)
+            n = _scan_ranges(np.asarray(cols["count"], np.float64),
+                             starts, ends)
+            out = s / np.maximum(n, 1)
+        else:  # max / min
+            out = _sparse_table_ranges(values, starts, ends, self.kind)
+        return HostBatchHandle(np.asarray(out, np.float64))

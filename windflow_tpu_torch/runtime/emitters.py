@@ -1,0 +1,257 @@
+"""Emitter family: the routing plane between operators.
+
+Re-design of reference L2 (SURVEY.md §2.2): an emitter decides, per
+item, which downstream replicas receive it.  Interface (the analogue of
+basic_emitter.hpp:40-58): ``emit(item, send_to)``, ``eos(send_to)`` for
+trailing markers, ``set_n_destinations``, ``clone``.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Any, Callable, List, Optional
+
+import numpy as np
+
+from ..core.meta import default_hash
+from ..core.tuples import TupleBatch
+from .node import EOSMarker
+from .queues import Watermark
+
+SendTo = Callable[[int, Any], None]
+
+
+class Emitter:
+    n_dest: int = 1
+    # per-graph ColumnPool for partition sub-batches (attached by the
+    # graph compile pass at start; None = allocate fresh columns)
+    pool = None
+
+    def set_n_destinations(self, n: int) -> None:
+        self.n_dest = n
+
+    def emit(self, item: Any, send_to: SendTo) -> None:
+        raise NotImplementedError
+
+    def eos(self, send_to: SendTo) -> None:
+        pass
+
+    def clone(self) -> "Emitter":
+        return copy.deepcopy(self)
+
+
+class StandardEmitter(Emitter):
+    """FORWARD round-robin or KEYBY hash routing
+    (standard_emitter.hpp:42-136).
+
+    Audit plane (audit/census.py): when the graph auditor is enabled a
+    space-saving hot-key sketch is attached to every KEYBY instance
+    (``key_sketch``); the batch path offers a sampled per-batch key
+    histogram, the record path a sampled scalar -- the raw input of
+    the Skew table and the elastic controller's skew signal."""
+
+    # attached by audit.GraphAuditor on KEYBY instances; None = off
+    key_sketch = None
+
+    def __init__(self, keyed: bool = False,
+                 key_of: Callable[[Any], Any] = None):
+        self.keyed = keyed
+        self.key_of = key_of or (lambda t: t.get_control_fields()[0])
+        self._rr = 0
+
+    def emit(self, item, send_to):
+        if self.n_dest == 1:
+            if self.keyed and self.key_sketch is not None:
+                self._observe_keys(item)
+            send_to(0, item)
+        elif isinstance(item, Watermark):
+            # event-time control item: every destination must observe
+            # the low-watermark (eventtime/; docs/EVENTTIME.md)
+            for d in range(self.n_dest):
+                send_to(d, item)
+        elif isinstance(item, TupleBatch):
+            if not self.keyed:
+                send_to(self._rr, item)  # whole-batch round robin
+                self._rr = (self._rr + 1) % self.n_dest
+            else:
+                sk = self.key_sketch
+                if sk is not None:
+                    sk.offer_batch(item.key)
+                # vectorized KEYBY: partition the batch by key hash
+                dests = np.abs(item.key) % self.n_dest
+                for d, sub in partition_batch(item, dests, self.pool):
+                    send_to(d, sub)
+        elif self.keyed:
+            rec = item.record if isinstance(item, EOSMarker) else item
+            sk = self.key_sketch
+            if sk is not None:
+                sk.offer(self.key_of(rec))
+            send_to(default_hash(self.key_of(rec)) % self.n_dest, item)
+        else:
+            send_to(self._rr, item)
+            self._rr = (self._rr + 1) % self.n_dest
+
+    def _observe_keys(self, item) -> None:
+        """Single-destination KEYBY: routing is trivial but the skew
+        census still wants the key distribution."""
+        sk = self.key_sketch
+        if isinstance(item, TupleBatch):
+            sk.offer_batch(item.key)
+        else:
+            rec = item.record if isinstance(item, EOSMarker) else item
+            try:
+                sk.offer(self.key_of(rec))
+            except (AttributeError, IndexError, TypeError):
+                pass  # keyless control item
+
+    def emit_many(self, items, send_to: SendTo, send_many_to) -> None:
+        """Batched-emission plane (Outlet.send_many): route a whole
+        buffer, accumulating same-destination items -- including the
+        sub-batches of a partitioned TupleBatch -- into one bulk
+        transfer per destination.  Per-destination arrival order is
+        identical to per-item emit."""
+        n = self.n_dest
+        if n == 1:
+            if self.keyed and self.key_sketch is not None:
+                for item in items:
+                    self._observe_keys(item)
+            send_many_to(0, items)
+            return
+        buckets: dict = {}
+        pool = self.pool
+        sk = self.key_sketch if self.keyed else None
+        for item in items:
+            if isinstance(item, Watermark):
+                # broadcast within the buffered run: appending to every
+                # bucket preserves each destination's arrival order
+                # relative to the surrounding data items
+                for d in range(n):
+                    buckets.setdefault(d, []).append(item)
+            elif isinstance(item, TupleBatch):
+                if not self.keyed:
+                    d = self._rr
+                    self._rr = (self._rr + 1) % n
+                    buckets.setdefault(d, []).append(item)
+                else:
+                    if sk is not None:
+                        sk.offer_batch(item.key)
+                    dests = np.abs(item.key) % n
+                    for d, sub in partition_batch(item, dests, pool):
+                        buckets.setdefault(int(d), []).append(sub)
+            elif self.keyed:
+                rec = item.record if isinstance(item, EOSMarker) else item
+                if sk is not None:
+                    sk.offer(self.key_of(rec))
+                d = default_hash(self.key_of(rec)) % n
+                buckets.setdefault(d, []).append(item)
+            else:
+                d = self._rr
+                self._rr = (self._rr + 1) % n
+                buckets.setdefault(d, []).append(item)
+        for d, run in buckets.items():
+            send_many_to(d, run)
+
+
+def partition_batch(batch, dests, pool=None):
+    """Destination partition of a TupleBatch (shared by the KEYBY
+    emitters).  A batch whose rows all route to one destination ships
+    as-is (zero copies -- the common case for few-key streams); the
+    multi-destination path uses one boolean-mask gather per
+    destination, which measures faster than a sort-based single pass
+    (the argsort dominates).  Mask selection preserves arrival order
+    within each destination; contiguous runs ship as views and, with
+    ``pool``, gathered sub-batches reuse arena buffers (core/tuples).
+    Yields (dest, sub_batch)."""
+    if len(dests) == 0:
+        return
+    lo_d, hi_d = int(dests.min()), int(dests.max())
+    if lo_d == hi_d:  # single destination: ship the batch as-is
+        yield lo_d, batch
+        return
+    for d in np.unique(dests):
+        yield int(d), batch.take(dests == d, pool)
+
+
+class BroadcastEmitter(Emitter):
+    """Replicates every item to all destinations
+    (broadcast_emitter.hpp:42-; refcounted in the reference, shared
+    object here -- downstream treats inputs as immutable)."""
+
+    def emit(self, item, send_to):
+        for d in range(self.n_dest):
+            send_to(d, item)
+
+
+class SplittingEmitter(Emitter):
+    """Runs the user splitting function returning one index or an
+    iterable of indices (splitting_emitter.hpp:41-152; signatures
+    API:165-172)."""
+
+    def __init__(self, split_fn: Callable[[Any], Any], n_branches: int):
+        self.split_fn = split_fn
+        self.n_branches = n_branches
+
+    def emit(self, item, send_to):
+        if isinstance(item, (EOSMarker, Watermark)):
+            for d in range(self.n_dest):
+                send_to(d, item)
+            return
+        out = self.split_fn(item)
+        if isinstance(out, int):
+            out = (out,)
+        for d in out:
+            if d < 0 or d >= self.n_branches:
+                raise ValueError(
+                    f"splitting function returned branch {d} outside "
+                    f"[0, {self.n_branches})")
+            send_to(d, item)
+
+
+class TreeEmitter(Emitter):
+    """Two-level emitter composition: a root emitter routes to child
+    emitters whose channels are flattened to global destination indices
+    (tree_emitter.hpp:42-229; built by opt-level-2 fusion)."""
+
+    def __init__(self, root: Emitter, children: List[Emitter]):
+        self.root = root
+        self.children = [c.clone() for c in children]
+        self.root.set_n_destinations(len(self.children))
+        # children widths are set at wiring via set_child_widths
+        self._offsets: Optional[List[int]] = None
+
+    def set_child_widths(self, widths: List[int]) -> None:
+        assert len(widths) == len(self.children)
+        self._offsets = []
+        off = 0
+        for c, w in zip(self.children, widths):
+            c.set_n_destinations(w)
+            self._offsets.append(off)
+            off += w
+        self.n_dest = off
+
+    def emit(self, item, send_to):
+        assert self._offsets is not None, "TreeEmitter not wired"
+
+        def to_child(child_idx: int):
+            off = self._offsets[child_idx]
+
+            def send_child(d: int, it: Any):
+                send_to(off + d, it)
+            return send_child
+
+        self.root.emit(item, lambda ci, it: self.children[ci].emit(
+            it, to_child(ci)))
+
+    def eos(self, send_to):
+        def to_child(child_idx: int):
+            off = self._offsets[child_idx]
+
+            def send_child(d: int, it: Any):
+                send_to(off + d, it)
+            return send_child
+
+        # root trailing items (e.g. WF per-key EOS markers) route through
+        # the child emitters exactly like regular traffic
+        self.root.eos(lambda ci, it: self.children[ci].emit(
+            it, to_child(ci)))
+        for ci, c in enumerate(self.children):
+            c.eos(to_child(ci))

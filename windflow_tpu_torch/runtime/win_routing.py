@@ -1,0 +1,271 @@
+"""Window-operator routing plane: WF / KF / WinMap emitters + collectors.
+
+Re-designs of reference ``wf/wf_nodes.hpp`` (emitter :45-249, collector
+:253-316), ``wf/kf_nodes.hpp`` (:43-180) and ``wf/wm_nodes.hpp``
+(:45-326).  These implement the reference's parallelism strategies at
+the routing level: window multicast (Win_Farm), key partitioning
+(Key_Farm), and intra-window striping (Win_MapReduce MAP stage).
+"""
+from __future__ import annotations
+
+import heapq
+from typing import Any, Callable, Dict, List
+
+from ..core.basic import Role, WinType
+from ..core.meta import default_hash
+from ..core.win_assign import wf_destinations, window_range_of
+from .emitters import Emitter, partition_batch
+from .node import EOSMarker, NodeLogic
+
+
+class _LastTupleTracker:
+    """Per-key most-recent tuple, used to forge EOS markers
+    (wf_nodes.hpp:126-138)."""
+
+    __slots__ = ("win_type", "last")
+
+    def __init__(self, win_type: WinType):
+        self.win_type = win_type
+        self.last: Dict[Any, Any] = {}
+
+    def observe(self, rec) -> None:
+        key, tid, ts = rec.get_control_fields()
+        field = tid if self.win_type == WinType.CB else ts
+        prev = self.last.get(key)
+        if prev is None or field > prev[0]:
+            self.last[key] = (field, rec)
+
+    def markers(self):
+        return [rec for _, rec in self.last.values()]
+
+
+class WFEmitter(Emitter):
+    """Win_Farm emitter: multicasts each tuple to the workers owning the
+    windows that contain it; worker of window w of a key is
+    ``(hash % pardegree + w) % pardegree`` (wf_nodes.hpp:144-202).  At
+    EOS, each key's last tuple goes to all workers as an EOS marker
+    (wf_nodes.hpp:207-227)."""
+
+    def __init__(self, win_len: int, slide_len: int, pardegree: int,
+                 win_type: WinType, role: Role = Role.SEQ,
+                 id_outer: int = 0, n_outer: int = 1, slide_outer: int = 0):
+        self.win_len = win_len
+        self.slide_len = slide_len
+        self.pardegree = pardegree
+        self.win_type = win_type
+        self.role = role
+        self.id_outer = id_outer
+        self.n_outer = n_outer
+        self.slide_outer = slide_outer
+        self.tracker = _LastTupleTracker(win_type)
+
+    def _emit_batch(self, batch, send_to):
+        """Columnar multicast: per destination d, select the rows whose
+        window range [first_w, last_w] includes a window owned by d
+        (vectorized form of wf_destinations)."""
+        import numpy as np
+        from ..core.tuples import BasicRecord
+        keys = batch.key
+        ids = batch.id if self.win_type == WinType.CB else batch.ts
+        h = np.abs(keys)
+        first_gwid = (self.id_outer - (h % self.n_outer)
+                      + self.n_outer) % self.n_outer
+        initial = first_gwid * self.slide_outer
+        if self.role in (Role.WLQ, Role.REDUCE):
+            initial = np.zeros_like(initial)
+        rel = ids - initial
+        ok = rel >= 0
+        win, slide, P = self.win_len, self.slide_len, self.pardegree
+        if win >= slide:
+            first_w = np.maximum(0, -(-(rel + 1 - win) // slide))
+            last_w = -(-(rel + 1) // slide) - 1
+        else:  # hopping
+            n = rel // slide
+            inside = (rel >= n * slide) & (rel < n * slide + win)
+            ok &= inside
+            first_w = last_w = n
+        span = last_w - first_w + 1
+        start_dst = h % P
+        # track per-key last tuples for the EOS markers (vectorized:
+        # lexsort groups keys with ascending field; the last row of each
+        # group is that key's maximum)
+        if ok.any():
+            ks, fs = keys[ok], ids[ok]
+            bi, bt = batch.id[ok], batch.ts[ok]
+            order = np.lexsort((fs, ks))
+            ks_s = ks[order]
+            last_of_group = np.nonzero(
+                np.append(np.diff(ks_s) != 0, True))[0]
+            for j in last_of_group:
+                row = order[j]
+                key = ks_s[j].item()
+                field = int(fs[row])
+                prev = self.tracker.last.get(key)
+                if prev is None or field > prev[0]:
+                    self.tracker.last[key] = (field, BasicRecord(
+                        key, int(bi[row]), int(bt[row])))
+        for d in range(P):
+            k = (d - start_dst) % P
+            mask = ok & ((span >= P) | (((k - first_w) % P) <= (last_w
+                                                               - first_w)))
+            if mask.any():
+                send_to(d, batch.take(mask))
+
+    def emit(self, item, send_to):
+        from ..core.tuples import TupleBatch
+        if isinstance(item, TupleBatch):
+            self._emit_batch(item, send_to)
+            return
+        if isinstance(item, EOSMarker):
+            for d in range(self.pardegree):
+                send_to(d, item)
+            return
+        rec = item
+        key, tid, ts = rec.get_control_fields()
+        hashcode = default_hash(key)
+        id_ = tid if self.win_type == WinType.CB else ts
+        self.tracker.observe(rec)
+        # offset for this Win_Farm when nested inside an outer farm
+        first_gwid_key = (self.id_outer - (hashcode % self.n_outer)
+                          + self.n_outer) % self.n_outer
+        initial_id = first_gwid_key * self.slide_outer
+        if self.role in (Role.WLQ, Role.REDUCE):
+            initial_id = 0
+        if id_ < initial_id:
+            return  # predates every window of this farm (wf_nodes.hpp:152)
+        first_w, last_w = window_range_of(id_, initial_id, self.win_len,
+                                          self.slide_len)
+        if first_w < 0:
+            return  # hopping-window gap
+        for d in wf_destinations(hashcode, first_w, last_w, self.pardegree):
+            send_to(d, rec)
+
+    def eos(self, send_to):
+        for rec in self.tracker.markers():
+            m = EOSMarker(rec)
+            for d in range(self.pardegree):
+                send_to(d, m)
+
+
+class KFEmitter(Emitter):
+    """Key_Farm emitter: each key's whole substream goes to one worker by
+    hash (kf_nodes.hpp:43-112)."""
+
+    def __init__(self, pardegree: int,
+                 routing: Callable[[int, int], int] = None):
+        self.pardegree = pardegree
+        self._default_routing = routing is None
+        self.routing = routing or (lambda h, n: h % n)
+
+    def emit(self, item, send_to):
+        if self.pardegree == 1:
+            send_to(0, item)  # all keys to the one worker: skip hashing
+            return
+        from ..core.tuples import TupleBatch
+        if isinstance(item, TupleBatch):
+            import numpy as np
+            if self._default_routing:
+                dests = np.abs(item.key) % self.pardegree
+            else:
+                # custom routing fn: the record path and the batch path
+                # MUST agree per key or a key's substream splits across
+                # workers (int64 batch keys hash to themselves)
+                dests = np.fromiter(
+                    (self.routing(int(k) if k >= 0 else -int(k),
+                                  self.pardegree) for k in item.key),
+                    np.int64, len(item.key))
+            for d, sub in partition_batch(item, dests, self.pool):
+                send_to(d, sub)
+            return
+        rec = item.record if isinstance(item, EOSMarker) else item
+        key = rec.get_control_fields()[0]
+        send_to(self.routing(default_hash(key), self.pardegree), item)
+
+
+class WinMapEmitter(Emitter):
+    """Win_MapReduce MAP-stage emitter: tuples of each key are striped
+    round-robin across the MAP workers so each window is split into
+    ``map_degree`` partitions (wm_nodes.hpp:45-255).  At EOS, per-key
+    last tuples are broadcast as markers so every partition closes."""
+
+    def __init__(self, map_degree: int, win_type: WinType):
+        self.map_degree = map_degree
+        self.win_type = win_type
+        self.next_dst: Dict[Any, int] = {}
+        self.tracker = _LastTupleTracker(win_type)
+
+    def emit(self, item, send_to):
+        if isinstance(item, EOSMarker):
+            for d in range(self.map_degree):
+                send_to(d, item)
+            return
+        rec = item
+        key = rec.get_control_fields()[0]
+        self.tracker.observe(rec)
+        d = self.next_dst.get(key, 0)
+        send_to(d, rec)
+        self.next_dst[key] = (d + 1) % self.map_degree
+
+    def eos(self, send_to):
+        for rec in self.tracker.markers():
+            m = EOSMarker(rec)
+            for d in range(self.map_degree):
+                send_to(d, m)
+
+
+class WidOrderCollector(NodeLogic):
+    """Reorders window results of each key by window id before
+    forwarding -- the WF/KF ordered-collector and the WinMap collector
+    (wf_nodes.hpp:253-316, kf_nodes.hpp:116-180, wm_nodes.hpp:259-326).
+
+    Ordering is a per-(key, channel) watermark-by-min merge: each
+    producer emits its own windows of a key in wid order, so a result
+    is safe to forward once every producer channel has delivered a wid
+    at or beyond it.  Unlike a dense from-0 counter, this is correct
+    for ANCHORED streams (window ids starting at an epoch-scale anchor)
+    and needs no heuristics; a key whose window count is below the
+    producer count keeps its (few) results buffered until EOS."""
+
+    def __init__(self, n_channels: int = 1):
+        self.n_channels = n_channels
+        self.maxs: Dict[Any, List[int]] = {}   # key -> per-channel max wid
+        self.pending: Dict[Any, List] = {}
+
+    def set_n_channels(self, n: int) -> None:
+        """Called at graph wiring with the upstream producer count."""
+        self.n_channels = max(1, n)
+
+    def svc(self, item, channel_id, emit):
+        if isinstance(item, EOSMarker):
+            return
+        rec = item
+        key, wid, _ = rec.get_control_fields()
+        maxs = self.maxs.get(key)
+        if maxs is None:
+            maxs = self.maxs[key] = [-1] * self.n_channels
+        if wid > maxs[channel_id]:
+            maxs[channel_id] = wid
+        heap = self.pending.setdefault(key, [])
+        heapq.heappush(heap, (wid, id(rec), rec))
+        watermark = min(maxs)
+        while heap and heap[0][0] <= watermark:
+            _, _, r = heapq.heappop(heap)
+            emit(r)
+
+    def eos_flush(self, emit):
+        for key, heap in self.pending.items():
+            while heap:
+                _, _, r = heapq.heappop(heap)
+                emit(r)
+
+    # live-checkpoint snapshots (deep copies: the resumed run keeps
+    # popping the live heaps)
+    def state_dict(self):
+        import copy
+        return {"maxs": {k: list(v) for k, v in self.maxs.items()},
+                "pending": copy.deepcopy(self.pending)}
+
+    def load_state(self, state):
+        import copy
+        self.maxs = {k: list(v) for k, v in state["maxs"].items()}
+        self.pending = copy.deepcopy(state["pending"])

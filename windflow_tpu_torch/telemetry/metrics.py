@@ -1,0 +1,491 @@
+"""OpenMetrics / Prometheus text rendering of the stats-JSON surface
+(docs/OBSERVABILITY.md).
+
+The dashboard server keeps the latest report per registered app (the
+framed TCP protocol, monitoring/dashboard.py); ``render_openmetrics``
+turns that snapshot into the OpenMetrics text exposition served at
+``GET /metrics`` on the existing web-UI HTTP server, so any Prometheus
+scraper pointed at the dashboard sees every traced graph without a new
+agent.  Latency histograms re-expose the log-bucket arrays the
+replicas recorded (telemetry/histogram.py), converted to seconds and
+cumulated into the `le` convention.
+"""
+from __future__ import annotations
+
+from typing import List
+
+CONTENT_TYPE = "application/openmetrics-text; version=1.0.0; " \
+    "charset=utf-8"
+
+
+def _esc(v) -> str:
+    """Escape a label value per the OpenMetrics ABNF."""
+    return str(v).replace("\\", "\\\\").replace('"', '\\"') \
+        .replace("\n", "\\n")
+
+
+def _labels(**kv) -> str:
+    inner = ",".join(f'{k}="{_esc(v)}"' for k, v in kv.items())
+    return "{" + inner + "}" if inner else ""
+
+
+def _hist_lines(out: List[str], name: str, hist: dict, **labels) -> None:
+    """Emit one histogram family instance from a LogHistogram dict
+    (sparse non-cumulative [le_us, count] pairs; le -1 = +Inf)."""
+    acc = 0
+    saw_inf = False
+    for le_us, count in hist.get("buckets", []):
+        acc += count
+        inf = le_us < 0
+        saw_inf = saw_inf or inf
+        le = "+Inf" if inf else repr(le_us / 1e6)
+        out.append(f"{name}_bucket{_labels(**labels, le=le)} {acc}")
+    n = hist.get("n", 0)
+    if not saw_inf:
+        # the +Inf bucket is mandatory (histogram_quantile returns NaN
+        # without it), and the sparse source only materializes the
+        # overflow bucket for >268 s observations
+        out.append(f"{name}_bucket{_labels(**labels, le='+Inf')} {n}")
+    out.append(f"{name}_count{_labels(**labels)} {n}")
+    out.append(f"{name}_sum{_labels(**labels)} "
+               f"{hist.get('sum_us', 0.0) / 1e6}")
+
+
+_COUNTERS = (
+    # (metric, per-replica stats-JSON field)
+    ("windflow_inputs", "Inputs_received"),
+    ("windflow_outputs", "Outputs_sent"),
+    ("windflow_inputs_ignored", "Inputs_ignored"),
+    ("windflow_svc_failures", "Svc_failures"),
+    ("windflow_shed_tuples", "Shed_tuples"),
+    ("windflow_device_launches", "Device_launches"),
+    ("windflow_device_bytes_to", "Bytes_to_device"),
+    ("windflow_device_bytes_from", "Bytes_from_device"),
+)
+
+
+def render_openmetrics(apps: dict) -> str:
+    """OpenMetrics text for a dashboard snapshot
+    (``DashboardServer.snapshot()``: app id -> {report, active, ...}).
+
+    Emission is FAMILY-major: every sample of a MetricFamily sits
+    contiguously under its ``# TYPE``/``# HELP`` header, across all
+    apps and operators -- the spec requires it, and strict parsers
+    (prometheus_client, promtool) reject interleaved families as a
+    clashing name."""
+    out: List[str] = []
+
+    def family(name, mtype, help_):
+        out.append(f"# TYPE {name} {mtype}")
+        out.append(f"# HELP {name} {help_}")
+
+    reports = [(str(aid), app.get("report"))
+               for aid, app in sorted(apps.items(), key=lambda kv: str(kv[0]))
+               if isinstance(app, dict) and app.get("report")]
+
+    def per_op():
+        for aid, rep in reports:
+            g = rep.get("PipeGraph_name", "")
+            for op in rep.get("Operators", []):
+                yield (op, op.get("Replicas", []),
+                       dict(app=aid, graph=g,
+                            operator=op.get("Operator_name", "")))
+
+    def per_graph():
+        for aid, rep in reports:
+            yield rep, dict(app=aid, graph=rep.get("PipeGraph_name", ""))
+
+    family("windflow_app_active", "gauge",
+           "1 while the graph keeps reporting, 0 after deregistration")
+    for aid, app in sorted(apps.items(), key=lambda kv: str(kv[0])):
+        if not isinstance(app, dict):
+            continue
+        rep = app.get("report") or {}
+        g = rep.get("PipeGraph_name", "")
+        out.append(f"windflow_app_active"
+                   f"{_labels(app=aid, graph=g)} "
+                   f"{1 if app.get('active') else 0}")
+
+    for metric, field in _COUNTERS:
+        family(metric, "counter", f"sum of per-replica {field}")
+        for _op, reps, lab in per_op():
+            out.append(f"{metric}_total{_labels(**lab)} "
+                       f"{sum(int(r.get(field, 0) or 0) for r in reps)}")
+    # device-lane derivations (docs/PLANNER.md "Resident state"): NEW
+    # bytes shipped per launch (state never re-ships on the resident
+    # lane, so the >=10x claim is measurable here) + the resident
+    # state footprint gauge
+    family("windflow_device_bytes_per_launch", "gauge",
+           "bytes shipped per device launch (events in + results out)")
+    for _op, reps, lab in per_op():
+        launches = sum(int(r.get("Device_launches", 0) or 0)
+                       for r in reps)
+        if launches:
+            shipped = sum(int(r.get("Bytes_to_device", 0) or 0)
+                          + int(r.get("Bytes_from_device", 0) or 0)
+                          for r in reps)
+            out.append(f"windflow_device_bytes_per_launch"
+                       f"{_labels(**lab)} {shipped // launches}")
+    family("windflow_device_state_bytes_resident", "gauge",
+           "per-key window state resident in device memory")
+    for _op, reps, lab in per_op():
+        resident = sum(int(r.get("Device_state_bytes_resident", 0) or 0)
+                       for r in reps)
+        if resident:
+            out.append(f"windflow_device_state_bytes_resident"
+                       f"{_labels(**lab)} {resident}")
+    family("windflow_queue_depth", "gauge",
+           "tuples parked in the operator's inbound channels")
+    for _op, reps, lab in per_op():
+        out.append(f"windflow_queue_depth{_labels(**lab)} "
+                   f"{sum(int(r.get('Queue_depth', 0) or 0) for r in reps)}")
+    family("windflow_queue_high_watermark", "gauge",
+           "peak depth of the operator's inbound channels")
+    for _op, reps, lab in per_op():
+        hwm = max((int(r.get("Queue_high_watermark", 0) or 0)
+                   for r in reps), default=0)
+        out.append(f"windflow_queue_high_watermark{_labels(**lab)} {hwm}")
+    # audit plane (audit/; docs/OBSERVABILITY.md): frontier gauges per
+    # operator (max over replicas = the most advanced replica; lag is
+    # the max = the most held-back one)
+    family("windflow_frontier", "gauge",
+           "low-watermark progress frontier (per-source position units)")
+    for _op, reps, lab in per_op():
+        fr = max((float(r.get("Frontier", 0) or 0) for r in reps),
+                 default=0.0)
+        out.append(f"windflow_frontier{_labels(**lab)} {fr}")
+    family("windflow_frontier_lag_seconds", "gauge",
+           "how long the operator's frontier has been held while work "
+           "was pending")
+    for _op, reps, lab in per_op():
+        lag = max((float(r.get("Frontier_lag_ms", 0) or 0)
+                   for r in reps), default=0.0)
+        out.append(f"windflow_frontier_lag_seconds{_labels(**lab)} "
+                   f"{lag / 1e3}")
+    # event-time plane (eventtime/; docs/EVENTTIME.md): lateness and
+    # event-time state gauges -- absent on non-event-time operators
+    # (the replica records emit them only when nonzero)
+    family("windflow_late_tuples", "counter",
+           "tuples behind the allowed-lateness horizon (quarantined "
+           "into the dead-letter store)")
+    for _op, reps, lab in per_op():
+        late = sum(int(r.get("Late_tuples", 0) or 0) for r in reps)
+        if late:
+            out.append(f"windflow_late_tuples_total{_labels(**lab)} "
+                       f"{late}")
+    family("windflow_sessions_open", "gauge",
+           "live gap sessions held by session-window replicas")
+    for _op, reps, lab in per_op():
+        if any("Sessions_open" in r for r in reps):
+            out.append(f"windflow_sessions_open{_labels(**lab)} "
+                       f"{sum(int(r.get('Sessions_open', 0) or 0) for r in reps)}")
+    family("windflow_join_state_keys", "gauge",
+           "keys holding buffered two-input join state")
+    for _op, reps, lab in per_op():
+        if any("Join_state_keys" in r for r in reps):
+            out.append(f"windflow_join_state_keys{_labels(**lab)} "
+                       f"{sum(int(r.get('Join_state_keys', 0) or 0) for r in reps)}")
+    family("windflow_parallelism", "gauge", "live replica count")
+    for op, reps, lab in per_op():
+        out.append(f"windflow_parallelism{_labels(**lab)} "
+                   f"{int(op.get('Parallelism', len(reps)) or 0)}")
+    family("windflow_service_time_seconds", "histogram",
+           "sampled per-tuple service time")
+    for op, _reps, lab in per_op():
+        lat = op.get("Latency") or {}
+        if lat.get("service"):
+            _hist_lines(out, "windflow_service_time_seconds",
+                        lat["service"], **lab)
+    family("windflow_channel_residency_seconds", "histogram",
+           "traced channel residency before the operator")
+    for op, _reps, lab in per_op():
+        lat = op.get("Latency") or {}
+        if lat.get("residency"):
+            _hist_lines(out, "windflow_channel_residency_seconds",
+                        lat["residency"], **lab)
+
+    for metric, field, help_ in (
+            ("windflow_dropped_tuples", "Dropped_tuples",
+             "mode-plane drops"),
+            ("windflow_dead_letter_tuples", "Dead_letter_tuples",
+             "tuples quarantined in the dead-letter store"),
+            ("windflow_rescales", "Rescales",
+             "completed runtime rescales")):
+        family(metric, "counter", help_)
+        for rep, lab in per_graph():
+            out.append(f"{metric}_total{_labels(**lab)} "
+                       f"{int(rep.get(field, 0) or 0)}")
+    family("windflow_memory_bytes", "gauge", "process resident memory")
+    for rep, lab in per_graph():
+        out.append(f"windflow_memory_bytes{_labels(**lab)} "
+                   f"{int(rep.get('Memory_usage_KB', 0) or 0) * 1024}")
+    # audit plane: flow-conservation ledger state per graph
+    family("windflow_conservation_violations", "counter",
+           "flow-conservation ledger violations detected by the auditor")
+    for rep, lab in per_graph():
+        cons = rep.get("Conservation") or {}
+        out.append(f"windflow_conservation_violations_total"
+                   f"{_labels(**lab)} "
+                   f"{int(cons.get('Violations_total', 0) or 0)}")
+    family("windflow_conservation_balanced", "gauge",
+           "1 when every audited edge's delivery books balance")
+    for rep, lab in per_graph():
+        cons = rep.get("Conservation") or {}
+        if cons:
+            out.append(f"windflow_conservation_balanced{_labels(**lab)} "
+                       f"{1 if cons.get('Edges_balanced') else 0}")
+    family("windflow_keyed_state_keys", "gauge",
+           "keys held by a replica's keyed state (audit census)")
+    for rep, lab in per_graph():
+        skew = rep.get("Skew") or {}
+        for row in skew.get("Census", []):
+            out.append(
+                f"windflow_keyed_state_keys"
+                f"{_labels(**lab, replica=row.get('replica', ''))} "
+                f"{int(row.get('keys', 0) or 0)}")
+    family("windflow_keyed_state_bytes", "gauge",
+           "keyed-state bytes by storage tier (tiered store census)")
+    for rep, lab in per_graph():
+        skew = rep.get("Skew") or {}
+        for row in skew.get("Census", []):
+            for tier, kb in (row.get("tiers") or {}).items():
+                out.append(
+                    f"windflow_keyed_state_bytes"
+                    f"{_labels(**lab, replica=row.get('replica', ''), tier=tier)} "
+                    f"{int(kb[1] if isinstance(kb, (list, tuple)) else kb)}")
+    family("windflow_state_spills", "counter",
+           "keys spilled to disk by tiered keyed-state stores")
+    for rep, lab in per_graph():
+        skew = rep.get("Skew") or {}
+        for row in skew.get("Census", []):
+            if "spills" in row:
+                out.append(
+                    f"windflow_state_spills_total"
+                    f"{_labels(**lab, replica=row.get('replica', ''))} "
+                    f"{int(row.get('spills', 0) or 0)}")
+    family("windflow_hot_key_share", "gauge",
+           "estimated share of the hottest key on a KEYBY edge")
+    for rep, lab in per_graph():
+        skew = rep.get("Skew") or {}
+        for row in skew.get("Hot_keys", []):
+            out.append(
+                f"windflow_hot_key_share"
+                f"{_labels(**lab, operator=row.get('operator', ''))} "
+                f"{float(row.get('share', 0) or 0)}")
+    # diagnosis plane (diagnosis/; docs/OBSERVABILITY.md): regression
+    # episodes currently outside their EWMA+MAD band, and the dominant
+    # bottleneck's pressure score (labelled with the operator the
+    # root-cause walk named)
+    family("windflow_regressions_active", "gauge",
+           "gauge series currently outside their EWMA+MAD band")
+    for rep, lab in per_graph():
+        diag = rep.get("Diagnosis") or {}
+        if diag:
+            out.append(f"windflow_regressions_active{_labels(**lab)} "
+                       f"{len(diag.get('Anomalies') or [])}")
+    family("windflow_regressions", "counter",
+           "regression episodes opened since graph start")
+    for rep, lab in per_graph():
+        diag = rep.get("Diagnosis") or {}
+        if diag:
+            out.append(f"windflow_regressions_total{_labels(**lab)} "
+                       f"{int(diag.get('Anomalies_total', 0) or 0)}")
+    family("windflow_bottleneck_score", "gauge",
+           "pressure score of the dominant bottleneck operator named "
+           "by the diagnosis root-cause walk")
+    for rep, lab in per_graph():
+        bn = (rep.get("Diagnosis") or {}).get("Bottleneck") or {}
+        if bn.get("Operator"):
+            out.append(
+                f"windflow_bottleneck_score"
+                f"{_labels(**lab, operator=bn['Operator'], verdict=bn.get('Verdict', ''))} "
+                f"{float(bn.get('Score', 0) or 0)}")
+    # SLO plane (slo/; docs/OBSERVABILITY.md "SLO plane"): burn-rate
+    # tracker gauges -- absent entirely with no declared objectives
+    family("windflow_slo_breached", "gauge",
+           "1 while an SLO breach episode is open")
+    for rep, lab in per_graph():
+        slo = rep.get("Slo")
+        if slo:
+            out.append(f"windflow_slo_breached{_labels(**lab)} "
+                       f"{1 if slo.get('Breached') else 0}")
+    family("windflow_slo_burn_rate", "gauge",
+           "error-budget burn rate over the fast/slow window "
+           "(1 = burning exactly at the target rate)")
+    for rep, lab in per_graph():
+        slo = rep.get("Slo")
+        if slo:
+            for win in ("fast", "slow"):
+                out.append(
+                    f"windflow_slo_burn_rate"
+                    f"{_labels(**lab, window=win)} "
+                    f"{float(slo.get(f'Burn_rate_{win}', 0) or 0)}")
+    family("windflow_slo_budget_burned", "gauge",
+           "fraction of the slow window's error budget consumed "
+           "(> 1 = overdrawn)")
+    for rep, lab in per_graph():
+        slo = rep.get("Slo")
+        if slo:
+            out.append(f"windflow_slo_budget_burned{_labels(**lab)} "
+                       f"{float(slo.get('Budget_burned', 0) or 0)}")
+    family("windflow_slo_breaches", "counter",
+           "SLO breach episodes opened since graph start")
+    for rep, lab in per_graph():
+        slo = rep.get("Slo")
+        if slo:
+            out.append(f"windflow_slo_breaches_total{_labels(**lab)} "
+                       f"{int(slo.get('Breaches_total', 0) or 0)}")
+    # serving plane (serving/; docs/SERVING.md): per-tenant identity +
+    # live lease -- absent entirely outside a multi-tenant Server
+    def per_tenant():
+        for rep, lab in per_graph():
+            t = rep.get("Tenant")
+            if t:
+                yield t, dict(lab, tenant=t.get("Name", ""))
+
+    family("windflow_tenant_up", "gauge",
+           "1 while the tenant's graph is RUNNING under its server")
+    for t, lab in per_tenant():
+        out.append(f"windflow_tenant_up{_labels(**lab)} "
+                   f"{1 if t.get('State') == 'RUNNING' else 0}")
+    family("windflow_tenant_credits", "gauge",
+           "live ingest-credit lease under the server's global cap")
+    for t, lab in per_tenant():
+        out.append(f"windflow_tenant_credits{_labels(**lab)} "
+                   f"{int(t.get('Credits', 0) or 0)}")
+    family("windflow_tenant_priority", "gauge",
+           "arbiter standing: higher = protected longer")
+    for t, lab in per_tenant():
+        out.append(f"windflow_tenant_priority{_labels(**lab)} "
+                   f"{int(t.get('Priority', 0) or 0)}")
+    family("windflow_tenant_weight", "gauge",
+           "arbiter tie-break inside one priority class")
+    for t, lab in per_tenant():
+        out.append(f"windflow_tenant_weight{_labels(**lab)} "
+                   f"{float(t.get('Weight', 0) or 0)}")
+    family("windflow_tenant_arbitrations", "counter",
+           "arbitration decisions this tenant was part of "
+           "(victim or donor)")
+    for t, lab in per_tenant():
+        out.append(f"windflow_tenant_arbitrations_total{_labels(**lab)} "
+                   f"{int(t.get('Arbitrations', 0) or 0)}")
+    # scheduler plane (scheduler/; docs/SERVING.md "Global
+    # scheduler"): fair-share gate waits, fleet placement identity and
+    # device leases -- absent entirely when no worker runs the plane
+    family("windflow_sched_wait_seconds", "counter",
+           "time consume loops spent blocked in the fair-share gate")
+    for _op, reps, lab in per_op():
+        waited = sum(float(r.get("Sched_wait_s", 0) or 0) for r in reps)
+        if any("Sched_wait_s" in r for r in reps):
+            out.append(f"windflow_sched_wait_seconds_total"
+                       f"{_labels(**lab)} {round(waited, 3)}")
+
+    def sched_placements():
+        for rep, lab in per_graph():
+            sched = rep.get("Scheduler")
+            if not sched:
+                continue
+            # worker-local block carries its own Placements; a merged
+            # fleet view concatenates them under the same key
+            for row in sched.get("Placements") or ():
+                yield row, lab
+
+    family("windflow_tenant_worker", "gauge",
+           "1 for the worker currently hosting the tenant "
+           "(fleet placement identity)")
+    for row, lab in sched_placements():
+        out.append(
+            f"windflow_tenant_worker"
+            f"{_labels(**lab, tenant=row.get('Tenant', ''), worker=row.get('Worker', ''))}"
+            f" 1")
+    family("windflow_device_lease", "gauge",
+           "device-lane leases held by the tenant on the worker's chip")
+    lease_counts: dict = {}
+    for rep, lab in per_graph():
+        sched = rep.get("Scheduler")
+        if not sched:
+            continue
+        blocks = [sched.get("Devices")] if sched.get("Devices") \
+            else [b.get("Devices") for b in sched.get("Workers") or ()
+                  if isinstance(b, dict) and b.get("Devices")]
+        for dev in blocks:
+            for row in dev.get("Leases") or ():
+                key = (tuple(sorted(lab.items())),
+                       row.get("Tenant", ""))
+                lease_counts[key] = lease_counts.get(key, 0) + 1
+    for (lab_items, tenant), n in sorted(lease_counts.items(),
+                                         key=lambda kv: kv[0]):
+        out.append(f"windflow_device_lease"
+                   f"{_labels(**dict(lab_items), tenant=tenant)} {n}")
+    # ColumnPool arena occupancy (memory-pressure evidence next to
+    # windflow_memory_bytes)
+    family("windflow_pool_bytes", "gauge",
+           "bytes held by the graph's ColumnPool arena")
+    for rep, lab in per_graph():
+        pool = rep.get("Pool")
+        if pool:
+            out.append(f"windflow_pool_bytes{_labels(**lab)} "
+                       f"{int(pool.get('Bytes', 0) or 0)}")
+    family("windflow_pool_buffers", "gauge",
+           "buffers held by the graph's ColumnPool arena")
+    for rep, lab in per_graph():
+        pool = rep.get("Pool")
+        if pool:
+            out.append(f"windflow_pool_buffers{_labels(**lab)} "
+                       f"{int(pool.get('Buffers', 0) or 0)}")
+    # durability plane (durability/; docs/RESILIENCE.md): epoch
+    # coordinator gauges -- absent entirely when the plane is off
+    family("windflow_epoch", "gauge",
+           "last durably committed epoch id")
+    for rep, lab in per_graph():
+        dur = rep.get("Durability") or {}
+        if dur:
+            out.append(f"windflow_epoch{_labels(**lab)} "
+                       f"{int(dur.get('Committed_epoch', 0) or 0)}")
+    family("windflow_epoch_lag_seconds", "gauge",
+           "age of the oldest uncommitted epoch (0 when current)")
+    for rep, lab in per_graph():
+        dur = rep.get("Durability") or {}
+        if dur:
+            out.append(f"windflow_epoch_lag_seconds{_labels(**lab)} "
+                       f"{float(dur.get('Epoch_lag_s', 0) or 0)}")
+    family("windflow_epoch_commit_seconds", "gauge",
+           "wall time of the last manifest commit + sink release")
+    for rep, lab in per_graph():
+        dur = rep.get("Durability") or {}
+        if dur:
+            out.append(f"windflow_epoch_commit_seconds{_labels(**lab)} "
+                       f"{float(dur.get('Last_commit_s', 0) or 0)}")
+    family("windflow_epoch_stalled", "gauge",
+           "1 while the oldest uncommitted epoch exceeds the stall "
+           "threshold")
+    for rep, lab in per_graph():
+        dur = rep.get("Durability") or {}
+        if dur:
+            out.append(f"windflow_epoch_stalled{_labels(**lab)} "
+                       f"{1 if dur.get('Stalled') else 0}")
+    family("windflow_epoch_commit_bytes", "gauge",
+           "manifest + staged blob bytes written by the last epoch "
+           "commit (delta snapshots shrink this under low churn)")
+    for rep, lab in per_graph():
+        dur = rep.get("Durability") or {}
+        if dur:
+            out.append(f"windflow_epoch_commit_bytes{_labels(**lab)} "
+                       f"{int(dur.get('Last_commit_bytes', 0) or 0)}")
+    family("windflow_replica_restarts", "counter",
+           "supervised replica restarts healed in place "
+           "(durability/supervision.py)")
+    for rep, lab in per_graph():
+        dur = rep.get("Durability") or {}
+        if dur:
+            out.append(f"windflow_replica_restarts{_labels(**lab)} "
+                       f"{int(dur.get('Replica_restarts', 0) or 0)}")
+    family("windflow_e2e_latency_seconds", "histogram",
+           "traced source-to-sink latency")
+    for rep, lab in per_graph():
+        e2e = rep.get("Latency_e2e")
+        if e2e:
+            _hist_lines(out, "windflow_e2e_latency_seconds", e2e, **lab)
+
+    out.append("# EOF")
+    return "\n".join(out) + "\n"

@@ -1,0 +1,86 @@
+"""Flight recorder: a bounded per-graph ring of structured runtime
+events (docs/OBSERVABILITY.md).
+
+Counters tell an operator *how much*; the flight recorder tells them
+*what happened just before it went wrong*: rescales, placement
+decisions, adaptive-batch resizes, credit stalls, admission sheds, svc
+failures, checkpoint epochs, watchdog stalls -- and, since the audit
+plane (audit/), ``conservation_violation`` (the flow ledger caught a
+lost/duplicated delivery) and ``frontier_stall`` (an operator's
+progress frontier froze while work was pending).  Events append into a
+``deque(maxlen=N)`` (GIL-atomic, no lock on the hot path) and the ring
+is dumped as JSONL by the stall watchdog, the ``NodeFailureError``
+path in ``PipeGraph.wait_end``, and the auditor's final closure check
+when it finds violations, so a post-mortem always has the last N
+events of history even though the process is about to unwind.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from collections import deque
+from itertools import count
+from typing import List, Optional
+
+
+class FlightRecorder:
+    """Bounded structured-event ring.  ``record()`` is safe from any
+    thread; ``capacity <= 0`` disables recording entirely.
+
+    Every event carries a per-recorder monotone ``seq``: the live
+    cluster view ships bounded flight *deltas* (events past the last
+    acknowledged seq) and the cross-worker merge dedups overlapping
+    tails by ``(worker, seq)`` (distributed/observe.py)."""
+
+    __slots__ = ("_ring", "enabled", "dumped_path", "_seq")
+
+    def __init__(self, capacity: int = 512):
+        self.enabled = capacity > 0
+        self._ring: deque = deque(maxlen=max(1, capacity))
+        self.dumped_path: Optional[str] = None
+        self._seq = count(1)  # itertools.count: GIL-atomic next()
+
+    def record(self, kind: str, **fields) -> None:
+        if not self.enabled:
+            return
+        ev = {"t": round(time.time(), 6), "seq": next(self._seq),
+              "kind": kind}
+        ev.update(fields)
+        self._ring.append(ev)
+
+    def snapshot(self) -> List[dict]:
+        return list(self._ring)
+
+    def __len__(self) -> int:
+        return len(self._ring)
+
+    def dump(self, log_dir: str, graph_name: str,
+             keep: Optional[int] = None) -> Optional[str]:
+        """Write the ring as JSONL under ``log_dir``; returns the path
+        (best-effort: an unwritable log dir must not mask the failure
+        being post-mortemed).  ``keep`` > 0 additionally rotates the
+        log dir's per-run artifact families down to the newest N
+        (monitoring.rotate_snapshots), so repeated supervised dumps do
+        not grow ``log/`` without bound."""
+        if not self.enabled:
+            return None
+        try:
+            # worker-id component (distributed/identity.py): a worker's
+            # post-mortem must not clobber its box-mates'
+            from ..distributed.identity import worker_suffix
+            os.makedirs(log_dir, exist_ok=True)
+            path = os.path.join(
+                log_dir,
+                f"{os.getpid()}_{graph_name}{worker_suffix()}"
+                "_flight.jsonl")
+            with open(path, "w") as f:
+                for ev in self.snapshot():
+                    f.write(json.dumps(ev, default=str) + "\n")
+            self.dumped_path = path
+            if keep:
+                from ..monitoring.monitor import rotate_snapshots
+                rotate_snapshots(log_dir, keep)
+            return path
+        except OSError:
+            return None
