@@ -9,16 +9,26 @@ every phase passed):
 
 1. device  -- the CUDA card's name, and its name and power limit as
    nvidia-smi reports them.
-2. build   -- the window-sum kernel (nvcc, sm_90a) and the native C++
-   engine (g++), built from the checkout's sources in parallel into
-   windflow_tpu_torch/_build/.
-3. kernel  -- the window-sum kernel against its plain torch version and
+2. build   -- the window-sum kernel K1 and the FlatFAT query kernel K2
+   (nvcc, sm_90a) and the native C++ engine (g++), built from the
+   checkout's sources in parallel into windflow_tpu_torch/_build/.
+3. kernel  -- K1, the window-sum kernel, against its plain torch version and
    a float64 numpy sum on the card, at the headline launch shape (pane
    partials, B = 4096, 2-pane extents), a wide raw-tuple shape (extents
    up to 4096 over T = 2^21) and edge cases (empty extents, extents
    ending at T, single elements): exact on integer data, rtol 1e-5 on
-   random f32.  Per shape: median kernel time (CUDA events), the bytes
-   the function must move and their share of the card's HBM rate.
+   random f32.  Per shape: device time (torch.profiler), the bytes the
+   function must move and their share of the card's HBM rate.
+   kernel K2 -- the FlatFAT query kernel against its plain torch version
+   for add, max, min and the non-commutative left_weighted test combine,
+   at the rebuild lane's launch shape of bench config 15 (one tree of
+   T_pad = 2^17 leaves, B = 4096 windows), the resident shape (16 rows x
+   8192 leaves, ring-wrap pieces), a deployment-size forest (4096 rows x
+   8192 leaves = 256 MiB, 65,536 queries up to 4096 leaves) and edges
+   (empty extents, [0, n), n = 2, end = n): exact for max/min and for add
+   on integer data, rtol 1e-5 on random f32.  Per shape: device time,
+   the bound (extents, output and each tree node the queries need, read
+   once), the plain version's time and, for add, a sparse CSR mv.
 4. main    -- the headline graph, bench.py config 2 (64M events, 64
    keys, TB window 4096 / slide 2048, source batch 2^20, device batch
    4096, buffer 2^21, 8 in flight, 10 ms delay), through PipeGraph ->
@@ -29,12 +39,29 @@ every phase passed):
    latency.
 5. profile -- the main path once more under torch.profiler: the
    device's busy and idle share and its top device ops.
+6. main15  -- bench.py config 15_resident_state at its full size (8M
+   events, 8 keys, CB window 4096 / slide 16, source batch 65,536)
+   through PipeGraph -> BatchSource -> lane -> Sink of the port, for the
+   FFAT rebuild lane (WinSeqTPU(("ffat", torch.add, 0.0)), batch 128,
+   buffer 2^21, 8 in flight) and the resident FFAT lane
+   (WinSeqFFATResident): every window equal between the lanes and to a
+   closed-form float64 oracle, shipped bytes per launch rebuild/resident
+   >= 10x, K2 launches equal to each lane's launches.  Prints tuples/s,
+   window latency p50/p99 and the forest's resident bytes.
+7. resident pane -- WinSeqTPU("sum", 4096, 64, CB) with value_of on the
+   same stream, promoted by the planner onto the resident pane lane,
+   against resident=False: bitwise equal, equal to the oracle, K2
+   launches equal to the resident launches.
+8. profile15 -- the resident FFAT lane once more under torch.profiler,
+   at 1M events (an eighth of the run): device busy and idle share, top
+   device ops.
 
 Then one JSON line describing each kernel, the card line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -85,7 +112,7 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 def build_all() -> None:
-    from windflow_tpu_torch.ops.cuda import window_sum
+    from windflow_tpu_torch.ops.cuda import flatfat_query, window_sum
     from windflow_tpu_torch.runtime import native
 
     results = {}
@@ -100,6 +127,7 @@ def build_all() -> None:
     t0 = time.perf_counter()
     threads = [threading.Thread(target=run, args=(n, f)) for n, f in
                (("window_sum.cu (nvcc)", window_sum.load_kernel),
+                ("flatfat_query.cu (nvcc)", flatfat_query.load_kernel),
                 ("native/*.cpp (g++)", native.get_lib))]
     for t in threads:
         t.start()
@@ -358,16 +386,17 @@ class LatencySink:
             self.lats.extend((now - np.asarray(self.stamps)[chunk]).tolist())
 
 
-def find_logic(graph):
+def find_logic(graph, cls=None):
     from windflow_tpu_torch.operators.tpu.win_seq_tpu import WinSeqTPULogic
     from windflow_tpu_torch.runtime.node import FusedLogic
+    cls = cls or WinSeqTPULogic
     found = []
     for node in graph._all_nodes():
         logics = ([s.logic for s in node.logic.segments]
                   if isinstance(node.logic, FusedLogic) else [node.logic])
-        found += [lg for lg in logics if isinstance(lg, WinSeqTPULogic)]
+        found += [lg for lg in logics if isinstance(lg, cls)]
     if len(found) != 1:
-        raise AssertionError(f"expected one WinSeqTPU logic, found "
+        raise AssertionError(f"expected one {cls.__name__}, found "
                              f"{len(found)}")
     return found[0]
 
@@ -449,6 +478,470 @@ def profile_main(card: str) -> None:
         f"{top} ({card})")
 
 
+# ---------------------------------------------------------------------------
+# 3b. the FlatFAT query kernel (K2) against its plain version
+# ---------------------------------------------------------------------------
+
+# bench.py config 15_resident_state (bench.py:1737-1832, run at :2559
+# with N_EVENTS // 8)
+N15 = 8_000_000
+KEYS15 = 8
+WIN15, SLIDE15 = 4096, 16
+SOURCE15 = 65_536
+BATCH15 = 128
+# the rebuild lane's launch shape there: the whole-partition device step
+# launches once per 65,536-event chunk, so a launch carries 4096 windows
+# over the 8 keys' retained series (~98k values), padded to T_pad = 2^17
+# and B_pad = 4096 ([main15] checks this against the run)
+T_PAD15, B_PAD15 = 1 << 17, 4096
+# the resident forest: 16 initial rows x pow2(4096 + 16 + 1024) leaves;
+# a chunk of 1024 leaves fires 64 windows -> 256 padded query pieces
+RES_K, RES_N, RES_CHUNK = 16, 8192, 1024
+# the resident pane lane's slide (pane = gcd(4096, 64) = 64 >= 16)
+PANE_SLIDE = 64
+
+
+def k2_combines():
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    # name -> (combine, neutral, f32 ops per combine)
+    return {"add": (torch.add, 0.0, 1), "max": (torch.maximum, -np.inf, 1),
+            "min": (torch.minimum, np.inf, 1),
+            "left_weighted": (fq._left_weighted, 0.0, 2)}
+
+
+def forest_of(leaves: torch.Tensor, comb) -> torch.Tensor:
+    """[K, 2n] heap forest over leaves [K, n], one combine per level."""
+    K, n = leaves.shape
+    tree = torch.zeros((K, 2 * n), dtype=torch.float32, device=leaves.device)
+    tree[:, n:] = leaves
+    lo = n // 2
+    while lo >= 1:
+        ch = tree[:, 2 * lo: 4 * lo]
+        tree[:, lo: 2 * lo] = comb(ch[:, 0::2], ch[:, 1::2])
+        lo //= 2
+    return tree
+
+
+def k2_shapes(rng):
+    """name -> (K, n, rows or None, starts, ends) at the main paths'
+    launch shapes, a deployment-size forest and edges."""
+    from windflow_tpu_torch.ops.flatfat_torch import BatchedFlatFAT
+    shapes = {}
+    # rebuild lane: one tree over the 8 keys' series, 512 windows each
+    per_key = WIN15 + (B_PAD15 // KEYS15 - 1) * SLIDE15
+    off = np.repeat(np.arange(KEYS15) * per_key, B_PAD15 // KEYS15)
+    starts = off + np.tile(np.arange(B_PAD15 // KEYS15) * SLIDE15, KEYS15)
+    shapes["rebuild"] = (1, T_PAD15, None, starts, starts + WIN15)
+    # resident lane: one chunk's 64 windows of one key, ring-wrapping
+    pack = BatchedFlatFAT(torch.add, 0.0, RES_K, RES_N, device="cpu")
+    first = 5 * RES_N + 4000  # past several ring turns; half wrap
+    qs = first + np.arange(RES_CHUNK // SLIDE15) * SLIDE15
+    k2, s2, e2, wraps, _B = pack._pack_queries(np.full(len(qs), 3), qs,
+                                               qs + WIN15)
+    assert wraps.any()
+    shapes["resident"] = (RES_K, RES_N, k2, s2, e2)
+    # deployment-size forest: 4096 keys x 8192 leaves (256 MiB)
+    B = 65_536
+    s = rng.integers(0, RES_N, B)
+    shapes["deploy"] = (4096, RES_N, rng.integers(0, 4096, B), s,
+                        np.minimum(s + rng.integers(1, WIN15 + 1, B), RES_N))
+    shapes["edges16"] = (1, 16, None, np.array([0, 3, 0, 15, 16, 7, 9]),
+                         np.array([0, 3, 16, 16, 16, 16, 4]))
+    shapes["edges2"] = (1, 2, None, np.array([0, 0, 1, 2, 1]),
+                        np.array([2, 1, 2, 2, 1]))
+    return shapes
+
+
+def walk_work(n: int, rows, starts, ends, ops_per_combine: int):
+    """(bytes, f32 ops) the queries need on these inputs: extents, row
+    ids and outputs once, each distinct tree node the walks take read
+    once; one combine per node taken plus the final one."""
+    two_n = 2 * n
+    levels = n.bit_length() - 1
+    r = np.zeros(len(starts), np.int64) if rows is None else \
+        np.asarray(rows, np.int64)
+    s = np.clip(np.asarray(starts, np.int64), 0, n)
+    e = np.clip(np.asarray(ends, np.int64), 0, n)
+    lo, hi, base = s + n, e + n, r * two_n
+    nodes, combines = [], int((e > s).sum())
+    for _ in range(levels + 1):
+        tl = (lo < hi) & ((lo & 1) == 1)
+        nodes.append((base + lo)[tl])
+        lo = np.where(tl, lo + 1, lo)
+        tr = (lo < hi) & ((hi & 1) == 1)
+        hi = np.where(tr, hi - 1, hi)
+        nodes.append((base + hi)[tr])
+        combines += int(tl.sum() + tr.sum())
+        lo, hi = lo >> 1, hi >> 1
+    distinct = len(np.unique(np.concatenate(nodes)))
+    B = len(starts)
+    nbytes = 8 * B + (4 * B if rows is not None else 0) + 4 * B \
+        + 4 * distinct
+    return nbytes, combines * ops_per_combine
+
+
+def range_csr(n_cols: int, n: int, rows, starts, ends, device):
+    """The queries as a [B, K*n] 0/1 CSR matrix over the forest's leaves:
+    the library yardstick sums them as one sparse matrix-vector product."""
+    s = torch.as_tensor(np.asarray(starts, np.int64), device=device)
+    e = torch.as_tensor(np.asarray(ends, np.int64), device=device)
+    r = (torch.zeros_like(s) if rows is None else
+         torch.as_tensor(np.asarray(rows, np.int64), device=device))
+    lens = torch.clamp(e - s, min=0)
+    crow = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+    nnz = int(crow[-1])
+    cols = torch.repeat_interleave(r * n + s - crow[:-1], lens,
+                                   output_size=nnz) \
+        + torch.arange(nnz, device=device)
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            crow, cols, torch.ones(nnz, dtype=torch.float32, device=device),
+            size=(len(starts), n_cols))
+
+
+def check_k2(device, card: str) -> dict:
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    rng = np.random.default_rng(1)
+    out = {}
+    worst_err = 0.0
+    for name, (K, n, rows, starts, ends) in k2_shapes(rng).items():
+        r_d = None if rows is None else torch.from_numpy(
+            np.asarray(rows, np.int32)).to(device)
+        s_d = torch.from_numpy(np.asarray(starts, np.int32)).to(device)
+        e_d = torch.from_numpy(np.asarray(ends, np.int32)).to(device)
+        ints = torch.from_numpy(
+            rng.integers(0, 97, (K, n)).astype(np.float32)).to(device)
+        f32 = torch.from_numpy(
+            rng.random((K, n), dtype=np.float32)).to(device)
+        times = []
+        for cname, (comb, neutral, opc) in k2_combines().items():
+            for integer in ((True, False) if cname == "add" else (False,)):
+                tree = forest_of(ints if integer else f32, comb)
+                k = fq.flatfat_query(tree, r_d, s_d, e_d, comb, neutral)
+                p = fq.flatfat_query_plain(tree, r_d, s_d, e_d, comb,
+                                           neutral)
+                torch.cuda.synchronize()
+                k, p = k.cpu().numpy(), p.cpu().numpy()
+                if integer or cname in ("max", "min"):
+                    if not np.array_equal(k, p):
+                        raise AssertionError(
+                            f"[kernel K2] {name} {cname}: not exact, err "
+                            f"{np.nanmax(np.abs(k - p))}")
+                else:
+                    np.testing.assert_allclose(
+                        k, p, rtol=RTOL_F32, atol=1e-6,
+                        err_msg=f"[kernel K2] {name} {cname} f32")
+                fin = np.isfinite(p)
+                if not np.array_equal(fin, np.isfinite(k)):
+                    raise AssertionError(f"[kernel K2] {name} {cname}: "
+                                         f"non-finite results differ")
+                if fin.any():
+                    worst_err = max(worst_err, float(
+                        np.abs(k[fin] - p[fin]).max()))
+            t_k = timed(lambda: fq.flatfat_query(tree, r_d, s_d, e_d, comb,
+                                                 neutral))
+            times.append(f"{cname} {fmt(t_k)}")
+            if cname == "add":
+                add_tree, add_k = tree, t_k
+        t_p = timed(lambda: fq.flatfat_query_plain(
+            add_tree, r_d, s_d, e_d, torch.add, 0.0), reps=20)
+        nbytes, ops = walk_work(n, rows, starts, ends, 1)
+        bms, bound_by = bound_ms(nbytes, ops)
+        ms, plain_ms = (d if d is not None else w for d, w in (add_k, t_p))
+        lib_ms, lib_txt = None, "none"
+        if name != "edges2":
+            csr = range_csr(K * n, n, rows, starts, ends, device)
+            leaves = add_tree[:, n:].reshape(-1).contiguous()
+            lib = torch.mv(csr, leaves).cpu().numpy()
+            ref = fq.flatfat_query(add_tree, r_d, s_d, e_d, torch.add,
+                                   0.0).cpu().numpy()
+            np.testing.assert_allclose(lib, ref, rtol=RTOL_F32, atol=1e-5,
+                                       err_msg=f"[kernel K2] {name} mv")
+            t_l = timed(lambda: torch.mv(csr, leaves), reps=20)
+            lib_ms = t_l[0] if t_l[0] is not None else t_l[1]
+            lib_txt = fmt(t_l)
+            del csr
+        log(f"[kernel K2] {name}: K={K} n={n} B={len(starts)} "
+            f"max_extent={int(np.max(np.asarray(ends) - np.asarray(starts)))}"
+            f"; exact on integers and max/min, rtol {RTOL_F32} on f32; "
+            f"device ms per call (wall ms per call): kernel "
+            f"{'; '.join(times)}; plain (add) {fmt(t_p)}; sparse mv (add) "
+            f"{lib_txt}, range max/min: no library call; bound {bms:.4g} "
+            f"ms ({bound_by}; {nbytes} B, {ops} combines) ({card})")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": bound_by, "library_ms": lib_ms}
+        del ints, f32, tree, add_tree
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = worst_err
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 6. bench config 15 through both FFAT lanes
+# ---------------------------------------------------------------------------
+
+class RecordSink:
+    """Per-record sink with bench.py's window latency (config 15): birth
+    = emit stamp of the source chunk carrying the window's closing tuple
+    (id w*slide + win - 1 of its key), emission = arrival."""
+
+    def __init__(self, stamps, slide):
+        self.stamps = stamps
+        self.slide = slide
+        self.lock = threading.Lock()
+        self.rows = []
+
+    def __call__(self, r):
+        if r is None:
+            return
+        now = time.perf_counter()
+        with self.lock:
+            self.rows.append((r.key, r.id, r.value, now))
+
+    def columns(self):
+        a = np.array([(k, i) for k, i, _v, _t in self.rows], np.int64)
+        keys, ids = (a[:, 0], a[:, 1]) if len(a) else (a, a)
+        vals = np.array([v for _k, _i, v, _t in self.rows], np.float64)
+        now = np.array([t for _k, _i, _v, t in self.rows])
+        closing = (ids * self.slide + WIN15 - 1) * KEYS15 + keys
+        chunk = np.minimum(closing // SOURCE15, len(self.stamps) - 1)
+        lats = now - np.asarray(self.stamps)[chunk]
+        return keys, ids, vals, lats
+
+
+def run15(make_op, n_events: int, slide: int, before_run=None):
+    """One config-15 graph on the card: BatchSource of the stream law
+    (key = e % 8, id = ts = e // 8, value = e % 97) -> op -> Sink."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.core.tuples import TupleBatch
+    from windflow_tpu_torch.operators.basic_ops import Sink
+    from windflow_tpu_torch.operators.batch_ops import BatchSource
+
+    stamps: list = []
+    state = {"i": 0}
+
+    def source():
+        i = state["i"]
+        if i >= n_events:
+            return None
+        state["i"] = i + SOURCE15
+        stamps.append(time.perf_counter())
+        idx = np.arange(i, min(i + SOURCE15, n_events))
+        return TupleBatch({"key": idx % KEYS15, "id": idx // KEYS15,
+                           "ts": idx // KEYS15,
+                           "value": (idx % VMOD).astype(np.float64)})
+
+    sink = RecordSink(stamps, slide)
+    g = wf.PipeGraph("chip_smoke15", wf.Mode.DEFAULT,
+                     config=wf.RuntimeConfig(device="cuda"))
+    g.add_source(BatchSource(source)).add(make_op()).add_sink(Sink(sink))
+    if before_run is not None:
+        before_run(g)
+    t0 = time.perf_counter()
+    g.run()
+    return g, sink, time.perf_counter() - t0
+
+
+def oracle15(n_events: int, slide: int):
+    """(keys, ids, sums) of every window of the config-15 law, float64:
+    key k holds ids 0..M-1 with value (id*8 + k) % 97; CB window w covers
+    ids [w*slide, w*slide + 4096) clipped at M, for every w*slide < M
+    (partial tail windows flush at EOS)."""
+    M = n_events // KEYS15
+    n_win = (M - 1) // slide + 1
+    w = np.arange(n_win)
+    keys, ids, sums = [], [], []
+    for k in range(KEYS15):
+        c = np.concatenate([[0], np.cumsum((np.arange(M) * KEYS15 + k)
+                                           % VMOD)])
+        sums.append((c[np.minimum(w * slide + WIN15, M)]
+                     - c[w * slide]).astype(np.float64))
+        keys.append(np.full(n_win, k))
+        ids.append(w)
+    return np.concatenate(keys), np.concatenate(ids), np.concatenate(sums)
+
+
+def sorted_windows(sink, tag: str):
+    keys, ids, vals, lats = sink.columns()
+    order = np.lexsort((ids, keys))
+    keys, ids, vals = keys[order], ids[order], vals[order]
+    if len(keys) > 1 and np.any((np.diff(keys) == 0) & (np.diff(ids) == 0)):
+        raise AssertionError(f"[{tag}] duplicate windows")
+    return keys, ids, vals, lats
+
+
+def hold_to_oracle(got, want, tag: str) -> None:
+    keys, ids, vals = got[:3]
+    if len(keys) != len(want[0]) or not (
+            np.array_equal(keys, want[0]) and np.array_equal(ids, want[1])
+            and np.array_equal(vals, want[2])):
+        n_bad = (int((vals != want[2]).sum())
+                 if len(vals) == len(want[2]) else -1)
+        raise AssertionError(f"[{tag}] {len(keys)} windows vs oracle "
+                             f"{len(want[0])}; {n_bad} values differ")
+
+
+def bytes_per_launch(logic) -> float:
+    st = logic.stats
+    if st is None or not st.num_launches:
+        raise AssertionError("device byte accounting missing")
+    return (st.bytes_to_device + st.bytes_from_device) / st.num_launches
+
+
+def main15(card: str) -> dict:
+    from windflow_tpu_torch.operators.tpu.ffat_resident import (
+        WinSeqFFATResident, WinSeqFFATResidentLogic)
+    from windflow_tpu_torch.operators.tpu.win_seq_tpu import WinSeqTPU
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    from windflow_tpu_torch.ops.cuda.window_sum import next_pow2
+    import windflow_tpu_torch as wf
+
+    want = oracle15(N15, SLIDE15)
+    shapes = collections.Counter()
+
+    def record_shapes(g):
+        eng = find_logic(g).engine
+        compute = eng.compute
+
+        def recorded(cols, starts, ends, gwids):
+            T = len(next(iter(cols.values())))
+            # windows per launch shape
+            shapes[(next_pow2(max(T, 2048)),
+                    next_pow2(max(len(starts), 2048)))] += len(starts)
+            return compute(cols, starts, ends, gwids)
+        eng.compute = recorded
+
+    lanes = {}
+    for lane, make, cls, hook in (
+            ("rebuild", lambda: WinSeqTPU(
+                ("ffat", torch.add, 0.0), WIN15, SLIDE15, wf.WinType.CB,
+                batch_len=BATCH15, max_buffer_elems=MAX_BUFFER,
+                inflight_depth=INFLIGHT), None, record_shapes),
+            ("resident", lambda: WinSeqFFATResident(
+                lambda t: t.value, torch.add, 0.0, WIN15, SLIDE15,
+                wf.WinType.CB), WinSeqFFATResidentLogic, None)):
+        fq.reset_launch_count()
+        g, sink, secs = run15(make, N15, SLIDE15, hook)
+        launches = fq.launch_count()
+        logic = find_logic(g, cls)
+        if logic.device is None or logic.device.type != "cuda":
+            raise AssertionError(f"[main15] {lane} device {logic.device}")
+        if launches <= 0 or launches != logic.launched_batches:
+            raise AssertionError(
+                f"[main15] {lane}: K2 launches {launches} != batches "
+                f"launched {logic.launched_batches}")
+        got = sorted_windows(sink, f"main15 {lane}")
+        hold_to_oracle(got, want, f"main15 {lane}")
+        p50, p99 = (float(np.percentile(got[3], q)) * 1e3 for q in (50, 99))
+        lanes[lane] = {"bpl": bytes_per_launch(logic), "launches": launches,
+                       "state": logic.device_resident_bytes()
+                       if lane == "resident" else 0}
+        log(f"[main15] {lane} lane: {N15} events in {secs:.3f} s = "
+            f"{N15 / secs:.1f} tuples/s; {len(got[0])} windows match the "
+            f"oracle exactly; window latency p50 {p50:.3f} ms, p99 "
+            f"{p99:.3f} ms; {launches} K2 launches = "
+            f"{logic.launched_batches} batches; "
+            f"{lanes[lane]['bpl']:.1f} bytes shipped per launch"
+            + (f"; Device_state_bytes_resident {lanes[lane]['state']}"
+               if lane == "resident" else
+               f"; windows per launch shape (T_pad, B_pad): "
+               f"{dict(shapes)}")
+            + f" ({card})")
+    if shapes.most_common(1)[0][0] != (T_PAD15, B_PAD15):
+        raise AssertionError(f"[main15] rebuild launch shapes {shapes}: "
+                             f"[kernel K2] timed another shape")
+    ratio = lanes["rebuild"]["bpl"] / lanes["resident"]["bpl"]
+    if ratio < 10:
+        raise AssertionError(f"[main15] bytes/launch ratio {ratio:.2f} < 10")
+    log(f"[main15] both lanes equal window for window; shipped bytes per "
+        f"launch rebuild/resident = {ratio:.1f}x")
+    return {"launches": lanes["rebuild"]["launches"]
+            + lanes["resident"]["launches"]}
+
+
+def resident_pane(card: str) -> int:
+    """WinSeqTPU sum over panes of 64 on the config-15 stream: promoted
+    onto the resident pane lane by the planner, against resident=False."""
+    from windflow_tpu_torch.operators.tpu.win_seq_tpu import WinSeqTPU
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    from windflow_tpu_torch.ops.cuda import window_sum
+    import windflow_tpu_torch as wf
+
+    want = oracle15(N15, PANE_SLIDE)
+    got = {}
+    k2 = 0
+    for resident in (None, False):
+        fq.reset_launch_count()
+        window_sum.reset_launch_count()
+        g, sink, secs = run15(lambda: WinSeqTPU(
+            "sum", WIN15, PANE_SLIDE, wf.WinType.CB, placement="device",
+            value_of=lambda t: t.value, resident=resident), N15, PANE_SLIDE)
+        logic = find_logic(g)
+        entry = g.placements[0]
+        tag = "resident" if resident is None else "rebuild"
+        if bool(entry.get("resident")) != (resident is None):
+            raise AssertionError(f"[resident pane] {tag}: placement {entry}")
+        count = fq if resident is None else window_sum
+        launches = count.launch_count()
+        if launches <= 0 or launches != logic.launched_batches:
+            raise AssertionError(
+                f"[resident pane] {tag}: kernel launches {launches} != "
+                f"batches launched {logic.launched_batches}")
+        if resident is None:
+            k2 = launches
+        got[tag] = sorted_windows(sink, f"resident pane {tag}")
+        hold_to_oracle(got[tag], want, f"resident pane {tag}")
+        p50, p99 = (float(np.percentile(got[tag][3], q)) * 1e3
+                    for q in (50, 99))
+        log(f"[resident pane] {tag} lane: {N15} events in {secs:.3f} s = "
+            f"{N15 / secs:.1f} tuples/s; {len(got[tag][0])} windows match "
+            f"the oracle; p50 {p50:.3f} ms, p99 {p99:.3f} ms; {launches} "
+            f"{'K2' if resident is None else 'K1'} launches = "
+            f"{logic.launched_batches} batches; "
+            f"{bytes_per_launch(logic):.1f} bytes per launch; "
+            f"Device_state_bytes_resident {logic.device_resident_bytes()} "
+            f"({card})")
+    if not all(np.array_equal(a, b) for a, b in zip(got["resident"][:3],
+                                                     got["rebuild"][:3])):
+        raise AssertionError("[resident pane] lanes differ")
+    log("[resident pane] resident and rebuild lanes bitwise equal")
+    return k2
+
+
+def profile15(card: str, n_events: int) -> None:
+    """The resident FFAT lane once more under torch.profiler (CUDA
+    activity only): device busy and idle share, top device ops."""
+    from windflow_tpu_torch.operators.tpu.ffat_resident import \
+        WinSeqFFATResident
+    import windflow_tpu_torch as wf
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        g, sink, secs = run15(lambda: WinSeqFFATResident(
+            lambda t: t.value, torch.add, 0.0, WIN15, SLIDE15,
+            wf.WinType.CB), n_events, SLIDE15)
+    hold_to_oracle(sorted_windows(sink, "profile15"),
+                   oracle15(n_events, SLIDE15), "profile15")
+    ops = sorted(((getattr(e, "self_device_time_total", 0) / 1e3, e.count,
+                   e.key) for e in prof.key_averages()), reverse=True)
+    busy = sum(ms for ms, _n, _k in ops)
+    top = "; ".join(f"{k[:48]} x{n} {ms:.3f} ms" for ms, n, k in ops[:8]
+                    if ms > 0)
+    log(f"[profile15] resident lane, {n_events} events, under the "
+        f"profiler: wall {secs:.3f} s, device busy {busy:.3f} ms = "
+        f"{100 * busy / (secs * 1e3):.3f}% (idle "
+        f"{100 - 100 * busy / (secs * 1e3):.3f}%); top device ops: {top} "
+        f"({card})")
+
+
+def kernel_entry(name, source, replaces, launches, err, t) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -465,6 +958,8 @@ def main() -> int:
 
     build_all()
     k1 = check_kernel(device, card)
+    k2 = check_k2(device, card)
+    log(f"[smoke] kernels checked at {time.perf_counter() - t_start:.1f} s")
 
     window_sum.reset_launch_count()
     g, sink, secs = run_main(N_EVENTS, "cuda")
@@ -484,21 +979,27 @@ def main() -> int:
         f"{p99:.3f} ms; {launches} kernel launches = "
         f"{logic.launched_batches} batches ({card})")
     profile_main(card)
+
+    # K2's paths, each driven with the launch count set to 0 just before
+    # it and read just after: the two FFAT lanes, the resident pane lane
+    k2_launches = main15(card)["launches"]
+    log(f"[smoke] main15 done at {time.perf_counter() - t_start:.1f} s")
+    k2_launches += resident_pane(card)
+    log(f"[smoke] resident pane done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    # an eighth of the run: at the full 8M events the profiler's
+    # processing of its ~2M kernel records alone took over 5 minutes
+    profile15(card, N15 // 8)
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
-    log(json.dumps({"kernels": [{
-        "name": "window_sum",
-        "route": "cuda",
-        "source": "windflow_tpu_torch/ops/cuda/window_sum.cu",
-        "replaces": "windflow_tpu/ops/pallas/window_sum.py:62",
-        "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
-    }]}))
+    log(json.dumps({"kernels": [
+        kernel_entry("window_sum", "windflow_tpu_torch/ops/cuda/window_sum.cu",
+                     "windflow_tpu/ops/pallas/window_sum.py:62", launches,
+                     k1["max_abs_err"], k1),
+        kernel_entry("flatfat_query",
+                     "windflow_tpu_torch/ops/cuda/flatfat_query.cu",
+                     "windflow_tpu/ops/pallas/flatfat_query.py:91",
+                     k2_launches, k2["max_abs_err"], k2["resident"])]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

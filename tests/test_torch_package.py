@@ -67,7 +67,7 @@ def test_umbrella_exports_ported_names_and_names_the_rest():
 
 @pytest.mark.parametrize("field,value", [
     ("durability", object()), ("slo", object()), ("distributed", object()),
-    ("replan", True)])
+    ("supervision", object())])
 def test_unported_planes_raise_at_start(field, value):
     import windflow_tpu_torch as wf
     from windflow_tpu_torch.operators.basic_ops import Sink

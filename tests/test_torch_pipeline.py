@@ -123,9 +123,10 @@ def test_headline_graph_matches_reference(lane):
     assert g.placements[0]["device"] == "cpu"
     assert logic.launched_batches > 1
     if lane == "python":
-        # the resident lane is not ported: an eligible engine stays on
-        # the rebuild lane, and the planner says so
-        assert g.placements[0]["reason"] == "resident lane not yet ported"
+        # an eligible Python-staging engine is promoted to the resident
+        # lane in both packages
+        assert g.placements[0]["resident"] is True
+        assert _g_ref.placements[0]["resident"] is True
 
 
 def _feed(logic, pkg, lo, hi, out):
@@ -191,8 +192,17 @@ def test_graph_defaults_to_cuda_and_raises_without_a_card():
 
 
 def test_resident_true_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        _op("windflow_tpu_torch", resident=True, device="cpu").stages()
+    """resident=True is ported; a custom window function, which the
+    resident lane never serves, still names its ROADMAP item."""
+    logic = _op("windflow_tpu_torch", resident=True,
+                device="cpu").stages()[0].replicas[0]
+    assert logic._resident is not None and logic._native is None
+    wf = importlib.import_module("windflow_tpu_torch")
+    WinSeqTPU = _mod("windflow_tpu_torch", "operators.tpu.win_seq_tpu") \
+        .WinSeqTPU
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7b"):
+        WinSeqTPU(lambda g, c, m: 0.0, WIN, SLIDE, wf.WinType.CB,
+                  resident=True, device="cpu").stages()
 
 
 @pytest.mark.cuda

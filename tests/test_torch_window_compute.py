@@ -91,15 +91,48 @@ def test_cuda_is_the_default_and_raises_without_a_card():
         eng.compute(cols, starts, ends, gwids)
 
 
-@pytest.mark.parametrize("kind", [("ffat", max, 0.0), lambda g, c, m: 0.0])
+@pytest.mark.parametrize("kind", [lambda g, c, m: 0.0])
 def test_unported_kinds_raise_naming_the_roadmap_item(kind):
+    """Custom window functions are still to port (the ffat kind is
+    ported: tests/test_torch_flatfat.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         WindowComputeEngine(kind, device="cpu")
 
 
-def test_resident_carry_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        ResidentPaneCarry("sum", 2)
+def test_ffat_kind_works_on_the_cpu():
+    cols, starts, ends, gwids = _launch(5000, 3000, 16, seed=8)
+    got = WindowComputeEngine(("ffat", torch.maximum, -np.inf),
+                              device="cpu").compute(cols, starts, ends,
+                                                    gwids).block()
+    want = WindowComputeEngine("max", device="cpu").compute(
+        cols, starts, ends, gwids).block()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["sum", "max"])
+def test_resident_carry_answers_pane_queries(kind):
+    """The resident pane carry's fused launch: new pane partials of two
+    keys scattered as runs, windows answered over their pane ranges,
+    a ring wrap included (capacity 8 panes)."""
+    carry = ResidentPaneCarry(kind, 2, initial_keys=2, headroom=4,
+                              device="cpu")
+    assert carry.capacity == 8
+    comb = np.add if kind == "sum" else np.maximum
+    panes = {0: np.arange(1.0, 13.0), 1: np.arange(20.0, 32.0)}
+    launch = carry.launch_engine()
+    for k in panes:
+        assert carry.row_of(k) == k
+    out = launch.compute(
+        {"run_rows": np.array([0, 1], np.int32),
+         "run_starts": np.array([4, 4]), "run_lens": np.array([8, 8],
+                                                              np.int32),
+         "value": np.concatenate([panes[0][4:], panes[1][4:]]),
+         "q_rows": np.array([0, 1, 1])},
+        np.array([6, 9, 10]), np.array([10, 12, 12]), np.arange(3)).block()
+    want = [comb.reduce(panes[0][6:10]), comb.reduce(panes[1][9:12]),
+            comb.reduce(panes[1][10:12])]
+    np.testing.assert_array_equal(out, want)
+    assert carry.state_bytes == 2 * 2 * 8 * 4
 
 
 def test_unknown_kind_is_rejected():

@@ -2,8 +2,10 @@
 
 The same PipeGraph/MultiPipe surface as ``windflow_tpu``, with the
 device lane running on an NVIDIA GPU: batched window sums launch a
-hand-written Hopper kernel (``ops/cuda/window_sum.cu``), and the
-engine's other programs are torch code on CUDA tensors.  The port goes
+hand-written Hopper kernel (``ops/cuda/window_sum.cu``), FlatFAT range
+queries (the FFAT kinds, the resident FFAT forest and the resident pane
+lane) another (``ops/cuda/flatfat_query.cu``), and the engine's other
+programs are torch code on CUDA tensors.  The port goes
 slice by slice (ROADMAP.md queue A); this umbrella exports the names
 the ported slices provide, and a name of the reference package that is
 not ported yet raises an ``AttributeError`` naming its ROADMAP item.
@@ -59,11 +61,12 @@ _LAZY = {
     "DiagnosisPlane": "windflow_tpu_torch.diagnosis",
     "build_report": "windflow_tpu_torch.diagnosis",
     "render_text": "windflow_tpu_torch.diagnosis",
+    # resident FFAT lane (operators/tpu/ffat_resident.py)
+    "WinSeqFFATResident": "windflow_tpu_torch.operators.tpu.ffat_resident",
 }
 
 # names of the reference umbrella that later slices port, by ROADMAP item
 _NOT_YET = {
-    "ffat": ("WinSeqFFATResident",),
     "farms": (
         "SourceBuilder", "FilterBuilder", "MapBuilder", "FlatMapBuilder",
         "AccumulatorBuilder", "SinkBuilder", "WinSeqBuilder",

@@ -7,9 +7,8 @@ partial or silent substitute.
 from __future__ import annotations
 
 ROADMAP_ITEMS = {
-    "resident": "ROADMAP.md A6 (resident lane: ResidentPaneCarry, "
-                "ops/flatfat_jax.py, graph/replanner.py, kernel K2)",
-    "ffat": "ROADMAP.md A7 (FFAT families and custom window functions)",
+    "custom": "ROADMAP.md A7b (custom window functions, and user FFAT "
+              "combines on the card)",
     "farms": "ROADMAP.md A8 (device farms, host window farms and builders)",
     "models": "ROADMAP.md A9 (models)",
     "host_planes": "ROADMAP.md A10 (remaining host planes)",

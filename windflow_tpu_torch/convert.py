@@ -1,12 +1,18 @@
 """Carry a window engine's state from the reference package to the port.
 
-``from_reference_state`` takes a ``WinSeqTPULogic.state_dict()``
-snapshot taken in ``windflow_tpu`` -- numpy arrays, the native engine's
-serialized bytes, counters -- and returns the state
-``windflow_tpu_torch``'s ``WinSeqTPULogic.load_state`` takes, so a
-stream checkpointed under the reference resumes under the port and
-produces the same remaining windows.  This is the stream processor's
-counterpart of carrying weights across.
+``from_reference_state`` takes a ``WinSeqTPULogic.state_dict()`` or a
+``WinSeqFFATResidentLogic.state_dict()`` snapshot taken in
+``windflow_tpu`` -- numpy arrays, the native engine's serialized bytes,
+counters, a resident forest -- and returns the state the port's logic
+of the same name takes in ``load_state``, so a stream checkpointed
+under the reference resumes under the port and produces the same
+remaining windows.  This is the stream processor's counterpart of
+carrying weights across.
+
+A resident FFAT snapshot carries its forest as a numpy ``[K, 2n]``
+array; the port's ``load_state`` puts it on the logic's device.  (The
+resident pane carry of ``WinSeqTPULogic`` is not part of a snapshot in
+either package: it is rebuilt from the host series.)
 
 Both packages build the same ``native/*.cpp`` engine, so its versioned
 blob passes through unchanged.  The Python staging path's per-key
@@ -18,11 +24,15 @@ from __future__ import annotations
 import copy
 from typing import Any, Dict
 
+import numpy as np
+
 from .operators.tpu.win_seq_tpu import _TPUKeyState
 
 # snapshot fields both packages share verbatim
 _PASS_THROUGH = ("descriptors", "ignored_tuples", "launched_batches",
                  "buffered", "native", "plq_counters", "key_intern")
+# a WinSeqFFATResidentLogic snapshot: per-key tuples, forest, capacity
+_RESIDENT_FFAT = ("keys", "tree", "capacity")
 
 
 def _key_state(ref) -> _TPUKeyState:
@@ -33,7 +43,16 @@ def _key_state(ref) -> _TPUKeyState:
 
 
 def from_reference_state(state: Dict[str, Any]) -> Dict[str, Any]:
-    """The port's ``WinSeqTPULogic`` state for a reference snapshot."""
+    """The port's ``WinSeqTPULogic`` (or ``WinSeqFFATResidentLogic``)
+    state for a reference snapshot."""
+    if "tree" in state:
+        unknown = set(state) - set(_RESIDENT_FFAT)
+        if unknown:
+            raise ValueError(f"unknown reference snapshot fields: "
+                             f"{sorted(unknown)}")
+        return {"keys": copy.deepcopy(state["keys"]),
+                "tree": np.array(state["tree"], np.float32),
+                "capacity": int(state["capacity"])}
     unknown = set(state) - set(_PASS_THROUGH) - {"keys"}
     if unknown:
         raise ValueError(f"unknown reference snapshot fields: "

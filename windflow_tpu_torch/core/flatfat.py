@@ -11,9 +11,9 @@ supporting **non-commutative** combines by always folding leaves in
 logical (oldest -> newest) order -- when the ring wraps, the result is
 ``suffix(front..end) ⊕ prefix(begin..back)``.
 
-The host/CPU twin lives here; the device twin (tree in device memory,
-level-wise updates mirroring flatfat_gpu.hpp's three kernels) is not
-ported yet (ROADMAP.md A6).
+The host/CPU twin lives here; the device twin (trees in device memory,
+level-wise updates and the FlatFAT query kernel, mirroring
+flatfat_gpu.hpp's three kernels) is ops/flatfat_torch.py.
 """
 from __future__ import annotations
 

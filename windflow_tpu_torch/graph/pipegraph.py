@@ -39,9 +39,6 @@ def _refuse_unported_planes(cfg: RuntimeConfig) -> None:
     for attr, what in _UNPORTED_PLANES:
         if getattr(cfg, attr, None):
             raise unported(f"RuntimeConfig.{attr} ({what})", "host_planes")
-    if cfg.replan:
-        raise unported("RuntimeConfig.replan (online re-planning)",
-                       "resident")
 
 
 class _AppNode:
@@ -314,6 +311,18 @@ class PipeGraph:
         self.placements = plan_graph(self)
         for d in self.placements:
             self.flight.record("placement", **d)
+        # online re-planning (graph/replanner.py; docs/PLANNER.md):
+        # the start-time decision becomes a running hypothesis -- a
+        # re-planner riding the diagnosis tick flips a lane mid-run
+        # when the measured launch walls contradict the projection
+        if self.config.replan and self.placements:
+            if not self.config.diagnosis:
+                raise RuntimeError(
+                    "RuntimeConfig.replan needs the diagnosis plane: "
+                    "re-planning rides the diagnosis tick (leave "
+                    "RuntimeConfig.diagnosis at its default True)")
+            from .replanner import RePlanner
+            self.replanner = RePlanner(self)
         # whole-partition device step (graph/device_step.py; ROADMAP
         # item 3): AFTER fusion + placement (it lowers the post-fusion
         # node set by resolved lane), BEFORE the binding loop / ingest
@@ -784,6 +793,13 @@ class PipeGraph:
                 self.quiesce(timeout)
                 try:
                     target.apply_placement(lane)
+                    if lane == "device":
+                        # re-promote eligible engines onto the
+                        # resident lane (the host flip dropped it)
+                        maybe = getattr(target,
+                                        "maybe_enable_resident", None)
+                        if maybe is not None:
+                            maybe()
                 finally:
                     self.resume()
             if dur is not None:

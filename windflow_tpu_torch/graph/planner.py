@@ -336,6 +336,7 @@ def plan_graph(graph) -> List[dict]:
     a stats record, so per-launch device timing is always observable
     for placed operators.  Returns the recorded decision list (also
     stored on ``graph.placements`` and in the stats JSON)."""
+    from ..operators.tpu.ffat_resident import WinSeqFFATResidentLogic
     from ..operators.tpu.win_seq_tpu import WinSeqTPULogic
     from ..runtime.node import FusedLogic
 
@@ -351,18 +352,43 @@ def plan_graph(graph) -> List[dict]:
         else:
             pairs = [(node.name, node.logic, node)]
         for name, logic, holder in pairs:
-            if id(logic) in seen or not isinstance(logic, WinSeqTPULogic):
+            if id(logic) in seen:
+                continue
+            if isinstance(logic, WinSeqFFATResidentLogic):
+                # the resident FFAT engine is structurally
+                # device-bound; it is bound to the graph's device and
+                # recorded (and given a stats record, so per-launch
+                # device timing + the resident byte gauges are
+                # observable untraced) but never lane-planned
+                seen.add(id(logic))
+                if logic.device is None:
+                    logic.set_device(graph.config.device)
+                rid = replica_ids.get(name, 0)
+                replica_ids[name] = rid + 1
+                if holder.stats is None:
+                    holder.stats = graph.stats.register(name, str(rid))
+                decisions.append({"placement": "device",
+                                  "reason": "resident ffat: device only",
+                                  "resident": True, "operator": name,
+                                  "device": str(logic.device)})
+                continue
+            if not isinstance(logic, WinSeqTPULogic):
                 continue
             seen.add(id(logic))
             pinned = getattr(logic, "placement", "device")
             if pinned == "auto":
-                tuples, bytes_ = launch_profile(logic)
-                entry = decide_placement(PlacementInputs(
-                    rtt_floor_ms=rtt_floor_ms(),
-                    host_rate_tps=host_rate_tps(),
-                    tuples_per_launch=tuples,
-                    bytes_per_launch=bytes_,
-                    device_compute_ms=device_compute_ms_per_launch()))
+                if not isinstance(logic.engine.kind, str):
+                    # FFAT combines have no host program
+                    entry = {"placement": "device",
+                             "reason": "custom combine: device only"}
+                else:
+                    tuples, bytes_ = launch_profile(logic)
+                    entry = decide_placement(PlacementInputs(
+                        rtt_floor_ms=rtt_floor_ms(),
+                        host_rate_tps=host_rate_tps(),
+                        tuples_per_launch=tuples,
+                        bytes_per_launch=bytes_,
+                        device_compute_ms=device_compute_ms_per_launch()))
                 logic.apply_placement(entry["placement"],
                                       rtt_floor_ms=entry.get(
                                           "rtt_floor_ms"))
@@ -374,11 +400,12 @@ def plan_graph(graph) -> List[dict]:
                     logic.set_device(graph.config.device)
                 entry["device"] = str(logic.device)
                 # resident promotion (docs/PLANNER.md "Resident
-                # state"): the lane is not ported yet (ROADMAP.md A6),
-                # so eligible engines stay on the rebuild lane
-                if logic.resident is not False \
-                        and logic.resident_eligible():
-                    entry["reason"] = "resident lane not yet ported"
+                # state"): eligible device-lane engines keep their
+                # per-key pane partials resident in device memory
+                # across launches -- the default lane; resident=False
+                # opts out
+                if logic.maybe_enable_resident():
+                    entry["resident"] = True
             rid = replica_ids.get(name, 0)
             replica_ids[name] = rid + 1
             if holder.stats is None:
@@ -448,13 +475,26 @@ def select_strategy(win_kind, win_len: int, slide_len: int,
 def plan_window_operator(win_kind, win_len: int, slide_len: int,
                          win_type, key_cardinality: int = 1,
                          parallelism: int = 2, **kwargs):
-    """Build the operator :func:`select_strategy` picks.  Only
-    'win_seq' is ported; the farm strategies raise until their
-    operators are (ROADMAP.md A8)."""
+    """Build the operator :func:`select_strategy` picks.  'win_seq' and
+    'ffat' are ported; the farm strategies raise until their operators
+    are (ROADMAP.md A8)."""
+    from ..operators.tpu.farms_tpu import WinSeqFFATTPU
     from ..operators.tpu.win_seq_tpu import WinSeqTPU
 
     strategy = select_strategy(win_kind, win_len, slide_len,
                                key_cardinality)
+    if strategy == "ffat":
+        # the FFAT tree is device-pinned (no host twin of the
+        # incremental combine): reject lane knobs loudly instead of a
+        # data-dependent TypeError from the constructor
+        if kwargs.pop("placement", "device") != "device" \
+                or kwargs.pop("adaptive_batch", False):
+            raise ValueError(
+                "strategy 'ffat' is device-pinned: placement/"
+                "adaptive_batch are not supported for this window shape")
+        lift = (lambda t: t.value)
+        return WinSeqFFATTPU(lift, win_kind, win_len, slide_len,
+                             win_type, **kwargs)
     if strategy != "win_seq":
         raise unported(f"the {strategy!r} window strategy", "farms")
     return WinSeqTPU(win_kind, win_len, slide_len, win_type, **kwargs)

@@ -1,0 +1,222 @@
+"""Online device<->host re-planning: the placement decision as a
+running hypothesis (docs/PLANNER.md "Resident state & online
+re-planning").
+
+The start-time planner (graph/planner.py) projects a device rate from
+the probed RTT floor, the calibrated host rate and the operator's
+bytes/launch.  That projection fails where on-device compute is not
+free next to the launch floor (a small card, a loaded card, the CPU
+device), so 'auto' can resolve 'device' against the evidence.
+
+This module closes the loop.  Riding the diagnosis tick (no thread of
+its own for the *decision*), it
+
+* measures each auto-placed engine's per-launch wall from the stats
+  record deltas (``Device_time_ms`` / ``Device_launches``, normalized
+  by the in-flight depth exactly like the adaptive batcher, since the
+  raw wall of a saturated serialized transport includes pipeline
+  queueing);
+* splits it at the RTT floor into transport + compute -- the same rule
+  the attribution plane uses for ``@device`` hops -- and feeds the
+  measured compute back into the cost model's per-box calibration
+  (``record_device_compute``), so the NEXT start-time decision already
+  projects with evidence;
+* re-runs the pure ``decide_placement`` with the measured inputs; when
+  the verdict contradicts the engine's current lane for
+  ``RuntimeConfig.replan_ticks`` consecutive ticks, it requests a lane
+  flip.
+
+Flips execute on the re-planner's own worker thread (a flip quiesces
+the graph -- seconds, not microseconds -- and must not stall the
+monitor cadence): ``PipeGraph.replace_lane`` serializes with elastic
+rescales under the rescale lock, holds the epoch plane's cadence like
+a rescale does, drains the pipeline to a quiescent cut (so zero tuples
+are in flight), swaps the engine's lane, and resumes.  Every flip is a
+``replacement`` flight event carrying the measured evidence, folded
+into the doctor report's ``Replacements`` block.
+
+Pinned lanes are never re-planned (the operator said so); custom/FFAT
+combines have no host twin and are skipped.  A flip to the host drops
+an engine's resident device state (it is derivable from the host
+staging store); a flip back re-promotes it (``PipeGraph.replace_lane``).
+"""
+from __future__ import annotations
+
+import queue
+import threading
+import traceback
+from typing import Dict, List, Optional
+
+from .planner import (DEFAULT_TRANSFER_MBPS, PlacementInputs,
+                      decide_placement, flush_device_calibration,
+                      host_rate_tps, launch_profile,
+                      record_device_compute, rtt_floor_ms)
+
+# launches that must land inside a tick window before its measurement
+# counts (a 1-launch delta is noise)
+MIN_LAUNCHES = 2
+
+
+def replan_decision(lane: str, measured_ms_per_launch: Optional[float],
+                    tuples_per_launch: float, bytes_per_launch: float,
+                    rtt_ms: float, host_tps: float,
+                    calibrated_compute_ms: float = 0.0) -> dict:
+    """Pure per-tick verdict for one engine (unit-tested): which lane
+    SHOULD this engine be on, given what was measured?
+
+    * device lane with a fresh measurement: the measured per-launch
+      wall replaces the projection wholesale -- measured compute =
+      wall minus floor minus transfer (the attribution split) goes
+      into the model, and the decision re-runs.
+    * host lane (or no fresh launches): the decision re-runs with the
+      box's calibrated compute -- a host engine can win the chip back
+      when the calibration says compute is cheap enough.
+
+    Returns the ``decide_placement`` dict plus ``measured_ms`` /
+    ``device_compute_ms`` evidence."""
+    transfer_ms = bytes_per_launch / (DEFAULT_TRANSFER_MBPS * 1e3)
+    if lane == "device" and measured_ms_per_launch is not None:
+        compute_ms = max(0.0,
+                         measured_ms_per_launch - rtt_ms - transfer_ms)
+    else:
+        compute_ms = max(0.0, calibrated_compute_ms)
+    out = decide_placement(PlacementInputs(
+        rtt_floor_ms=rtt_ms, host_rate_tps=host_tps,
+        tuples_per_launch=tuples_per_launch,
+        bytes_per_launch=bytes_per_launch,
+        device_compute_ms=compute_ms))
+    if measured_ms_per_launch is not None:
+        out["measured_ms"] = round(measured_ms_per_launch, 3)
+    return out
+
+
+class RePlanner:
+    """Per-graph online re-planner (built by ``PipeGraph.start`` when
+    ``RuntimeConfig.replan`` is on and the planner placed engines)."""
+
+    def __init__(self, graph):
+        self.graph = graph
+        self.ticks_needed = max(1, int(graph.config.replan_ticks))
+        # (name, logic, entry) of auto-placed engines with a host twin:
+        # pins are the operator's word, custom combines have no twin
+        self.engines = [
+            (name, logic, entry)
+            for name, logic, entry in getattr(graph, "placed_engines", [])
+            if entry.get("reason") is None
+            and isinstance(getattr(logic.engine, "kind", None), str)]
+        self._last: Dict[str, tuple] = {}     # name -> (launches, ms)
+        self._streak: Dict[str, tuple] = {}   # name -> (want, count)
+        # per-engine measured compute from its own device stints: a
+        # host-resolved engine is judged by ITS evidence first, the
+        # box-wide calibration only as a fallback
+        self._measured_compute: Dict[str, float] = {}
+        self.flips: List[dict] = []
+        self._inflight = False
+        self._work: "queue.Queue" = queue.Queue()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        if self.engines:
+            self._thread = threading.Thread(target=self._run,
+                                            daemon=True,
+                                            name="windflow-replanner")
+            self._thread.start()
+
+    # -- decision side (called from the diagnosis tick) ----------------
+    def tick(self) -> None:
+        if not self.engines or self._inflight:
+            return
+        try:
+            self._tick()
+        except Exception:  # pragma: no cover -- observation must
+            traceback.print_exc()  # never take the graph down
+
+    def _measure(self, name: str, logic) -> Optional[float]:
+        """Per-launch wall over this tick window, depth-normalized
+        (the adaptive batcher's discipline: a saturated pipeline's raw
+        wall always includes depth x queueing)."""
+        rec = logic.stats
+        if rec is None:
+            return None
+        launches, ms = rec.num_launches, rec.device_time_ms
+        prev = self._last.get(name)
+        self._last[name] = (launches, ms)
+        if prev is None:
+            return None
+        d_launch = launches - prev[0]
+        d_ms = ms - prev[1]
+        if d_launch < MIN_LAUNCHES or d_ms <= 0:
+            return None
+        return d_ms / d_launch / max(1, logic.inflight_depth)
+
+    def _tick(self) -> None:
+        rtt = rtt_floor_ms()
+        host = host_rate_tps()
+        from .planner import device_compute_ms_per_launch
+        calib = device_compute_ms_per_launch()
+        for name, logic, entry in self.engines:
+            lane = logic.resolved_placement
+            if lane not in ("device", "host"):
+                continue
+            measured = (self._measure(name, logic)
+                        if lane == "device" else None)
+            tuples, bytes_ = launch_profile(logic)
+            verdict = replan_decision(
+                lane, measured, tuples, bytes_, rtt, host,
+                self._measured_compute.get(name, calib))
+            if lane == "device" and measured is not None:
+                # feed the measured split (replan_decision derived it
+                # from this wall) back into the per-box calibration --
+                # in-process only; the file is flushed once at stop()
+                compute = verdict.get("device_compute_ms", 0.0)
+                self._measured_compute[name] = compute
+                record_device_compute(compute, persist=False)
+            want = verdict["placement"]
+            prev_want, count = self._streak.get(name, (None, 0))
+            if want == lane or (lane == "device" and measured is None):
+                # a device lane is never flipped on stale box-wide
+                # calibration alone: its own fresh launches must
+                # contradict it (the host lane has no launches to
+                # measure, so calibration IS its evidence)
+                self._streak[name] = (None, 0)
+                continue
+            count = count + 1 if prev_want == want else 1
+            self._streak[name] = (want, count)
+            if count >= self.ticks_needed and not self._inflight:
+                self._streak[name] = (None, 0)
+                self._inflight = True
+                self._work.put((name, logic, entry, want, verdict))
+
+    # -- actuation side (worker thread: a flip quiesces the graph) -----
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                item = self._work.get(timeout=0.25)
+            except queue.Empty:
+                continue
+            if item is None:
+                return
+            name, logic, entry, want, verdict = item
+            try:
+                event = self.graph.replace_lane(name, want,
+                                                trigger="replan",
+                                                evidence=verdict)
+                if event is not None:
+                    self.flips.append(event)
+                    entry["placement"] = want
+                    entry["replanned"] = True
+                    self.graph.stats.set_placements(
+                        self.graph.placements)
+            except Exception:  # graph ending mid-flip etc: log, keep
+                traceback.print_exc()  # observing
+            finally:
+                self._inflight = False
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._work.put(None)
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+        if self._measured_compute:
+            # one durable write per run: the next process's start-time
+            # planner projects with this run's measured compute
+            flush_device_calibration()

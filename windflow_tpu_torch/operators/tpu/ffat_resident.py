@@ -1,0 +1,566 @@
+"""Resident-tree FFAT window logic: the ``rebuild=false`` incremental
+mode of the reference's Win_SeqFFAT_GPU.
+
+Where the batch engine (WinSeqTPULogic with an ffat kind) rebuilds the
+aggregator tree from a staged flat buffer every launch, this logic keeps
+one FlatFAT per key **resident in HBM across batches** as a key-batched
+forest (ops/flatfat_torch.BatchedFlatFAT) and only scatters the new
+lifted leaves plus their root paths -- the circular-buffer tree update
+of the reference (win_seqffat_gpu.hpp:150 ``rebuild`` flag;
+UpdateTreeLevel_Kernel, flatfat_gpu.hpp:68-82).  Every launch queries
+its due windows with the FlatFAT query kernel
+(ops/cuda/flatfat_query.cu), so ``combine`` is a binary torch function:
+``torch.add``, ``torch.maximum`` or ``torch.minimum`` on the card.
+
+``device=`` names the torch device (None: the graph's
+``RuntimeConfig.device``, bound by the planner, else the card on first
+use).  The forest lives on the logic's own CUDA stream; every launch and
+every host read of it (snapshots, ring growth) runs on that stream.
+
+Scope: CB windows over per-key arrival order (one tuple per leaf; ring
+position = arrival index mod capacity), and TB windows over per-key
+IN-ORDER timestamps -- ring eviction is keyed on the timestamp proof
+that every window covering a leaf has fired (positions below
+``searchsorted(ts, next_fire * slide)`` are dead), and the leaf ring
+grows when a window span holds more tuples than the current capacity
+(win_seqffat_gpu.hpp:444-...).  Out-of-order TB streams keep the
+rebuild path.  Ring capacity starts at win_len + chunk headroom, and
+every svc call fires + queries due windows before their leaves can be
+overwritten.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ...core.basic import OrderingMode, Pattern, RoutingMode, WinType
+from ...core.tuples import BasicRecord, TupleBatch
+from ...ops.cuda.flatfat_query import require_kernel_op
+from ...ops.device import resolve_device
+from ...ops.flatfat_torch import BatchedFlatFAT
+from ...runtime.emitters import StandardEmitter
+from ...runtime.node import EOSMarker, NodeLogic
+from ..base import Operator, StageSpec
+
+
+class _ResidentKey:
+    __slots__ = ("row", "count", "next_fire", "ts_ring",
+                 "ts_vals", "ts_base", "max_ts", "anchored", "dead_idx")
+
+    def __init__(self, row: int, capacity: int, tb: bool = False):
+        self.row = row
+        self.count = 0      # tuples received = next leaf id
+        self.next_fire = 0  # next window (lwid) to fire
+        if tb:
+            # TB: host mirror of the leaf timestamps at absolute
+            # positions [ts_base, count), for extent binary search and
+            # the eviction proof.  ``dead_idx`` is the running cursor
+            # of the fired frontier inside the mirror: the eviction
+            # proof resumes its binary search there, so each svc call
+            # scans only the mirror's NEW tail -- O(new tuples), not
+            # O(history) -- and the mirror is sliced at the cursor
+            # before it can grow past ~2x the live span
+            self.ts_vals = np.empty(0, np.int64)
+            self.ts_base = 0
+            self.max_ts = -1
+            self.anchored = False
+            self.dead_idx = 0
+        else:
+            # host-side timestamp ring mirroring the leaf ring, so CB
+            # results carry the last-extent-tuple ts like every other
+            # path
+            self.ts_ring = np.zeros(capacity, np.int64)
+
+
+class WinSeqFFATResidentLogic(NodeLogic):
+    def __init__(self, lift: Callable, combine: Callable, neutral: float,
+                 win_len: int, slide_len: int, *,
+                 win_type: WinType = WinType.CB,
+                 result_factory=BasicRecord, initial_keys: int = 16,
+                 device=None):
+        if win_len == 0 or slide_len == 0:
+            raise ValueError("win_len and slide_len must be > 0")
+        self.lift = lift
+        self.combine = combine
+        self.neutral = float(neutral)
+        self.win_len = win_len
+        self.slide_len = slide_len
+        self.win_type = win_type
+        self.is_tb = win_type == WinType.TB
+        self.result_factory = result_factory
+        # capacity: window span + one slide of update headroom, pow2.
+        # CB: exact (one leaf per id).  TB: a starting estimate -- the
+        # ring grows when a window span holds more tuples than this.
+        need = win_len + slide_len
+        self._chunk_headroom = max(slide_len, 1024)
+        n = 1
+        while n < need + self._chunk_headroom:
+            n <<= 1
+        self.capacity = n
+        self.keys: Dict[Any, _ResidentKey] = {}
+        self._initial_keys = max(2, initial_keys)
+        self.device: Optional[torch.device] = None
+        self._stream = None
+        self._forest: Optional[BatchedFlatFAT] = None
+        if device is not None:
+            self.set_device(device)
+        self.launched_batches = 0
+
+    # -- device binding ------------------------------------------------
+    def set_device(self, device) -> torch.device:
+        """Bind the forest to ``device`` (raises when CUDA is asked for
+        and absent).  A forest that already holds state (a restored
+        snapshot) moves there with its contents."""
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            require_kernel_op(self.combine)
+        if dev == self.device:
+            return dev
+        old = self._forest
+        self.device = dev
+        self._stream = (torch.cuda.Stream(device=dev)
+                        if dev.type == "cuda" else None)
+        if old is None:
+            self._forest = self._new_forest(self._initial_keys,
+                                            self.capacity)
+        else:
+            self._forest = self._new_forest(old.n_keys, old.n)
+            self._forest.load_tree(old.tree_numpy())
+        return dev
+
+    @property
+    def forest(self) -> BatchedFlatFAT:
+        if self._forest is None:
+            self.set_device("cuda")
+        return self._forest
+
+    @forest.setter
+    def forest(self, forest: BatchedFlatFAT) -> None:
+        self._forest = forest
+
+    def _new_forest(self, n_keys: int, n: int) -> BatchedFlatFAT:
+        if self.device is None:
+            self.set_device("cuda")
+        return BatchedFlatFAT(self.combine, self.neutral, n_keys, n,
+                              device=self.device, stream=self._stream)
+
+    def _key_state(self, key) -> _ResidentKey:
+        st = self.keys.get(key)
+        if st is None:
+            row = len(self.keys)
+            if row >= self.forest.n_keys:
+                self._grow_forest()
+            st = self.keys[key] = _ResidentKey(row, self.capacity,
+                                               self.is_tb)
+        return st
+
+    def _grow_forest(self) -> None:
+        """Double the key capacity, copying the resident trees (on the
+        forest's stream: this logic's launches are synchronous, so no
+        launch against the old forest is still in flight)."""
+        old = self.forest
+        new = self._new_forest(old.n_keys * 2, self.capacity)
+        with new._ctx():
+            new.tree[: old.n_keys].copy_(old.tree)
+        self._forest = new
+
+    def _grow_leaves(self, min_capacity: int) -> None:
+        """TB ring overflow: a retained window span no longer fits the
+        leaf ring.  Double the capacity and re-scatter every key's live
+        leaves at their new ring positions (the circular-buffer resize
+        of win_seqffat_gpu.hpp:444-...; rare, amortized O(1))."""
+        assert self.is_tb, "CB rings are capacity-exact by construction"
+        old_n = self.forest.n
+        old_leaves = self.forest.tree_numpy()[:, old_n:2 * old_n]
+        n = old_n
+        while n < min_capacity:
+            n <<= 1
+        self.capacity = n
+        self._forest = self._new_forest(self.forest.n_keys, n)
+        for st in self.keys.values():
+            live = np.arange(st.ts_base, st.count)
+            for c in range(0, len(live), 4096):
+                pos = live[c:c + 4096]
+                self.forest.update(np.full(len(pos), st.row), pos,
+                                   old_leaves[st.row, pos % old_n])
+
+    # -- ingest --------------------------------------------------------
+    def _count_launch(self, new_bytes: int, res: np.ndarray) -> None:
+        """Per-launch accounting for the resident lane: only NEW bytes
+        cross the transport (lifted leaves + positions in, fired
+        results out) -- the resident forest itself never re-ships, so
+        ``Device_bytes_per_launch`` measures exactly the incremental
+        traffic, with the forest footprint on the separate
+        ``Device_state_bytes_resident`` gauge."""
+        self.launched_batches += 1
+        if self.stats is not None:
+            self.stats.num_launches += 1
+            self.stats.bytes_to_device += new_bytes
+            self.stats.bytes_from_device += res.nbytes
+            self.stats.device_state_bytes = self.forest.state_bytes
+
+    def device_resident_bytes(self) -> int:
+        """Gauge hook (monitoring/stats.py): resident forest bytes."""
+        return self._forest.state_bytes if self._forest is not None else 0
+
+    def _ingest_chunk(self, row, start_id, lifted, key_objs,
+                      emit) -> None:
+        """One FUSED forest launch per chunk (chunk small enough that
+        no due window's leaves can be overwritten): scatter the new
+        lifted leaves, recompute their root paths and answer every due
+        window against the post-update tree -- decode -> fold ->
+        trigger in a single jitted program.  New leaves are one
+        CONSECUTIVE run per chunk, so the launch ships only the lifted
+        values + a 12-byte (row, start, len) descriptor + extents --
+        never positions, never state."""
+        qk_rows: List[int] = []
+        qs: List[int] = []
+        qe: List[int] = []
+        meta: List = []
+        for key in key_objs:
+            st = self.keys[key]
+            while st.count >= st.next_fire * self.slide_len + self.win_len:
+                lwid = st.next_fire
+                start = lwid * self.slide_len
+                qk_rows.append(st.row)
+                qs.append(start)
+                qe.append(start + self.win_len)
+                meta.append((key, lwid))
+                st.next_fire += 1
+        lifted = np.asarray(lifted, np.float32)
+        new_bytes = lifted.nbytes + 12 + 8 * len(qk_rows)
+        res = self.forest.update_runs_query(
+            [row], [start_id], [len(lifted)], lifted, qk_rows, qs, qe)
+        self._count_launch(new_bytes, res)
+        for (key, lwid), end, val in zip(meta, qe, res):
+            out = self.result_factory()
+            out.value = float(val)
+            # CB convention: result ts = last tuple in the extent
+            rts = int(self.keys[key].ts_ring[(end - 1)
+                                             % self.capacity])
+            out.set_control_fields(key, lwid, rts)
+            emit(out)
+
+    def _emit_windows(self, rows, qs, qe, meta, emit) -> None:
+        """Query-only launch (EOS flush: no new leaves to scatter)."""
+        res = self.forest.query(np.asarray(rows), np.asarray(qs),
+                                np.asarray(qe))
+        self._count_launch(8 * len(rows), res)
+        for (key, lwid), end, val in zip(meta, qe, res):
+            out = self.result_factory()
+            out.value = float(val)
+            # CB convention: result ts = last tuple in the extent
+            rts = int(self.keys[key].ts_ring[(end - 1) % self.capacity])
+            out.set_control_fields(key, lwid, rts)
+            emit(out)
+
+    # -- TB plane: timestamp-proof ring eviction -----------------------
+    def _dead_count(self, st) -> int:
+        """Mirror index of the fired frontier: leaves below it are dead
+        (every window covering them has fired).  The binary search
+        RESUMES at the running ``dead_idx`` cursor -- the frontier is
+        monotone, so each call scans only the mirror's new tail and the
+        proof stays O(new tuples) per svc call instead of re-sweeping
+        the whole history mirror."""
+        t = st.next_fire * self.slide_len
+        st.dead_idx += int(np.searchsorted(st.ts_vals[st.dead_idx:],
+                                           t, "left"))
+        return st.dead_idx
+
+    def _pos(self, st, t: int) -> int:
+        """Absolute mirror position of the first leaf with ts >= t, for
+        t at/above the fired frontier (resumes at the cursor: every
+        leaf below it has ts < the frontier <= t)."""
+        return st.ts_base + st.dead_idx + int(np.searchsorted(
+            st.ts_vals[st.dead_idx:], t, "left"))
+
+    def _ingest_tb(self, key, tss, vals, emit) -> None:
+        st = self._key_state(key)
+        # compare against max_ts, not the mirror tail: full mirror
+        # eviction would otherwise make the guard vacuous and silently
+        # drop a late tuple
+        if not np.all(tss[:-1] <= tss[1:]) or (
+                st.max_ts >= 0 and tss[0] < st.max_ts):
+            raise ValueError(
+                "resident TB FFAT requires per-key in-order timestamps; "
+                "use the rebuild path (WinSeqFFATTPU) for out-of-order "
+                "streams")
+        if not st.anchored:
+            # anchor the fire frontier at the first containing window
+            first = int(tss[0])
+            st.next_fire = (0 if first < self.win_len
+                            else (first - self.win_len)
+                            // self.slide_len + 1)
+            st.anchored = True
+        step = self._chunk_headroom
+        for c in range(0, len(tss), step):
+            d = min(c + step, len(tss))
+            # timestamp proof: leaves with ts below the fired frontier
+            # are dead (every window covering them already fired); if
+            # the live span plus this chunk overflows the ring, grow it
+            dead = st.ts_base + self._dead_count(st)
+            live_after = st.count + (d - c) - dead
+            if live_after > self.capacity:
+                # slice every mirror to its exact dead frontier first so
+                # [ts_base, count) spans <= capacity per key and old
+                # ring positions are alias-free for the re-scatter
+                for st2 in self.keys.values():
+                    d2 = self._dead_count(st2)
+                    st2.ts_vals = st2.ts_vals[d2:]
+                    st2.ts_base += d2
+                    st2.dead_idx = 0
+                self._grow_leaves(int(live_after) + self._chunk_headroom)
+            ids = np.arange(st.count, st.count + (d - c))
+            st.ts_vals = np.concatenate([st.ts_vals, tss[c:d]])
+            st.count += d - c
+            st.max_ts = int(tss[d - 1])
+            # one FUSED launch: scatter the chunk's leaves (one
+            # consecutive run) + answer its due windows against the
+            # post-update forest
+            self._fire_tb(key, st, emit,
+                          update=(st.row, int(ids[0]),
+                                  vals[c:d].astype(np.float32)))
+
+    def _fire_tb(self, key, st, emit, at_eos: bool = False,
+                 update=None) -> None:
+        rows, qs, qe, meta = [], [], [], []
+        while True:
+            s_ts = st.next_fire * self.slide_len
+            if at_eos:
+                if s_ts > st.max_ts:
+                    break
+            elif st.max_ts < s_ts + self.win_len:
+                break
+            sp = self._pos(st, s_ts)
+            ep = self._pos(st, s_ts + self.win_len)
+            rows.append(st.row)
+            qs.append(sp)
+            qe.append(ep)
+            # TB result ts is window arithmetic, like every other engine
+            meta.append((key, st.next_fire,
+                         s_ts + self.win_len - 1))
+            st.next_fire += 1
+        res = None
+        if update is not None:
+            u_row, u_start, u_vals = update
+            new_bytes = u_vals.nbytes + 12 + 8 * len(rows)
+            res = self.forest.update_runs_query(
+                [u_row], [u_start], [len(u_vals)], u_vals, rows, qs, qe)
+            self._count_launch(new_bytes, res)
+            if not rows:
+                res = None
+        elif rows:
+            res = self.forest.query(np.asarray(rows), np.asarray(qs),
+                                    np.asarray(qe))
+            self._count_launch(8 * len(rows), res)
+        if res is not None:
+            for (key_, lwid, rts), s_, e_, val in zip(meta, qs, qe, res):
+                out = self.result_factory()
+                out.value = float(val) if e_ > s_ else 0.0  # masked
+                out.set_control_fields(key_, lwid, rts)
+                emit(out)
+            # amortized mirror eviction at the fired frontier (the
+            # same proof, via the cursor): the mirror never grows past
+            # the live span + this slack
+            dead = self._dead_count(st)
+            if dead > 1024:
+                st.ts_vals = st.ts_vals[dead:]
+                st.ts_base += dead
+                st.dead_idx = 0
+
+    def svc(self, item, channel_id, emit):
+        if isinstance(item, EOSMarker):
+            return
+        if isinstance(item, TupleBatch):
+            keys = item.key
+            vals = item["value"]
+            tss = item.ts
+            if len(keys) > 1 and not np.all(keys[:-1] <= keys[1:]):
+                order = np.argsort(keys, kind="stable")
+                keys, vals, tss = keys[order], vals[order], tss[order]
+            edges = np.nonzero(np.diff(keys))[0] + 1
+            bounds = np.concatenate([[0], edges, [len(keys)]])
+            # chunk so no key advances further than the ring headroom
+            # between fire/query passes
+            step = self._chunk_headroom
+            for j in range(len(bounds) - 1):
+                key = keys[bounds[j]].item()
+                lo, hi = int(bounds[j]), int(bounds[j + 1])
+                if self.is_tb:
+                    self._ingest_tb(key, tss[lo:hi], vals[lo:hi], emit)
+                    continue
+                st = self._key_state(key)
+                for c in range(lo, hi, step):
+                    d = min(c + step, hi)
+                    ids = np.arange(st.count, st.count + (d - c))
+                    st.ts_ring[ids % self.capacity] = tss[c:d]
+                    start_id = st.count
+                    st.count += d - c
+                    self._ingest_chunk(
+                        st.row, start_id,
+                        vals[c:d].astype(np.float32), [key], emit)
+            return
+        key, _tid, ts = item.get_control_fields()
+        lifted = self.lift(item)
+        if self.is_tb:
+            self._ingest_tb(key, np.array([ts]),
+                            np.array([lifted], np.float64), emit)
+            return
+        st = self._key_state(key)
+        st.ts_ring[st.count % self.capacity] = ts
+        st.count += 1
+        self._ingest_chunk(st.row, st.count - 1, [lifted], [key], emit)
+
+    def eos_flush(self, emit):
+        """Fire partial tail windows whose extent clips at the stream
+        end (the EOS flush of open windows, win_seq.hpp:514-579)."""
+        if self.is_tb:
+            for key, st in self.keys.items():
+                if st.max_ts >= 0:
+                    self._fire_tb(key, st, emit, at_eos=True)
+            return
+        rows, qs, qe, meta = [], [], [], []
+        for key, st in self.keys.items():
+            while st.next_fire * self.slide_len < st.count:
+                lwid = st.next_fire
+                start = lwid * self.slide_len
+                rows.append(st.row)
+                qs.append(start)
+                qe.append(min(start + self.win_len, st.count))
+                meta.append((key, lwid))
+                st.next_fire += 1
+        if rows:
+            self._emit_windows(rows, qs, qe, meta, emit)
+
+    # -- checkpoint ----------------------------------------------------
+    def state_dict(self):
+        if self.is_tb:
+            keys = {k: (st.row, st.count, st.next_fire,
+                        st.ts_vals.copy(), st.ts_base, st.max_ts,
+                        st.anchored, st.dead_idx)
+                    for k, st in self.keys.items()}
+        else:
+            keys = {k: (st.row, st.count, st.next_fire, st.ts_ring.copy())
+                    for k, st in self.keys.items()}
+        return {"keys": keys, "tree": self.forest.tree_numpy(),
+                "capacity": self.capacity}
+
+    def load_state(self, state):
+        """Restore a snapshot (``tree`` as a numpy or torch [K, 2n]
+        array; it goes to this logic's device)."""
+        tree = state["tree"]
+        if isinstance(tree, torch.Tensor):
+            tree = tree.detach().cpu().numpy()
+        self.capacity = state.get("capacity", self.capacity)
+        # the forest matches the snapshot's row count EXACTLY, so a new
+        # key past it grows the forest instead of landing on a row the
+        # snapshot does not hold
+        self._forest = self._new_forest(tree.shape[0], self.capacity)
+        self._forest.load_tree(tree)
+        self.keys.clear()
+        for k, fields in state["keys"].items():
+            st = _ResidentKey(fields[0], self.capacity, self.is_tb)
+            st.count, st.next_fire = fields[1], fields[2]
+            if self.is_tb:
+                st.ts_vals = np.asarray(fields[3]).copy()
+                st.ts_base, st.max_ts, st.anchored = fields[4:7]
+                # pre-cursor snapshots carry no dead_idx: 0 re-derives
+                st.dead_idx = fields[7] if len(fields) > 7 else 0
+            else:
+                st.ts_ring = np.asarray(fields[3]).copy()
+            self.keys[k] = st
+
+    # -- tiered-state census (state/; audit/auditor._probe_tiers): the
+    # forest keeps every key's window state in device memory -- the top
+    # of the tier ladder, above the host store's hot/warm/cold --------
+    def state_tier_of(self, key):
+        return "device" if key in self.keys else None
+
+    # -- keyed-state hooks (elastic/rescale.py): the resident forest IS
+    # the per-key window state, so repartitioning pulls each key's LIVE
+    # leaf span off the device and re-scatters it on the owner replica;
+    # per-key blobs are fusion-invariant (same shape whether the engine
+    # runs standalone or inside a fused segment) ----------------------
+    def keyed_state_dict(self):
+        tree = self.forest.tree_numpy()
+        n = self.forest.n
+        out: Dict[Any, dict] = {}
+        for k, st in self.keys.items():
+            if self.is_tb:
+                lo = st.ts_base
+            else:
+                # windows from next_fire on read leaves >= the fired
+                # frontier; earlier ring slots are dead by the proof
+                lo = min(st.next_fire * self.slide_len, st.count)
+            live = np.arange(lo, st.count, dtype=np.int64)
+            leaves = (tree[st.row, n + (live % n)].copy() if len(live)
+                      else np.empty(0, np.float32))
+            blob = {"count": st.count, "next_fire": st.next_fire,
+                    "lo": int(lo), "leaves": leaves}
+            if self.is_tb:
+                blob.update(ts_vals=st.ts_vals.copy(),
+                            ts_base=st.ts_base, max_ts=st.max_ts,
+                            anchored=st.anchored, dead_idx=st.dead_idx)
+            else:
+                blob["ts"] = st.ts_ring[live % self.capacity].copy()
+            out[k] = blob
+        return out
+
+    def load_keyed_state(self, kv) -> None:
+        self.keys.clear()
+        need = self.capacity
+        for blob in kv.values():
+            # a source replica's ring may have grown (TB span growth):
+            # size the fresh forest to the widest migrated span
+            need = max(need, len(blob["leaves"]) + self._chunk_headroom)
+        n = 1
+        while n < need:
+            n <<= 1
+        self.capacity = n
+        self._forest = self._new_forest(max(2, len(kv)), n)
+        for k, blob in kv.items():
+            st = _ResidentKey(len(self.keys), self.capacity, self.is_tb)
+            st.count, st.next_fire = blob["count"], blob["next_fire"]
+            if self.is_tb:
+                st.ts_vals = np.asarray(blob["ts_vals"]).copy()
+                st.ts_base = blob["ts_base"]
+                st.max_ts = blob["max_ts"]
+                st.anchored = blob["anchored"]
+                st.dead_idx = blob.get("dead_idx", 0)
+            self.keys[k] = st
+            live = np.arange(blob["lo"], st.count, dtype=np.int64)
+            if not self.is_tb and len(live):
+                st.ts_ring[live % self.capacity] = blob["ts"]
+            leaves = np.asarray(blob["leaves"], np.float32)
+            for c in range(0, len(live), 4096):
+                pos = live[c:c + 4096]
+                self.forest.update(np.full(len(pos), st.row), pos,
+                                   leaves[c:c + 4096])
+
+
+class WinSeqFFATResident(Operator):
+    """Standalone resident-tree FFAT operator (rebuild=false mode).
+    ``combine`` is a binary torch function (``torch.add``,
+    ``torch.maximum`` or ``torch.minimum`` on the card)."""
+
+    def __init__(self, lift, combine, neutral, win_len, slide_len,
+                 win_type: WinType = WinType.CB,
+                 name="win_seqffat_resident", result_factory=BasicRecord,
+                 device=None):
+        super().__init__(name, 1, RoutingMode.FORWARD,
+                         Pattern.WIN_SEQFFAT_TPU)
+        self.win_type = win_type
+        self.kwargs = dict(lift=lift, combine=combine, neutral=neutral,
+                           win_len=win_len, slide_len=slide_len,
+                           win_type=win_type, result_factory=result_factory,
+                           device=device)
+
+    def stages(self):
+        logic = WinSeqFFATResidentLogic(**self.kwargs)
+        return [StageSpec(self.name, [logic], StandardEmitter(),
+                          self.routing,
+                          ordering_mode=(OrderingMode.ID
+                                         if self.win_type == WinType.CB
+                                         else OrderingMode.TS))]

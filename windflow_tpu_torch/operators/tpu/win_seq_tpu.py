@@ -15,7 +15,12 @@ private stream (svc :391-645), this engine:
 * overlaps host batching with device execution through async dispatch
   on a per-engine CUDA stream, flushing the *previous* batch's results
   lazily -- the double-buffered ``waitAndFlush`` protocol
-  (win_seq_gpu.hpp:267-297).
+  (win_seq_gpu.hpp:267-297);
+* on the resident lane (``resident=True``, or promoted by the planner)
+  keeps per-key pane partials in a device forest across launches and
+  ships only new partials (ops/window_compute.ResidentPaneCarry; the
+  windows are answered by the FlatFAT query kernel
+  ops/cuda/flatfat_query.cu).
 
 The device is explicit: ``device=`` (or the graph's
 ``RuntimeConfig.device``, bound by the planner at start) names the
@@ -44,7 +49,6 @@ from ...ops.window_compute import WindowComputeEngine
 from ...runtime.emitters import StandardEmitter
 from ...runtime.node import EOSMarker, NodeLogic
 from ...telemetry.profiler import launch_span
-from ..._unported import unported
 from ..base import Operator, StageSpec
 
 DEFAULT_BATCH_LEN = 256
@@ -275,9 +279,11 @@ class _TPUKeyState:
                  "pane_synced", "min_new_id")
 
     def __init__(self, emit_counter_start=0):
-        # resident-lane sync state, kept so snapshots carry the
-        # reference's key-state layout (the resident lane itself is not
-        # ported yet: both stay None)
+        # resident-lane sync state (ops/window_compute.ResidentPaneCarry):
+        # pane indices below ``pane_synced`` are final in the device
+        # forest; ``min_new_id`` tracks the smallest id appended since
+        # the last launch, so a launch ships only panes the new data
+        # could have changed (None = everything dirty / nothing new)
         self.pane_synced = None
         self.min_new_id = None
         # consolidated sorted arrays
@@ -327,8 +333,6 @@ class WinSeqTPULogic(NodeLogic):
                  device=None):
         if win_len == 0 or slide_len == 0:
             raise ValueError("win_len and slide_len must be > 0")
-        if resident is True:
-            raise unported("resident=True (the resident lane)", "resident")
         if placement not in PLACEMENTS:
             raise ValueError(
                 f"placement must be one of {PLACEMENTS}, not {placement!r}")
@@ -423,10 +427,14 @@ class WinSeqTPULogic(NodeLogic):
         # ids are per-key dense counters (plq_renumbered_id degenerates
         # to the emit counter), applied on the flushed batch
         self._native = None
-        # resident lane (docs/PLANNER.md "Resident state"): not ported
-        # yet -- True raised above; False opts out, None leaves eligible
-        # engines to the planner, which keeps them on the rebuild lane
+        # resident lane (docs/PLANNER.md "Resident state"): per-key
+        # pane partials stay device-resident across launches; a launch
+        # ships only new/changed partials.  True forces it on (and
+        # takes the Python staging path -- the native engine stages its
+        # own pane buffers), False opts out, None lets the planner
+        # promote eligible device-lane engines.
         self.resident = resident
+        self._resident = None
         self._plq_counters: Dict[Any, int] = {}
         # non-integral record keys (the reference's templated key types)
         # are interned into a reserved negative int64 range for the
@@ -440,7 +448,7 @@ class WinSeqTPULogic(NodeLogic):
                 and role in (Role.SEQ, Role.PLQ)
                 and cfg.n_outer == 1 and cfg.n_inner == 1
                 and cfg.id_outer == 0 and cfg.id_inner == 0
-                and value_of is None):
+                and value_of is None and resident is not True):
             try:
                 from ...runtime.native import (NativeWindowEngine,
                                                native_available)
@@ -454,6 +462,8 @@ class WinSeqTPULogic(NodeLogic):
                         kind=win_kind)
             except Exception:
                 self._native = None
+        if resident is True:
+            self._enable_resident(required=True)
 
     # -- placement plane (graph/planner.py; docs/PLANNER.md) ---------------
     @property
@@ -471,6 +481,8 @@ class WinSeqTPULogic(NodeLogic):
             eng = getattr(self, cached, None)
             if eng is not None:
                 eng.bind(dev)
+        if self._resident is not None and self._resident.device != dev:
+            self._resident.bind(dev)
         return dev
 
     def apply_placement(self, placement: str,
@@ -487,6 +499,13 @@ class WinSeqTPULogic(NodeLogic):
         if rtt_floor_ms:
             self.rtt_floor_ms = rtt_floor_ms
         if placement == "host":
+            # the host lane computes against the host staging store
+            # directly: drop any resident device state (recomputable
+            # from the retained series on a later flip back)
+            self._resident = None
+            for st in self.keys.values():
+                st.pane_synced = None
+                st.min_new_id = None
             if not isinstance(self.engine, HostComputeEngine):
                 self.engine = HostComputeEngine(self.engine.kind)
                 for cached in ("_count_eng", "_mean_eng"):
@@ -509,13 +528,14 @@ class WinSeqTPULogic(NodeLogic):
             return HostComputeEngine(kind)
         return WindowComputeEngine(kind, device=self.device)
 
+    # -- resident lane (ops/window_compute.ResidentPaneCarry;
+    # docs/PLANNER.md "Resident state & online re-planning") ---------------
     def resident_eligible(self) -> bool:
-        """Shapes the resident pane carry would serve: builtin monoid
-        kind, pane length (gcd(win, slide)) long enough to pre-reduce,
-        role SEQ on a device lane, Python staging (the native engine
-        stages its own pane buffers).  The planner records such engines
-        as staying on the rebuild lane until the resident lane is
-        ported."""
+        """Shapes the resident pane carry serves: builtin monoid kind,
+        pane length (gcd(win, slide)) long enough to pre-reduce, role
+        SEQ on a device lane, Python staging (the native engine stages
+        its own pane buffers).  Everything else keeps the rebuild
+        path."""
         kind = getattr(self.engine, "kind", None)
         if not (isinstance(kind, str)
                 and kind in ("sum", "count", "max", "min")):
@@ -524,6 +544,50 @@ class WinSeqTPULogic(NodeLogic):
         return (pane >= 16 and self.role == Role.SEQ
                 and self._native is None
                 and self.resolved_placement != "host")
+
+    def _enable_resident(self, required: bool = False) -> bool:
+        if self._resident is not None:
+            return True
+        if not self.resident_eligible():
+            if required:
+                raise ValueError(
+                    "resident=True needs an eligible engine: builtin "
+                    "sum/count/max/min kind, pane length (gcd(win, "
+                    "slide)) >= 16, role SEQ and a device lane -- the "
+                    "rebuild lane serves every other shape")
+            return False
+        from ...ops.window_compute import ResidentPaneCarry
+        pane = int(np.gcd(self.win_len, self.slide_len))
+        self._resident = ResidentPaneCarry(self.engine.kind,
+                                           self.win_len // pane,
+                                           device=self.device)
+        for st in self.keys.values():
+            st.pane_synced = None
+        return True
+
+    def maybe_enable_resident(self) -> bool:
+        """Planner promotion hook (graph/planner.plan_graph): an
+        undecided (resident=None) engine joins the resident lane when
+        eligible; resident=False opts out, True forced it at
+        construction."""
+        if self.resident is False:
+            return False
+        return self._enable_resident()
+
+    def _reset_resident(self) -> None:
+        """Drop resident device state (restore / lane flip): the next
+        launch re-ships live partials from the host retained series."""
+        if self._resident is not None:
+            self._resident.reset()
+        for st in self.keys.values():
+            st.pane_synced = None
+            st.min_new_id = None
+
+    def device_resident_bytes(self) -> int:
+        """Gauge hook: bytes of window state resident in device memory
+        (the ``Device_state_bytes_resident`` stats field)."""
+        return (self._resident.state_bytes
+                if self._resident is not None else 0)
 
     def svc_init(self) -> None:
         if self.stats is not None and self.stats.operator_name:
@@ -859,6 +923,10 @@ class WinSeqTPULogic(NodeLogic):
         kind = self.engine.kind
         use_panes = (isinstance(kind, str) and kind in self._PANE_KINDS
                      and pane >= 16)
+        if use_panes and self._resident is not None:
+            self._launch_resident(descs, per_key, keys_involved, pane,
+                                  kind, emit)
+            return
         starts = np.empty(len(descs), np.int64)
         ends = np.empty(len(descs), np.int64)
         gwids = np.fromiter((d[1] for d in descs), np.int64, len(descs))
@@ -912,6 +980,101 @@ class WinSeqTPULogic(NodeLogic):
             st = self.keys[k]
             self._evict(st, wa.initial_id_of_key(default_hash(k), self.config,
                                                  self.role))
+
+    def _launch_resident(self, descs, per_key, keys_involved, pane,
+                         kind, emit) -> None:
+        """Resident-lane launch (docs/PLANNER.md "Resident state"):
+        ship only NEW/changed pane partials plus window extents and
+        answer the batch as pane-range queries against the
+        device-resident forest -- one fused scatter+query launch, so
+        the window carry never re-ships.  A pane is final once below
+        the fired frontier (the acceptance gate drops tuples behind
+        it), so ``pane_synced``/``min_new_id`` bound the dirty range to
+        O(new data) per launch."""
+        carry = self._resident
+        spans = {}
+        for k in keys_involved:
+            idxs = per_key[k]
+            initial_id = wa.initial_id_of_key(default_hash(k),
+                                              self.config, self.role)
+            lo_p = (min(descs[i][2] for i in idxs) - initial_id) // pane
+            hi_p = -(-(max(descs[i][3] for i in idxs) - initial_id)
+                     // pane)
+            spans[k] = (initial_id, lo_p, hi_p)
+            carry.row_of(k)
+            if carry.needs_grow(hi_p - lo_p):
+                # the batch's pane span (or key count) outgrew the
+                # forest: swap in a bigger EMPTY one and mark EVERY
+                # key dirty -- live partials recompute from the
+                # retained host series, which eviction keeps exactly
+                # down to the oldest unfired window.  (Never migrate
+                # by copying: launches still queued on the dispatcher
+                # scatter into the OLD forest tensor.)
+                carry.grow(hi_p - lo_p + 64)
+                for st2 in self.keys.values():
+                    st2.pane_synced = None
+        starts = np.empty(len(descs), np.int64)
+        ends = np.empty(len(descs), np.int64)
+        q_rows = np.empty(len(descs), np.int64)
+        gwids = np.fromiter((d[1] for d in descs), np.int64, len(descs))
+        run_rows, run_starts, run_lens, bufs = [], [], [], []
+        for k in keys_involved:
+            st = self.keys[k]
+            self._consolidate(st)
+            initial_id, lo_p, n_end = spans[k]
+            row = carry.rows[k]
+            if st.pane_synced is None:
+                dirty_lo = lo_p
+            else:
+                dirty_lo = st.pane_synced
+                if st.min_new_id is not None:
+                    dirty_lo = min(dirty_lo,
+                                   (st.min_new_id - initial_id) // pane)
+                # panes below this batch's oldest window start are
+                # dead (never read again): skip them even if unsynced
+                dirty_lo = max(dirty_lo, lo_p)
+            dirty_lo = min(dirty_lo, n_end)
+            if n_end > dirty_lo:
+                part = self._pane_partials(st, initial_id + dirty_lo
+                                           * pane, n_end - dirty_lo,
+                                           pane, kind)
+                bufs.append(np.asarray(part, np.float32))
+                # one CONSECUTIVE run of panes per key: ship a
+                # (row, start, len) descriptor, never positions
+                run_rows.append(row)
+                run_starts.append(dirty_lo)
+                run_lens.append(n_end - dirty_lo)
+            for i in per_key[k]:
+                starts[i] = (descs[i][2] - initial_id) // pane
+                ends[i] = -(-(descs[i][3] - initial_id) // pane)
+                q_rows[i] = row
+                if descs[i][4] < 0:  # CB: result ts = last in extent
+                    hi = int(np.searchsorted(st.sort_keys, descs[i][3],
+                                             "left"))
+                    lo = int(np.searchsorted(st.sort_keys, descs[i][2],
+                                             "left"))
+                    d = descs[i]
+                    descs[i] = (d[0], d[1], d[2], d[3],
+                                int(st.ts[hi - 1]) if hi > lo else 0,
+                                d[5])
+            st.pane_synced = n_end
+            st.min_new_id = None
+        cols = {
+            "value": (np.concatenate(bufs) if bufs
+                      else np.empty(0, np.float32)),
+            "run_rows": np.asarray(run_rows, np.int32),
+            "run_starts": np.asarray(run_starts, np.int64),
+            "run_lens": np.asarray(run_lens, np.int32),
+            "q_rows": q_rows,
+        }
+        birth = self._batch_birth or _time.perf_counter()
+        self._batch_birth = None
+        self._submit(cols, starts, ends, gwids, descs, birth, emit,
+                     engine=carry.launch_engine())
+        if self.stats is not None:  # single-writer: ingest thread
+            self.stats.device_state_bytes = carry.state_bytes
+        for k in keys_involved:
+            self._evict(self.keys[k], spans[k][0])
 
     def _count_engine(self):
         # count over panes = sum of per-pane counts
@@ -1046,6 +1209,10 @@ class WinSeqTPULogic(NodeLogic):
             k_ids = k_ids[keep]
             if len(k_ids) == 0:
                 continue
+            if self._resident is not None:
+                mn = int(k_ids.min())
+                if st.min_new_id is None or mn < st.min_new_id:
+                    st.min_new_id = mn
             st.pending_chunks.append(
                 (k_ids.astype(np.int64), tss_s[lo:hi][keep],
                  vals_s[lo:hi][keep].astype(np.float64)))
@@ -1135,6 +1302,9 @@ class WinSeqTPULogic(NodeLogic):
             if last_w < 0:
                 return  # hopping gap
             st.opened_max = max(st.opened_max, last_w)
+            if self._resident is not None and (
+                    st.min_new_id is None or id_ < st.min_new_id):
+                st.min_new_id = id_
             st.pending_sort.append(id_)
             st.pending_ts.append(ts)
             st.pending_val.append(self.value_of(t))
@@ -1248,6 +1418,12 @@ class WinSeqTPULogic(NodeLogic):
                    + st.values.nbytes + 96)
         except (RuntimeError, StopIteration, AttributeError):
             per = 96  # resized under us: count-only estimate
+        res = self.device_resident_bytes()
+        if res:
+            # resident-forest bytes surface as the census "device" tier
+            # (metrics render them under
+            # windflow_keyed_state_bytes{tier="device"})
+            return (n, n * per, {"tiers": {"device": [n, int(res)]}})
         return (n, n * per)
 
     # -- checkpoint / resume (utils/checkpoint.py policy layer) --------
@@ -1301,6 +1477,10 @@ class WinSeqTPULogic(NodeLogic):
             # np.fromiter on the first launch
             self._saw_nonint_key = any(
                 not isinstance(k, (int, np.integer)) for k in self.keys)
+        # resident carry is NOT part of the snapshot (it is derivable
+        # from the retained host series): drop it so the next launch
+        # re-ships live partials -- restores stay lane-portable
+        self._reset_resident()
 
     def svc_end(self):
         # error-path teardown: eos_flush already drained (and cleared)

@@ -1,0 +1,236 @@
+"""Batched FlatFAT range query: the hand-written Hopper kernel and its
+plain twin.
+
+``flatfat_query(tree, rows, starts, ends, combine, neutral)`` folds, for
+each window ``b``, the leaves ``[starts[b], ends[b])`` of the heap-layout
+tree in row ``rows[b]`` of a forest ``tree [K, 2n]`` (f32, n a power of
+two, root at 1, leaves at ``[n, 2n)``) and returns f32 ``[B]``; an extent
+with ``end <= start`` gives ``neutral``.  A single tree is ``[2n]`` (or
+``[1, 2n]``) with ``rows=None``.  The fold is the O(log n) bit-walk with
+separate left and right accumulators, so a non-commutative ``combine``
+keeps oldest -> newest order; ``combine`` and ``neutral`` form a monoid.
+
+* On a CUDA tensor it launches ``flatfat_query.cu`` (one thread per
+  window; built with nvcc for ``sm_90a`` into ``windflow_tpu_torch/
+  _build/`` on first use and bound through ctypes) on the current
+  stream.  The kernel's combine is compiled in: ``torch.add``,
+  ``torch.maximum`` and ``torch.minimum`` (and the builtin names
+  ``sum``/``count``/``max``/``min``) launch it; any other combine raises
+  :func:`~windflow_tpu_torch._unported.unported` on the card.  A build
+  or launch failure raises: there is no fallback.
+* On a CPU tensor it runs :func:`flatfat_query_plain`, the torch form of
+  the reference's ``_query_body`` (windflow_tpu/ops/flatfat_jax.py:149),
+  for any torch combine.
+
+The kernel replaces the Pallas TPU kernel
+``windflow_tpu/ops/pallas/flatfat_query.py`` (``_build``'s kernel, entry
+``flatfat_query_ranges``).  ``launch_count()`` counts kernel launches so
+a run can show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+from typing import Any, Callable, Optional
+
+import torch
+
+from ..._unported import unported
+from ...runtime.build import build_shared, nvcc_command
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                    "flatfat_query.cu")
+_LIB_NAME = "libwf_flatfat_query.so"
+
+_lib = None
+_lib_lock = threading.Lock()
+_launches = 0
+_count_lock = threading.Lock()
+
+
+def _left_weighted(a, b):
+    """The reference tests' non-commutative combine ``0.5 a + b``
+    (tests/test_tpu_operators.py, tests/test_resident.py).  The kernel
+    carries it under a private op code so a check on the card can show
+    that the walk keeps oldest -> newest order; it is no user combine."""
+    return a * 0.5 + b
+
+
+# combine -> the kernel's op code (flatfat_query.cu)
+_KERNEL_OPS = {torch.add: 0, torch.maximum: 1, torch.minimum: 2,
+               _left_weighted: 3,
+               "sum": 0, "count": 0, "max": 1, "min": 2}
+_BUILTIN_FNS = {"sum": torch.add, "count": torch.add, "max": torch.maximum,
+                "min": torch.minimum}
+
+
+def kernel_op(combine: Any) -> Optional[int]:
+    """The kernel's op code for ``combine``, or None when the kernel has
+    no compiled form of it."""
+    try:
+        return _KERNEL_OPS.get(combine)
+    except TypeError:  # unhashable callable
+        return None
+
+
+def require_kernel_op(combine: Any) -> int:
+    """The kernel's op code for ``combine``; raises ``unported`` when
+    the kernel has no compiled form of it (a combine that cannot run on
+    the card)."""
+    op = kernel_op(combine)
+    if op is None:
+        name = getattr(combine, "__qualname__", None) or repr(combine)
+        raise unported(f"the FFAT combine {name} on the card (the query "
+                       f"kernel compiles torch.add, torch.maximum and "
+                       f"torch.minimum)", "custom")
+    return op
+
+
+def torch_combine(combine: Any) -> Callable:
+    """``combine`` as a binary torch function (builtin names resolved)."""
+    if isinstance(combine, str):
+        return _BUILTIN_FNS[combine]
+    return combine
+
+
+def _levels(n: int) -> int:
+    levels = n.bit_length() - 1
+    if n < 1 or 1 << levels != n:
+        raise ValueError(f"FlatFAT capacity must be a power of two, not {n}")
+    return levels
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def flatfat_query_plain(tree: torch.Tensor, rows: Optional[torch.Tensor],
+                        starts: torch.Tensor, ends: torch.Tensor,
+                        combine: Any, neutral: float) -> torch.Tensor:
+    """The bit-walk for every window at once, in torch (any combine)."""
+    comb = torch_combine(combine)
+    forest = tree.reshape(-1, tree.shape[-1])
+    n_rows, two_n = forest.shape
+    n = two_n // 2
+    levels = _levels(n)
+    flat = forest.reshape(-1)
+    dev = tree.device
+    B = starts.shape[0]
+    if rows is None:
+        row = torch.zeros(B, dtype=torch.int64, device=dev)
+    else:
+        row = rows.long()
+    bad_row = (row < 0) | (row >= n_rows)
+    base = row.clamp(0, n_rows - 1) * two_n
+    s = starts.long().clamp(0, n)
+    e = ends.long().clamp(0, n)
+    valid = e > s
+    lo, hi = s + n, e + n
+    left = torch.full((B,), neutral, dtype=torch.float32, device=dev)
+    right = left.clone()
+    for _ in range(levels + 1):
+        take_l = (lo < hi) & ((lo & 1) == 1)
+        lval = flat[base + lo.clamp(max=two_n - 1)]
+        left = torch.where(take_l, comb(left, lval), left)
+        lo = torch.where(take_l, lo + 1, lo)
+        take_r = (lo < hi) & ((hi & 1) == 1)
+        hi = torch.where(take_r, hi - 1, hi)
+        rval = flat[base + hi.clamp(max=two_n - 1)]
+        right = torch.where(take_r, comb(rval, right), right)
+        lo = lo >> 1
+        hi = hi >> 1
+    out = torch.where(valid, comb(left, right),
+                      torch.full_like(left, neutral))
+    return torch.where(bad_row, torch.full_like(out, float("nan")), out)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+def load_kernel() -> ctypes.CDLL:
+    """Build (once per source change) and bind the CUDA kernel."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        try:
+            path = build_shared(_LIB_NAME, nvcc_command(_SRC), [_SRC])
+        except subprocess.CalledProcessError as e:
+            raise RuntimeError(
+                f"flatfat_query kernel build failed:\n{e.stderr}") from e
+        lib = ctypes.CDLL(path)
+        lib.wf_flatfat_query.restype = ctypes.c_int
+        lib.wf_flatfat_query.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_float, ctypes.c_int64, ctypes.c_void_p]
+        _lib = lib
+        return lib
+
+
+def launch_count() -> int:
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    with _count_lock:
+        _launches = 0
+
+
+def _check(tree: torch.Tensor, rows: Optional[torch.Tensor],
+           starts: torch.Tensor, ends: torch.Tensor) -> None:
+    if tree.dtype != torch.float32 or tree.dim() not in (1, 2):
+        raise ValueError("tree must be a float32 [2n] or [K, 2n] tensor")
+    if tree.shape[-1] % 2:
+        raise ValueError("tree rows must hold 2n nodes")
+    _levels(tree.shape[-1] // 2)
+    idx = [starts, ends] + ([rows] if rows is not None else [])
+    for t in idx:
+        if t.dtype != torch.int32 or t.dim() != 1 \
+                or t.shape[0] != starts.shape[0]:
+            raise ValueError("rows, starts and ends must be int32 [B] "
+                             "tensors of one length")
+    if any(t.device != tree.device for t in idx):
+        raise ValueError("tree and extents must be on the same device")
+    if not all(t.is_contiguous() for t in [tree] + idx):
+        raise ValueError("tree and extents must be contiguous")
+
+
+def flatfat_query(tree: torch.Tensor, rows: Optional[torch.Tensor],
+                  starts: torch.Tensor, ends: torch.Tensor, combine: Any,
+                  neutral: float) -> torch.Tensor:
+    """The per-window fold as f32 [B]: the CUDA kernel for a CUDA tensor
+    (compiled combines only), the plain version for a CPU tensor."""
+    global _launches
+    _check(tree, rows, starts, ends)
+    if tree.device.type == "cpu":
+        return flatfat_query_plain(tree, rows, starts, ends, combine,
+                                   neutral)
+    if tree.device.type != "cuda":
+        raise ValueError(f"unsupported device {tree.device}")
+    op = require_kernel_op(combine)
+    lib = load_kernel()
+    n_windows = starts.shape[0]
+    out = torch.empty(n_windows, dtype=torch.float32, device=tree.device)
+    if n_windows == 0:
+        return out
+    two_n = tree.shape[-1]
+    n_rows = tree.numel() // two_n
+    with torch.cuda.device(tree.device):
+        stream = torch.cuda.current_stream(tree.device).cuda_stream
+        rc = lib.wf_flatfat_query(
+            tree.data_ptr(), two_n // 2, _levels(two_n // 2), n_rows,
+            rows.data_ptr() if rows is not None else None,
+            starts.data_ptr(), ends.data_ptr(), out.data_ptr(), n_windows,
+            float(neutral), op, stream)
+    if rc != 0:
+        raise RuntimeError(f"flatfat_query kernel launch failed: "
+                           f"cudaError {rc}")
+    with _count_lock:
+        _launches += 1
+    return out

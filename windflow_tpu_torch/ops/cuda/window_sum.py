@@ -21,13 +21,12 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import subprocess
 import threading
 
 import torch
 
-from ...runtime.build import OUT, build_shared
+from ...runtime.build import build_shared, nvcc_command
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     "window_sum.cu")
@@ -92,28 +91,14 @@ def window_sums_plain(values: torch.Tensor, se: torch.Tensor) -> torch.Tensor:
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("window_sum kernel: nvcc not found (set CUDA_HOME)")
-    return found
-
-
 def load_kernel() -> ctypes.CDLL:
     """Build (once per source change) and bind the CUDA kernel."""
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", OUT, _SRC]
         try:
-            path = build_shared(_LIB_NAME, cmd, [_SRC])
+            path = build_shared(_LIB_NAME, nvcc_command(_SRC), [_SRC])
         except subprocess.CalledProcessError as e:
             raise RuntimeError(
                 f"window_sum kernel build failed:\n{e.stderr}") from e

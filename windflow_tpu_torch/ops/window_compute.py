@@ -10,6 +10,12 @@ reference engine's jitted XLA programs.
   fallback -- and its plain version (the tile/scan pair) on the CPU.
 * **max/min** use a sparse table (log-sweep of strided combines) + two
   gathers per window, in plain torch.
+* **ffat** kinds ``("ffat", combine, neutral)`` build a FlatFAT tree
+  over the flat buffer and answer every window with the hand-written
+  FlatFAT query kernel ``ops/cuda/flatfat_query.cu`` on a CUDA device.
+* the **resident lane** (:class:`ResidentPaneCarry`) keeps per-key pane
+  partials in a device forest across launches; each launch scatters the
+  new partials and queries the due windows with the same kernel.
 
 All shapes are bucketed to powers of two with a 2048 floor, so the
 buffers the caching allocators hand out come from a handful of sizes.
@@ -29,7 +35,10 @@ import numpy as np
 import torch
 
 from .._unported import unported
+from .cuda.flatfat_query import require_kernel_op
 from .cuda.window_sum import next_pow2, window_sums
+from .device import resolve_device, stream_context
+from .flatfat_torch import BatchedFlatFAT, build_tree, query_tree
 
 BUILTIN_KINDS = ("sum", "count", "mean", "max", "min")
 
@@ -49,24 +58,6 @@ def _transfer_guard():
     if os.environ.get("WINDFLOW_GLOBAL_DISPATCH_LOCK") == "1":
         return _GLOBAL_DISPATCH_LOCK
     return contextlib.nullcontext()
-
-
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """The torch device a window engine runs on.  A CUDA device must
-    exist: the port never quietly runs on the CPU unless asked to."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {str(device)!r} requested but no CUDA device is "
-                f"available (pass device='cpu' to run the plain versions "
-                f"on the CPU)")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {str(device)!r}: "
-                         f"'cuda' or 'cpu'")
-    return dev
 
 
 # ---------------------------------------------------------------------------
@@ -141,31 +132,225 @@ class DeviceBatchHandle:
             return self._host.numpy()[: self._n]
 
 
-class ResidentPaneCarry:
-    """Device-resident pane-partial state of the resident lane: not
-    ported yet."""
+class _ResidentPaneHandle:
+    """Async result of one fused resident-pane launch: 2B ring-wrap
+    query pieces, copied into pinned host memory on the launching stream
+    behind an event (as :class:`DeviceBatchHandle`); ``block()`` combines
+    the pieces on the host in time order.  The handle keeps the forest
+    it launched against referenced until the launch is known to have
+    finished, so a grow that swaps the forest out cannot free it under
+    a queued update."""
 
-    def __init__(self, *args, **kwargs):
-        raise unported("ResidentPaneCarry (the resident lane)", "resident")
+    __slots__ = ("_dev", "_host", "_event", "_forest", "_wraps", "_B",
+                 "_comb")
+
+    def __init__(self, dev_out: torch.Tensor, forest, wraps, B, np_comb):
+        self._wraps = wraps
+        self._B = B
+        self._comb = np_comb
+        if dev_out.device.type == "cuda":
+            self._dev = dev_out
+            self._forest = forest.tree
+            self._host = torch.empty(dev_out.shape, dtype=dev_out.dtype,
+                                     pin_memory=True)
+            self._host.copy_(dev_out, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(dev_out.device))
+        else:
+            self._dev = self._forest = self._event = None
+            self._host = dev_out
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def block(self) -> np.ndarray:
+        with _transfer_guard():
+            if self._event is not None:
+                self._event.synchronize()
+                self._dev = self._forest = None
+            out = self._host.numpy()
+        head, tail = out[: self._B], out[self._B: 2 * self._B]
+        if self._wraps.any():
+            head = np.where(self._wraps, self._comb(head, tail), head)
+        return head
+
+
+class _ResidentPaneLaunch:
+    """One launch's engine view: pins the forest the staging was
+    computed against, so a concurrent capacity grow (which swaps the
+    carry's forest and re-ships everything dirty) can never retarget
+    an already-staged launch."""
+
+    __slots__ = ("carry", "forest")
+
+    def __init__(self, carry: "ResidentPaneCarry", forest):
+        self.carry = carry
+        self.forest = forest
+
+    def launch_context(self):
+        return self.carry.launch_context()
+
+    def compute(self, cols, starts, ends, gwids) -> _ResidentPaneHandle:
+        with self.carry._lock:
+            dev, wraps, B = self.forest.update_runs_query_launch(
+                cols["run_rows"], cols["run_starts"], cols["run_lens"],
+                np.asarray(cols["value"], np.float32),
+                cols["q_rows"], starts, ends)
+            return _ResidentPaneHandle(dev, self.forest, wraps, B,
+                                       self.carry.np_comb)
+
+
+class ResidentPaneCarry:
+    """Device-resident pane-partial state for the WinSeqTPULogic
+    resident lane (docs/PLANNER.md "Resident state").
+
+    Where the rebuild lane re-ships the whole staged pane buffer
+    (window carry included) on every launch, this keeps one per-key
+    ring of pane partials resident in device memory as a
+    :class:`~windflow_tpu_torch.ops.flatfat_torch.BatchedFlatFAT` forest
+    (one tensor, updated in place on the carry's CUDA stream) and ships
+    only NEW/changed partials per launch; windows are answered as
+    pane-range queries by the FlatFAT query kernel in the same fused
+    launch.  Keyed by pane index: ring position = absolute pane id mod
+    capacity, alias-safe because the engine's fired frontier proves
+    panes below the oldest unfired window dead before their slots are
+    reused.
+
+    ``device`` binds the carry as the window engine binds (None: bound
+    by the owner, else the card on first use); the forest lives on the
+    carry's own CUDA stream, on which every launch runs."""
+
+    KINDS = ("sum", "count", "max", "min")
+
+    def __init__(self, kind: str, panes_per_window: int,
+                 initial_keys: int = 16, headroom: int = 1024,
+                 device: Optional[Union[str, torch.device]] = None):
+        if kind not in self.KINDS:
+            raise ValueError(f"resident pane carry needs a builtin "
+                             f"monoid kind, not {kind!r}")
+        self.kind = kind
+        self.combine = {"sum": torch.add, "count": torch.add,
+                        "max": torch.maximum, "min": torch.minimum}[kind]
+        self.np_comb = {"sum": np.add, "count": np.add,
+                        "max": np.maximum, "min": np.minimum}[kind]
+        self.neutral = (0.0 if kind in ("sum", "count")
+                        else (-np.inf if kind == "max" else np.inf))
+        self.panes_per_window = panes_per_window
+        self.capacity = next_pow2(panes_per_window + headroom)
+        self._initial_keys = max(2, initial_keys)
+        self.rows: Dict[Any, int] = {}
+        # serializes forest launches against forest swaps
+        self._lock = threading.Lock()
+        self.device: Optional[torch.device] = None
+        self._stream = None
+        self._forest: Optional[BatchedFlatFAT] = None
+        if device is not None:
+            self.bind(device)
+
+    def bind(self, device: Union[str, torch.device]) -> torch.device:
+        """Fix the carry's device and start an empty forest there."""
+        self.device = resolve_device(device)
+        self._stream = (torch.cuda.Stream(device=self.device)
+                        if self.device.type == "cuda" else None)
+        with self._lock:
+            self._forest = self._new_forest(self._initial_keys)
+        return self.device
+
+    def _new_forest(self, n_keys: int) -> BatchedFlatFAT:
+        return BatchedFlatFAT(self.combine, self.neutral, n_keys,
+                              self.capacity, device=self.device,
+                              stream=self._stream)
+
+    @property
+    def forest(self) -> BatchedFlatFAT:
+        if self._forest is None:
+            self.bind("cuda")
+        return self._forest
+
+    def launch_context(self):
+        if self._forest is None:
+            self.bind("cuda")
+        return stream_context(self.device, self._stream)
+
+    @property
+    def state_bytes(self) -> int:
+        return self._forest.state_bytes if self._forest is not None else 0
+
+    def row_of(self, key) -> int:
+        """Assign/look up the key's forest row.  Returns the row; when
+        it does not fit the current forest the caller must call
+        :meth:`grow` (which swaps in a bigger EMPTY forest) and mark
+        every key dirty -- the forest is never migrated by copying,
+        because launches already queued on the dispatcher still
+        scatter into the OLD forest tensor and a snapshot copy would
+        silently lose them."""
+        row = self.rows.get(key)
+        if row is None:
+            row = self.rows[key] = len(self.rows)
+        return row
+
+    def needs_grow(self, span: int) -> bool:
+        return span > self.capacity or len(self.rows) > self.forest.n_keys
+
+    def grow(self, min_capacity: int) -> None:
+        """Key-count or pane-span overflow: swap in a bigger EMPTY
+        forest -- the caller must mark every key fully dirty so the
+        next launch re-ships live partials (they are recomputable
+        from the host retained series, which the engine's eviction
+        keeps exactly down to the oldest unfired window).  Launches
+        already in flight keep their pinned (old, complete) forest,
+        so their queries stay correct."""
+        if self._forest is None:
+            self.bind("cuda")
+        n = self.capacity
+        while n < min_capacity:
+            n <<= 1
+        k = self._initial_keys
+        while k < max(1, len(self.rows)):
+            k <<= 1
+        with self._lock:
+            self.capacity = n
+            self._forest = self._new_forest(k)
+
+    def reset(self) -> None:
+        """Drop all resident state (lane flip / state restore): the
+        next launch recomputes live partials from the host store."""
+        self.rows.clear()
+        if self._forest is not None:
+            with self._lock:
+                self._forest = self._new_forest(self._initial_keys)
+
+    def launch_engine(self) -> _ResidentPaneLaunch:
+        return _ResidentPaneLaunch(self, self.forest)
 
 
 class WindowComputeEngine:
     """Executes batches of window extents against a flat value buffer.
 
-    ``kind`` is a builtin combine name (:data:`BUILTIN_KINDS`) or a
-    pane-pair kind (:data:`PAIR_KINDS`).  ``device`` is the torch device
-    the engine launches on; ``None`` leaves the engine unbound until
-    :meth:`bind` (the planner binds it to ``RuntimeConfig.device`` at
-    graph start) and binds it to the CUDA device on first use
-    otherwise."""
+    ``kind`` is a builtin combine name (:data:`BUILTIN_KINDS`), a
+    pane-pair kind (:data:`PAIR_KINDS`), or ``("ffat", combine,
+    neutral)``: a FlatFAT tree over the flat buffer answers every window
+    (the Win_SeqFFAT_GPU pipeline), with ``combine`` a binary torch
+    function forming a monoid with ``neutral``; on the card it must be
+    one the FlatFAT query kernel compiles (``torch.add``,
+    ``torch.maximum``, ``torch.minimum``).  ``device`` is the torch
+    device the engine launches on; ``None`` leaves the engine unbound
+    until :meth:`bind` (the planner binds it to
+    ``RuntimeConfig.device`` at graph start) and binds it to the CUDA
+    device on first use otherwise."""
 
     def __init__(self, kind: Any = "sum", value_col: str = "value",
                  device: Optional[Union[str, torch.device]] = None):
-        if isinstance(kind, tuple) and len(kind) == 3 and kind[0] == "ffat":
-            raise unported("the 'ffat' window kind", "ffat")
-        if callable(kind):
-            raise unported("custom window functions", "ffat")
-        if kind not in BUILTIN_KINDS and kind not in PAIR_KINDS:
+        self.is_ffat = (isinstance(kind, tuple) and len(kind) == 3
+                        and kind[0] == "ffat")
+        if self.is_ffat:
+            if not callable(kind[1]):
+                raise ValueError(f"ffat combine must be a binary torch "
+                                 f"function, not {kind[1]!r}")
+            kind = ("ffat", kind[1], float(kind[2]))
+        elif callable(kind):
+            raise unported("custom window functions", "custom")
+        elif kind not in BUILTIN_KINDS and kind not in PAIR_KINDS:
             raise ValueError(f"unknown window combine kind: {kind!r}")
         self.kind = kind
         self.value_col = value_col
@@ -182,8 +367,11 @@ class WindowComputeEngine:
 
     def bind(self, device: Union[str, torch.device]) -> torch.device:
         """Fix the engine's device (raises when CUDA is asked for and
-        absent)."""
-        self.device = resolve_device(device)
+        absent, and for an ffat combine the card has no kernel for)."""
+        dev = resolve_device(device)
+        if self.is_ffat and dev.type == "cuda":
+            require_kernel_op(self.kind[1])
+        self.device = dev
         self._stream = None
         return self.device
 
@@ -191,14 +379,9 @@ class WindowComputeEngine:
         """Device + stream context a launch runs under: the engine's own
         CUDA stream, created on first use."""
         dev = self.device if self.device is not None else self.bind("cuda")
-        if dev.type != "cuda":
-            return contextlib.nullcontext()
-        if self._stream is None:
+        if dev.type == "cuda" and self._stream is None:
             self._stream = torch.cuda.Stream(device=dev)
-        stack = contextlib.ExitStack()
-        stack.enter_context(torch.cuda.device(dev))
-        stack.enter_context(torch.cuda.stream(self._stream))
-        return stack
+        return stream_context(dev, self._stream)
 
     def compute(self, cols: Dict[str, np.ndarray], starts: np.ndarray,
                 ends: np.ndarray, gwids: np.ndarray) -> DeviceBatchHandle:
@@ -239,7 +422,17 @@ class WindowComputeEngine:
         se_dev = (se_host.pin_memory() if pinned else se_host).to(
             dev, non_blocking=True)
         kind = self.kind
-        if kind == "sum":
+        if self.is_ffat:
+            # the FFAT twin of the reference's _ffat_program: build the
+            # tree over the flat buffer (padded with the neutral), then
+            # the FlatFAT query kernel answers every window
+            _, comb, neutral = kind
+            tree = build_tree(put(cols[self.value_col], neutral), comb,
+                              neutral)
+            out = query_tree(tree, se_dev[0], se_dev[1], comb, neutral)
+            out = torch.where(se_dev[1] > se_dev[0], out,
+                              torch.zeros_like(out))
+        elif kind == "sum":
             out = window_sums(put(cols[self.value_col]), se_dev)
         elif kind == "count":
             out = (se_dev[1] - se_dev[0]).to(torch.float32)

@@ -18,9 +18,10 @@ from __future__ import annotations
 
 import fcntl
 import os
+import shutil
 import subprocess
 import threading
-from typing import Sequence
+from typing import List, Sequence
 
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
@@ -41,6 +42,19 @@ def _is_fresh(lib: str, srcs: Sequence[str], stamp: str,
             return f.read() == cmd_str
     except OSError:
         return False
+
+
+def nvcc_command(src: str) -> List[str]:
+    """The nvcc command line that builds one ``.cu`` file with a plain C
+    interface into a shared library for Hopper (``sm_90a``)."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    nvcc = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        nvcc = shutil.which("nvcc")
+        if nvcc is None:
+            raise RuntimeError("nvcc not found (set CUDA_HOME)")
+    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", OUT, src]
 
 
 def build_shared(name: str, cmd: Sequence[str], srcs: Sequence[str],
