@@ -52,8 +52,9 @@ every phase passed):
    same stream, promoted by the planner onto the resident pane lane,
    against resident=False: bitwise equal, equal to the oracle, K2
    launches equal to the resident launches.
-8. profile15 -- the resident FFAT lane once more under torch.profiler,
-   at 1M events (an eighth of the run): device busy and idle share, top
+8. profile15 -- both FFAT lanes once more under torch.profiler: the
+   rebuild lane at the full 8M events, the resident lane at 1M (an
+   eighth of the run); for each, device busy and idle share and the top
    device ops.
 
 Then one JSON line describing each kernel, the card line, and
@@ -467,15 +468,21 @@ def profile_main(card: str) -> None:
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         g, sink, secs = run_main(N_EVENTS, "cuda")
     check_main(g, sink, N_EVENTS)
+    log(f"[profile] main path under the profiler: "
+        f"{profile_summary(prof, secs, 6)} ({card})")
+
+
+def profile_summary(prof, secs: float, n_top: int) -> str:
+    """Wall, device busy and idle share, and the top device ops of one
+    profiled run."""
     ops = sorted(((getattr(e, "self_device_time_total", 0) / 1e3, e.count,
                    e.key) for e in prof.key_averages()), reverse=True)
     busy = sum(ms for ms, _n, _k in ops)
-    top = "; ".join(f"{k[:48]} x{n} {ms:.3f} ms" for ms, n, k in ops[:6]
+    top = "; ".join(f"{k[:48]} x{n} {ms:.3f} ms" for ms, n, k in ops[:n_top]
                     if ms > 0)
-    log(f"[profile] main path under the profiler: wall {secs:.3f} s, "
-        f"device busy {busy:.3f} ms = {100 * busy / (secs * 1e3):.3f}% "
-        f"(idle {100 - 100 * busy / (secs * 1e3):.3f}%); top device ops: "
-        f"{top} ({card})")
+    return (f"wall {secs:.3f} s, device busy {busy:.3f} ms = "
+            f"{100 * busy / (secs * 1e3):.3f}% (idle "
+            f"{100 - 100 * busy / (secs * 1e3):.3f}%); top device ops: {top}")
 
 
 # ---------------------------------------------------------------------------
@@ -789,13 +796,25 @@ def bytes_per_launch(logic) -> float:
     return (st.bytes_to_device + st.bytes_from_device) / st.num_launches
 
 
-def main15(card: str) -> dict:
-    from windflow_tpu_torch.operators.tpu.ffat_resident import (
-        WinSeqFFATResident, WinSeqFFATResidentLogic)
+def ffat_lane(lane: str):
+    """Config 15's operator for one FFAT lane, as bench.py builds it."""
+    from windflow_tpu_torch.operators.tpu.ffat_resident import \
+        WinSeqFFATResident
     from windflow_tpu_torch.operators.tpu.win_seq_tpu import WinSeqTPU
+    import windflow_tpu_torch as wf
+    if lane == "rebuild":
+        return WinSeqTPU(("ffat", torch.add, 0.0), WIN15, SLIDE15,
+                         wf.WinType.CB, batch_len=BATCH15,
+                         max_buffer_elems=MAX_BUFFER, inflight_depth=INFLIGHT)
+    return WinSeqFFATResident(lambda t: t.value, torch.add, 0.0, WIN15,
+                              SLIDE15, wf.WinType.CB)
+
+
+def main15(card: str) -> dict:
+    from windflow_tpu_torch.operators.tpu.ffat_resident import \
+        WinSeqFFATResidentLogic
     from windflow_tpu_torch.ops.cuda import flatfat_query as fq
     from windflow_tpu_torch.ops.cuda.window_sum import next_pow2
-    import windflow_tpu_torch as wf
 
     want = oracle15(N15, SLIDE15)
     shapes = collections.Counter()
@@ -813,16 +832,10 @@ def main15(card: str) -> dict:
         eng.compute = recorded
 
     lanes = {}
-    for lane, make, cls, hook in (
-            ("rebuild", lambda: WinSeqTPU(
-                ("ffat", torch.add, 0.0), WIN15, SLIDE15, wf.WinType.CB,
-                batch_len=BATCH15, max_buffer_elems=MAX_BUFFER,
-                inflight_depth=INFLIGHT), None, record_shapes),
-            ("resident", lambda: WinSeqFFATResident(
-                lambda t: t.value, torch.add, 0.0, WIN15, SLIDE15,
-                wf.WinType.CB), WinSeqFFATResidentLogic, None)):
+    for lane, cls, hook in (("rebuild", None, record_shapes),
+                            ("resident", WinSeqFFATResidentLogic, None)):
         fq.reset_launch_count()
-        g, sink, secs = run15(make, N15, SLIDE15, hook)
+        g, sink, secs = run15(lambda: ffat_lane(lane), N15, SLIDE15, hook)
         launches = fq.launch_count()
         logic = find_logic(g, cls)
         if logic.device is None or logic.device.type != "cuda":
@@ -909,29 +922,16 @@ def resident_pane(card: str) -> int:
     return k2
 
 
-def profile15(card: str, n_events: int) -> None:
-    """The resident FFAT lane once more under torch.profiler (CUDA
+def profile15(card: str, lane: str, n_events: int) -> None:
+    """One FFAT lane of config 15 once more under torch.profiler (CUDA
     activity only): device busy and idle share, top device ops."""
-    from windflow_tpu_torch.operators.tpu.ffat_resident import \
-        WinSeqFFATResident
-    import windflow_tpu_torch as wf
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        g, sink, secs = run15(lambda: WinSeqFFATResident(
-            lambda t: t.value, torch.add, 0.0, WIN15, SLIDE15,
-            wf.WinType.CB), n_events, SLIDE15)
+        g, sink, secs = run15(lambda: ffat_lane(lane), n_events, SLIDE15)
     hold_to_oracle(sorted_windows(sink, "profile15"),
                    oracle15(n_events, SLIDE15), "profile15")
-    ops = sorted(((getattr(e, "self_device_time_total", 0) / 1e3, e.count,
-                   e.key) for e in prof.key_averages()), reverse=True)
-    busy = sum(ms for ms, _n, _k in ops)
-    top = "; ".join(f"{k[:48]} x{n} {ms:.3f} ms" for ms, n, k in ops[:8]
-                    if ms > 0)
-    log(f"[profile15] resident lane, {n_events} events, under the "
-        f"profiler: wall {secs:.3f} s, device busy {busy:.3f} ms = "
-        f"{100 * busy / (secs * 1e3):.3f}% (idle "
-        f"{100 - 100 * busy / (secs * 1e3):.3f}%); top device ops: {top} "
-        f"({card})")
+    log(f"[profile15] {lane} lane, {n_events} events, under the profiler: "
+        f"{profile_summary(prof, secs, 8)} ({card})")
 
 
 def kernel_entry(name, source, replaces, launches, err, t) -> dict:
@@ -987,9 +987,11 @@ def main() -> int:
     k2_launches += resident_pane(card)
     log(f"[smoke] resident pane done at "
         f"{time.perf_counter() - t_start:.1f} s")
+    profile15(card, "rebuild", N15)
     # an eighth of the run: at the full 8M events the profiler's
-    # processing of its ~2M kernel records alone took over 5 minutes
-    profile15(card, N15 // 8)
+    # processing of the resident lane's ~2M kernel records alone took
+    # over 5 minutes
+    profile15(card, "resident", N15 // 8)
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [

@@ -124,55 +124,37 @@ class DeviceBatchHandle:
         stall)."""
         return self._event is None or self._event.query()
 
-    def block(self) -> np.ndarray:
+    def _landed(self) -> np.ndarray:
+        """The whole host buffer, after the copy has landed."""
         with _transfer_guard():
             if self._event is not None:
                 self._event.synchronize()
                 self._dev = None
-            return self._host.numpy()[: self._n]
-
-
-class _ResidentPaneHandle:
-    """Async result of one fused resident-pane launch: 2B ring-wrap
-    query pieces, copied into pinned host memory on the launching stream
-    behind an event (as :class:`DeviceBatchHandle`); ``block()`` combines
-    the pieces on the host in time order.  The handle keeps the forest
-    it launched against referenced until the launch is known to have
-    finished, so a grow that swaps the forest out cannot free it under
-    a queued update."""
-
-    __slots__ = ("_dev", "_host", "_event", "_forest", "_wraps", "_B",
-                 "_comb")
-
-    def __init__(self, dev_out: torch.Tensor, forest, wraps, B, np_comb):
-        self._wraps = wraps
-        self._B = B
-        self._comb = np_comb
-        if dev_out.device.type == "cuda":
-            self._dev = dev_out
-            self._forest = forest.tree
-            self._host = torch.empty(dev_out.shape, dtype=dev_out.dtype,
-                                     pin_memory=True)
-            self._host.copy_(dev_out, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(dev_out.device))
-        else:
-            self._dev = self._forest = self._event = None
-            self._host = dev_out
-
-    def ready(self) -> bool:
-        return self._event is None or self._event.query()
+            return self._host.numpy()
 
     def block(self) -> np.ndarray:
-        with _transfer_guard():
-            if self._event is not None:
-                self._event.synchronize()
-                self._dev = self._forest = None
-            out = self._host.numpy()
-        head, tail = out[: self._B], out[self._B: 2 * self._B]
-        if self._wraps.any():
-            head = np.where(self._wraps, self._comb(head, tail), head)
-        return head
+        return self._landed()[: self._n]
+
+
+class _ResidentPaneHandle(DeviceBatchHandle):
+    """Async result of one fused resident-pane launch: 2B ring-wrap
+    query pieces behind an event, as :class:`DeviceBatchHandle`;
+    ``block()`` combines the pieces in time order with the forest's own
+    combine.  The handle keeps the forest it launched against
+    referenced, so a grow that swaps the forest out cannot free it
+    under a queued update."""
+
+    __slots__ = ("_forest", "_wraps")
+
+    def __init__(self, dev_out: torch.Tensor, forest: BatchedFlatFAT,
+                 wraps: np.ndarray, B: int):
+        super().__init__(dev_out, B)
+        self._forest = forest
+        self._wraps = wraps
+
+    def block(self) -> np.ndarray:
+        return self._forest._combine_pieces(self._landed(), self._wraps,
+                                            self._n)
 
 
 class _ResidentPaneLaunch:
@@ -196,8 +178,7 @@ class _ResidentPaneLaunch:
                 cols["run_rows"], cols["run_starts"], cols["run_lens"],
                 np.asarray(cols["value"], np.float32),
                 cols["q_rows"], starts, ends)
-            return _ResidentPaneHandle(dev, self.forest, wraps, B,
-                                       self.carry.np_comb)
+            return _ResidentPaneHandle(dev, self.forest, wraps, B)
 
 
 class ResidentPaneCarry:
@@ -231,8 +212,6 @@ class ResidentPaneCarry:
         self.kind = kind
         self.combine = {"sum": torch.add, "count": torch.add,
                         "max": torch.maximum, "min": torch.minimum}[kind]
-        self.np_comb = {"sum": np.add, "count": np.add,
-                        "max": np.maximum, "min": np.minimum}[kind]
         self.neutral = (0.0 if kind in ("sum", "count")
                         else (-np.inf if kind == "max" else np.inf))
         self.panes_per_window = panes_per_window
