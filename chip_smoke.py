@@ -9,9 +9,10 @@ every phase passed):
 
 1. device  -- the CUDA card's name, and its name and power limit as
    nvidia-smi reports them.
-2. build   -- the window-sum kernel K1 and the FlatFAT query kernel K2
-   (nvcc, sm_90a) and the native C++ engine (g++), built from the
-   checkout's sources in parallel into windflow_tpu_torch/_build/.
+2. build   -- window_sum.cu (the window-sum kernel K1) and flatfat_query.cu
+   (the FlatFAT query kernel K2 and the fused FlatFAT update+query
+   kernel), nvcc for sm_90a, and the native C++ engine (g++), built from
+   the checkout's sources in parallel into windflow_tpu_torch/_build/.
 3. kernel  -- K1, the window-sum kernel, against its plain torch version and
    a float64 numpy sum on the card, at the headline launch shape (pane
    partials, B = 4096, 2-pane extents), a wide raw-tuple shape (extents
@@ -22,13 +23,31 @@ every phase passed):
    kernel K2 -- the FlatFAT query kernel against its plain torch version
    for add, max, min and the non-commutative left_weighted test combine,
    at the rebuild lane's launch shape of bench config 15 (one tree of
-   T_pad = 2^17 leaves, B = 4096 windows), the resident shape (16 rows x
-   8192 leaves, ring-wrap pieces), a deployment-size forest (4096 rows x
-   8192 leaves = 256 MiB, 65,536 queries up to 4096 leaves) and edges
-   (empty extents, [0, n), n = 2, end = n): exact for max/min and for add
-   on integer data, rtol 1e-5 on random f32.  Per shape: device time,
-   the bound (extents, output and each tree node the queries need, read
-   once), the plain version's time and, for add, a sparse CSR mv.
+   T_pad = 2^17 leaves, B = 4096 windows), the resident shape before the
+   fused kernel (16 rows x 8192 leaves, ring-wrap pieces), a
+   deployment-size forest (4096 rows x 8192 leaves = 256 MiB, 65,536
+   queries up to 4096 leaves) and edges (empty extents, [0, n), n = 2,
+   end = n): exact for max/min and for add on integer data, rtol 1e-5 on
+   random f32.  Per shape: device time, the bound (extents, output and
+   each tree node the queries need, read once), the plain version's time
+   and, for add, a sparse CSR mv.
+   kernel K2 fused (run first, before any phase starts the profiler) --
+   the fused update+query kernel against its plain
+   version on the same packed inputs, results and forests after the
+   step, for the four combines, at the resident FFAT lane's step (forest
+   [16, 2 x 8192], one 1024-leaf run crossing the ring's end, 64 windows
+   of 4096, half wrapping), the resident pane lane's step (the carry's
+   forest [16, 2 x 2048], a 128-pane run for each of 8 keys, 1024
+   windows), a deployment-size forest (4096 x 8192, one 64-leaf run a
+   row, 16 windows a row) and edges (n = 16 and n = 2, two runs on one
+   row, an empty run, a row with windows and no run, windows of 0 and n
+   leaves): exact for max/min and for add on integer data, rtol 1e-5 on
+   random f32.  Per main shape: device time, the bound (the staged
+   inputs and the output once, each dirty node written once, each clean
+   node the update or the walks read once), the plain version's time,
+   and one whole step as a lane pays it (host staging to host result,
+   perf_counter and CUDA events) against the chain of torch ops and the
+   query kernel that ran before the fused kernel.
 4. main    -- the headline graph, bench.py config 2 (64M events, 64
    keys, TB window 4096 / slide 2048, source batch 2^20, device batch
    4096, buffer 2^21, 8 in flight, 10 ms delay), through PipeGraph ->
@@ -43,19 +62,20 @@ every phase passed):
    events, 8 keys, CB window 4096 / slide 16, source batch 65,536)
    through PipeGraph -> BatchSource -> lane -> Sink of the port, for the
    FFAT rebuild lane (WinSeqTPU(("ffat", torch.add, 0.0)), batch 128,
-   buffer 2^21, 8 in flight) and the resident FFAT lane
-   (WinSeqFFATResident): every window equal between the lanes and to a
-   closed-form float64 oracle, shipped bytes per launch rebuild/resident
-   >= 10x, K2 launches equal to each lane's launches.  Prints tuples/s,
-   window latency p50/p99 and the forest's resident bytes.
+   buffer 2^21, 8 in flight; K2 per launch) and the resident FFAT lane
+   (WinSeqFFATResident; the fused kernel per launch): every window equal
+   between the lanes and to a closed-form float64 oracle, shipped bytes
+   per launch rebuild/resident >= 10x, each lane's kernel launches equal
+   to its launched batches and the other kernels not launched.  Prints
+   tuples/s, window latency p50/p99 and the forest's resident bytes.
 7. resident pane -- WinSeqTPU("sum", 4096, 64, CB) with value_of on the
-   same stream, promoted by the planner onto the resident pane lane,
-   against resident=False: bitwise equal, equal to the oracle, K2
-   launches equal to the resident launches.
-8. profile15 -- both FFAT lanes once more under torch.profiler: the
-   rebuild lane at the full 8M events, the resident lane at 1M (an
-   eighth of the run); for each, device busy and idle share and the top
-   device ops.
+   same stream, promoted by the planner onto the resident pane lane (the
+   fused kernel per launch), against resident=False (K1 per launch):
+   bitwise equal, equal to the oracle, launches checked as in main15.
+   Phases 6 and 7 run twice back to back; each cell's two readings are
+   printed side by side.
+8. profile15 -- both FFAT lanes once more at the full 8M events under
+   torch.profiler: device busy and idle share and the top device ops.
 
 Then one JSON line describing each kernel, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -506,6 +526,9 @@ T_PAD15, B_PAD15 = 1 << 17, 4096
 RES_K, RES_N, RES_CHUNK = 16, 8192, 1024
 # the resident pane lane's slide (pane = gcd(4096, 64) = 64 >= 16)
 PANE_SLIDE = 64
+# the config-15 graphs' device (the CPU only to rehearse the phases
+# without a card, at a small N15)
+DEVICE15 = "cuda"
 
 
 def k2_combines():
@@ -529,22 +552,45 @@ def forest_of(leaves: torch.Tensor, comb) -> torch.Tensor:
     return tree
 
 
+def pieces(n: int, keys, starts, ends):
+    """Windows [starts, ends) in id space as the query kernel took them
+    before the fused kernel: padded to a pow2 bucket of at least 256, a
+    wrapping window as two pieces ([s, n), then [0, e mod n)) combined
+    on the host in time order.  Returns (k2, s2, e2, wraps, B)."""
+    keys = np.asarray(keys, np.int64)
+    starts = np.asarray(starts, np.int64)
+    ends = np.asarray(ends, np.int64)
+    s = starts % n
+    e_raw = ends % n
+    wraps = (ends > starts) & (e_raw <= s)
+    B = len(keys)
+    b = 256
+    while b < 2 * B:
+        b <<= 1
+    k2, s2, e2 = (np.zeros(b, np.int32) for _ in range(3))
+    k2[:B] = keys
+    s2[:B] = s
+    e2[:B] = np.where(ends > starts, np.where(wraps, n, e_raw), s)
+    k2[B:2 * B] = keys
+    e2[B:2 * B] = np.where(wraps, e_raw, 0)
+    return k2, s2, e2, wraps, B
+
+
 def k2_shapes(rng):
     """name -> (K, n, rows or None, starts, ends) at the main paths'
     launch shapes, a deployment-size forest and edges."""
-    from windflow_tpu_torch.ops.flatfat_torch import BatchedFlatFAT
     shapes = {}
     # rebuild lane: one tree over the 8 keys' series, 512 windows each
     per_key = WIN15 + (B_PAD15 // KEYS15 - 1) * SLIDE15
     off = np.repeat(np.arange(KEYS15) * per_key, B_PAD15 // KEYS15)
     starts = off + np.tile(np.arange(B_PAD15 // KEYS15) * SLIDE15, KEYS15)
     shapes["rebuild"] = (1, T_PAD15, None, starts, starts + WIN15)
-    # resident lane: one chunk's 64 windows of one key, ring-wrapping
-    pack = BatchedFlatFAT(torch.add, 0.0, RES_K, RES_N, device="cpu")
+    # resident lane before the fused kernel: one chunk's 64 windows of
+    # one key, ring-wrapping, as query pieces
     first = 5 * RES_N + 4000  # past several ring turns; half wrap
     qs = first + np.arange(RES_CHUNK // SLIDE15) * SLIDE15
-    k2, s2, e2, wraps, _B = pack._pack_queries(np.full(len(qs), 3), qs,
-                                               qs + WIN15)
+    k2, s2, e2, wraps, _B = pieces(RES_N, np.full(len(qs), 3), qs,
+                                   qs + WIN15)
     assert wraps.any()
     shapes["resident"] = (RES_K, RES_N, k2, s2, e2)
     # deployment-size forest: 4096 keys x 8192 leaves (256 MiB)
@@ -559,10 +605,10 @@ def k2_shapes(rng):
     return shapes
 
 
-def walk_work(n: int, rows, starts, ends, ops_per_combine: int):
-    """(bytes, f32 ops) the queries need on these inputs: extents, row
-    ids and outputs once, each distinct tree node the walks take read
-    once; one combine per node taken plus the final one."""
+def walk_nodes(n: int, rows, starts, ends):
+    """(forest node ids, combines) of the bit-walks over [starts, ends)
+    of rows (None: one tree): each node a walk takes, and one combine
+    per node taken plus the final one of each non-empty extent."""
     two_n = 2 * n
     levels = n.bit_length() - 1
     r = np.zeros(len(starts), np.int64) if rows is None else \
@@ -580,10 +626,17 @@ def walk_work(n: int, rows, starts, ends, ops_per_combine: int):
         nodes.append((base + hi)[tr])
         combines += int(tl.sum() + tr.sum())
         lo, hi = lo >> 1, hi >> 1
-    distinct = len(np.unique(np.concatenate(nodes)))
+    return np.concatenate(nodes), combines
+
+
+def walk_work(n: int, rows, starts, ends, ops_per_combine: int):
+    """(bytes, f32 ops) the queries need on these inputs: extents, row
+    ids and outputs once, each distinct tree node the walks take read
+    once; one combine per node taken plus the final one."""
+    nodes, combines = walk_nodes(n, rows, starts, ends)
     B = len(starts)
     nbytes = 8 * B + (4 * B if rows is not None else 0) + 4 * B \
-        + 4 * distinct
+        + 4 * len(np.unique(nodes))
     return nbytes, combines * ops_per_combine
 
 
@@ -685,6 +738,247 @@ def check_k2(device, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 3c. the fused FlatFAT update+query kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# the resident pane lane's carry: pow2(64 panes a window + 1024 headroom)
+# leaves, 16 initial rows; a 65,536-event chunk brings 128 new panes for
+# each of the 8 keys and fires 128 windows of 64 panes per key
+PANE_N, PANE_NEW = 2048, 128
+
+
+def fused_shapes(rng):
+    """name -> (K, n, runs (rows, starts, lens), windows (rows, starts,
+    ends)) in id space, at the resident lanes' launch shapes, a
+    deployment-size forest and edges."""
+    shapes = {}
+    # resident FFAT lane: one 1024-leaf chunk of key 3 crossing the
+    # ring's end and the 64 windows of 4096 it closes (half wrap)
+    s0 = 6 * RES_N - 512
+    ends = s0 + SLIDE15 * np.arange(1, RES_CHUNK // SLIDE15 + 1)
+    shapes["resident"] = (RES_K, RES_N, ([3], [s0], [RES_CHUNK]),
+                          (np.full(len(ends), 3), ends - WIN15, ends))
+    # resident pane lane: one run of 128 panes per key, 128 windows each
+    p0 = rng.integers(4 * PANE_N, 8 * PANE_N, KEYS15)
+    ends = (p0[:, None] + PANE_NEW - np.arange(PANE_NEW)[None, :]).ravel()
+    shapes["pane"] = (16, PANE_N, (np.arange(KEYS15), p0,
+                                   np.full(KEYS15, PANE_NEW)),
+                      (np.repeat(np.arange(KEYS15), PANE_NEW),
+                       ends - WIN15 // PANE_SLIDE, ends))
+    # deployment forest: 4096 keys x 8192 leaves (256 MiB), one 64-leaf
+    # run per row (some wrap), 16 windows per row of up to 4096 leaves
+    K = 4096
+    r0 = rng.integers(RES_N, 8 * RES_N, K)
+    ends = (np.repeat(r0 + 64, 16) - rng.integers(0, 128, 16 * K))
+    shapes["deploy"] = (K, RES_N, (np.arange(K), r0, np.full(K, 64)),
+                        (np.repeat(np.arange(K), 16),
+                         ends - rng.integers(1, WIN15 + 1, 16 * K), ends))
+    # edges: two runs on one row crossing the ring's end, an empty run,
+    # a row with windows and no run, windows of 0 and of n leaves
+    shapes["edges16"] = (3, 16, ([0, 0, 1], [14, 18, 5], [4, 3, 0]),
+                         ([0, 0, 0, 2, 2, 1, 0], [10, 0, 20, 5, 30, 7, 16],
+                          [26, 16, 20, 9, 40, 8, 21]))
+    shapes["edges2"] = (2, 2, ([1], [1], [2]),
+                        ([0, 1, 1, 1, 1], [0, 1, 1, 0, 3], [2, 3, 2, 0, 4]))
+    return shapes
+
+
+def fused_work(n: int, runs, wins, sizes, ops_per_combine: int):
+    """(bytes, f32 ops) one fused step needs on these inputs: the staged
+    buffer (descriptors and values) read and the output written once;
+    each dirty node (new leaves and their ancestors) written once; each
+    clean node the step needs read once: the children of dirty nodes
+    that no run made dirty, and the nodes the walks take outside the
+    dirty ones.  One combine per dirty inner node, per node a walk takes
+    and per wrapping window."""
+    levels = n.bit_length() - 1
+    rows, starts, lens = (np.asarray(a, np.int64) for a in runs)
+    which = np.repeat(np.arange(len(lens)), lens)
+    idx = n + (starts[which] + np.arange(len(which))
+               - np.repeat(np.cumsum(lens) - lens, lens)) % n
+    base = rows[which] * 2 * n
+    dirty = [base + idx]
+    for _ in range(levels):
+        idx = idx >> 1
+        dirty.append(base + idx)
+    dirty = np.unique(np.concatenate(dirty))
+    parents = dirty[dirty % (2 * n) < n]  # dirty inner nodes
+    row_base = parents - parents % (2 * n)
+    children = np.concatenate([2 * parents - row_base,
+                               2 * parents - row_base + 1])
+    inner = len(parents)
+    q_rows, q_s, q_e = (np.asarray(a, np.int64) for a in wins)
+    s, e = q_s % n, q_s % n + np.maximum(q_e - q_s, 0)
+    wrap = (q_e > q_s) & (e >= n)
+    nodes, combines = walk_nodes(
+        n, np.concatenate([q_rows, q_rows[wrap]]),
+        np.concatenate([s, np.zeros(int(wrap.sum()), np.int64)]),
+        np.concatenate([np.minimum(e, n), (e - n)[wrap]]))
+    clean = np.setdiff1d(np.concatenate([children, nodes]), dirty)
+    G, R, Q, V = sizes
+    nbytes = 4 * (3 * G + 2 + 3 * R + 3 * Q + V) + 4 * Q \
+        + 4 * len(dirty) + 4 * len(clean)
+    return nbytes, (inner + combines + int(wrap.sum())) * ops_per_combine
+
+
+def legacy_step(tree, comb, neutral, runs, values, wins) -> np.ndarray:
+    """One resident step as the lanes paid it before the fused kernel:
+    host packing into five pinned copies, run expansion, the 13-level
+    torch root-path sweep and the query kernel over two pieces a
+    wrapping window (the plain version's expand_runs and update_sparse,
+    then K2), a blocking copy back, the pieces combined on the host."""
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    n = tree.shape[-1] // 2
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+            tree.device, non_blocking=True)
+
+    rows, starts, lens = (np.asarray(a, np.int64) for a in runs)
+    R, total = len(rows), int(lens.sum())
+    rb = 8
+    while rb < R:
+        rb <<= 1
+    rr = np.zeros(3 * rb, np.int32)
+    rr[:R], rr[rb:rb + R], rr[2 * rb:2 * rb + R] = rows, starts % n, lens
+    vb = 512
+    while vb < total:
+        vb <<= 1
+    v = np.full(vb, neutral, np.float32)
+    v[:total] = values
+    k2, s2, e2, wraps, B = pieces(n, *wins)
+    qd = put(np.concatenate([k2, s2, e2]))
+    rd = put(rr)
+    b = len(k2)
+    keys, pos, valid = fq.expand_runs(rd[:rb], rd[rb:2 * rb], rd[2 * rb:],
+                                      vb, n)
+    fq.update_sparse(tree, keys, pos, put(v), valid, comb)
+    out = fq.flatfat_query(tree, qd[:b], qd[b:2 * b], qd[2 * b:], comb,
+                           neutral).cpu().numpy()
+    head, tail = out[:B], out[B:2 * B]
+    if not wraps.any():
+        return head
+    return np.where(wraps, comb(torch.from_numpy(head),
+                                torch.from_numpy(tail)).numpy(), head)
+
+
+def step_walls(step, reps: int):
+    """(median ms by perf_counter, median ms by CUDA events) of one
+    blocking step, host staging to host result."""
+    for _ in range(3):
+        step()
+    walls, evs = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        step()
+        b.record()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        b.synchronize()
+        evs.append(a.elapsed_time(b))
+    return float(np.median(walls)), float(np.median(evs))
+
+
+def check_fused(device, card: str) -> dict:
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    from windflow_tpu_torch.ops.flatfat_torch import (BatchedFlatFAT,
+                                                      pack_step,
+                                                      step_inputs)
+    rng = np.random.default_rng(2)
+    out = {}
+    worst_err = 0.0
+    for name, (K, n, runs, wins) in fused_shapes(rng).items():
+        V = int(np.sum(runs[2]))
+        data = {}
+        for integer in (True, False):
+            vals = (rng.integers(0, 97, V) if integer
+                    else rng.random(V)).astype(np.float32)
+            buf, sizes = pack_step(n, K, *runs, vals, *wins, pinned=True)
+            leaves = (rng.integers(0, 97, (K, n)) if integer
+                      else rng.random((K, n))).astype(np.float32)
+            data[integer] = (vals, step_inputs(buf.to(device), sizes),
+                             torch.from_numpy(leaves).to(device), sizes)
+        for cname, (comb, neutral, _opc) in k2_combines().items():
+            for integer in ((True, False) if cname == "add" else (False,)):
+                _vals, inputs, leaves, _sizes = data[integer]
+                fk = forest_of(leaves, comb)
+                fp = fk.clone()
+                k = fq.flatfat_update_query(fk, inputs, comb, neutral)
+                p = fq.flatfat_update_query_plain(fp, inputs, comb, neutral)
+                torch.cuda.synchronize()
+                k, p = k.cpu().numpy(), p.cpu().numpy()
+                tk, tp = fk.cpu().numpy(), fp.cpu().numpy()
+                if integer or cname in ("max", "min"):
+                    if not (np.array_equal(k, p) and np.array_equal(tk, tp)):
+                        raise AssertionError(
+                            f"[kernel K2 fused] {name} {cname}: not exact, "
+                            f"err {np.nanmax(np.abs(k - p), initial=0)}, "
+                            f"forest err {np.nanmax(np.abs(tk - tp))}")
+                else:
+                    np.testing.assert_allclose(
+                        k, p, rtol=RTOL_F32, atol=1e-6,
+                        err_msg=f"[kernel K2 fused] {name} {cname} f32")
+                    np.testing.assert_allclose(
+                        tk, tp, rtol=RTOL_F32, atol=1e-6,
+                        err_msg=f"[kernel K2 fused] {name} {cname} forest")
+                fin = np.isfinite(p)
+                if not np.array_equal(fin, np.isfinite(k)):
+                    raise AssertionError(f"[kernel K2 fused] {name} "
+                                         f"{cname}: non-finite results "
+                                         f"differ")
+                if fin.any():
+                    worst_err = max(worst_err, float(
+                        np.abs(k[fin] - p[fin]).max()))
+                del fk, fp
+        if name.startswith("edges"):
+            log(f"[kernel K2 fused] {name}: K={K} n={n} exact on integers "
+                f"and max/min, rtol {RTOL_F32} on f32, forests equal")
+            continue
+        # timings: add on integer data, the forest updated in place by
+        # every call (the same step again: idempotent).  First one whole
+        # step as the lane pays it, and the chain that ran before the
+        # fused kernel, then the profiled timings
+        vals, inputs, leaves, sizes = data[True]
+        fk = forest_of(leaves, torch.add)
+        bf = BatchedFlatFAT(torch.add, 0.0, K, n, device=device)
+        bf.tree = fk
+        fused_res = bf.update_runs_query(*runs, vals, *wins)
+        old_res = legacy_step(fk, torch.add, 0.0, runs, vals, wins)
+        if not np.array_equal(fused_res, old_res):
+            raise AssertionError(f"[kernel K2 fused] {name}: the fused step "
+                                 f"and the pre-fused chain differ")
+        reps = 20 if name == "deploy" else 100
+        new_wall = step_walls(lambda: bf.update_runs_query(*runs, vals, *wins),
+                              reps)
+        old_wall = step_walls(lambda: legacy_step(fk, torch.add, 0.0, runs,
+                                                  vals, wins), reps)
+        t_k = timed(lambda: fq.flatfat_update_query(fk, inputs, torch.add,
+                                                    0.0))
+        t_p = timed(lambda: fq.flatfat_update_query_plain(
+            fk, inputs, torch.add, 0.0), reps=10)
+        nbytes, ops = fused_work(n, runs, wins, sizes, 1)
+        bms, bound_by = bound_ms(nbytes, ops)
+        ms, plain_ms = (d if d is not None else w for d, w in (t_k, t_p))
+        log(f"[kernel K2 fused] {name}: K={K} n={n} runs={len(runs[0])} "
+            f"windows={len(wins[0])}; exact on integers and max/min, rtol "
+            f"{RTOL_F32} on f32, forests equal; device ms per call (wall ms "
+            f"per call): kernel {fmt(t_k)}, plain (add) {fmt(t_p)}; bound {bms:.4g} "
+            f"ms ({bound_by}; {nbytes} B, {ops} combines); one step host "
+            f"staging to host result, median ms (perf_counter / CUDA "
+            f"events): fused {new_wall[0]:.4f} / {new_wall[1]:.4f}, "
+            f"pre-fused chain {old_wall[0]:.4f} / {old_wall[1]:.4f} "
+            f"({old_wall[0] / new_wall[0]:.1f}x) ({card})")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": bound_by, "library_ms": None}
+        del fk, bf, data, inputs
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = worst_err
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 6. bench config 15 through both FFAT lanes
 # ---------------------------------------------------------------------------
 
@@ -741,7 +1035,7 @@ def run15(make_op, n_events: int, slide: int, before_run=None):
 
     sink = RecordSink(stamps, slide)
     g = wf.PipeGraph("chip_smoke15", wf.Mode.DEFAULT,
-                     config=wf.RuntimeConfig(device="cuda"))
+                     config=wf.RuntimeConfig(device=DEVICE15))
     g.add_source(BatchSource(source)).add(make_op()).add_sink(Sink(sink))
     if before_run is not None:
         before_run(g)
@@ -810,10 +1104,55 @@ def ffat_lane(lane: str):
                               SLIDE15, wf.WinType.CB)
 
 
+# config 15's cells, each run once per round: cell -> one reading a round
+READINGS15: dict = collections.defaultdict(list)
+
+
+def check_launches(tag: str, logic, kernels: dict, expect: str) -> int:
+    """The path's launches of the kernel named ``expect`` equal its
+    launched batches, and every other kernel counted in ``kernels``
+    (name -> launches in the run) stayed at 0."""
+    want = logic.launched_batches
+    if kernels[expect] <= 0 or kernels[expect] != want:
+        raise AssertionError(f"[{tag}] {expect} launches {kernels[expect]} "
+                             f"!= batches launched {want}")
+    for name, count in kernels.items():
+        if name != expect and count:
+            raise AssertionError(f"[{tag}] {name} launched {count} times "
+                                 f"on a path that runs {expect}")
+    return want
+
+
+def reset_counts() -> None:
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    from windflow_tpu_torch.ops.cuda import window_sum
+    fq.reset_launch_count()
+    fq.reset_fused_launch_count()
+    window_sum.reset_launch_count()
+
+
+def read_counts() -> dict:
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    from windflow_tpu_torch.ops.cuda import window_sum
+    return {"flatfat_query": fq.launch_count(),
+            "flatfat_update_query": fq.fused_launch_count(),
+            "window_sum": window_sum.launch_count()}
+
+
+def reading(cell: str, secs: float, got) -> str:
+    p50, p99 = (float(np.percentile(got[3], q)) * 1e3 for q in (50, 99))
+    READINGS15[cell].append((N15 / secs, p50, p99))
+    return (f"{N15} events in {secs:.3f} s = {N15 / secs:.1f} tuples/s; "
+            f"{len(got[0])} windows match the oracle exactly; window "
+            f"latency p50 {p50:.3f} ms, p99 {p99:.3f} ms")
+
+
 def main15(card: str) -> dict:
+    """Config 15 through the FFAT rebuild lane (the query kernel K2 per
+    launch) and the resident FFAT lane (the fused kernel per launch):
+    returns each path's kernel launches."""
     from windflow_tpu_torch.operators.tpu.ffat_resident import \
         WinSeqFFATResidentLogic
-    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
     from windflow_tpu_torch.ops.cuda.window_sum import next_pow2
 
     want = oracle15(N15, SLIDE15)
@@ -832,29 +1171,25 @@ def main15(card: str) -> dict:
         eng.compute = recorded
 
     lanes = {}
-    for lane, cls, hook in (("rebuild", None, record_shapes),
-                            ("resident", WinSeqFFATResidentLogic, None)):
-        fq.reset_launch_count()
+    for lane, cls, hook, kernel in (
+            ("rebuild", None, record_shapes, "flatfat_query"),
+            ("resident", WinSeqFFATResidentLogic, None,
+             "flatfat_update_query")):
+        reset_counts()
         g, sink, secs = run15(lambda: ffat_lane(lane), N15, SLIDE15, hook)
-        launches = fq.launch_count()
+        counts = read_counts()
         logic = find_logic(g, cls)
-        if logic.device is None or logic.device.type != "cuda":
+        if logic.device is None or logic.device.type != DEVICE15:
             raise AssertionError(f"[main15] {lane} device {logic.device}")
-        if launches <= 0 or launches != logic.launched_batches:
-            raise AssertionError(
-                f"[main15] {lane}: K2 launches {launches} != batches "
-                f"launched {logic.launched_batches}")
+        launches = check_launches(f"main15 {lane}", logic, counts, kernel)
         got = sorted_windows(sink, f"main15 {lane}")
         hold_to_oracle(got, want, f"main15 {lane}")
-        p50, p99 = (float(np.percentile(got[3], q)) * 1e3 for q in (50, 99))
         lanes[lane] = {"bpl": bytes_per_launch(logic), "launches": launches,
                        "state": logic.device_resident_bytes()
                        if lane == "resident" else 0}
-        log(f"[main15] {lane} lane: {N15} events in {secs:.3f} s = "
-            f"{N15 / secs:.1f} tuples/s; {len(got[0])} windows match the "
-            f"oracle exactly; window latency p50 {p50:.3f} ms, p99 "
-            f"{p99:.3f} ms; {launches} K2 launches = "
-            f"{logic.launched_batches} batches; "
+        log(f"[main15] {lane} lane: {reading(lane, secs, got)}; "
+            f"{launches} {kernel} launches = {logic.launched_batches} "
+            f"batches, other kernels 0; "
             f"{lanes[lane]['bpl']:.1f} bytes shipped per launch"
             + (f"; Device_state_bytes_resident {lanes[lane]['state']}"
                if lane == "resident" else
@@ -869,57 +1204,50 @@ def main15(card: str) -> dict:
         raise AssertionError(f"[main15] bytes/launch ratio {ratio:.2f} < 10")
     log(f"[main15] both lanes equal window for window; shipped bytes per "
         f"launch rebuild/resident = {ratio:.1f}x")
-    return {"launches": lanes["rebuild"]["launches"]
-            + lanes["resident"]["launches"]}
+    return {"flatfat_query": lanes["rebuild"]["launches"],
+            "flatfat_update_query": lanes["resident"]["launches"]}
 
 
 def resident_pane(card: str) -> int:
     """WinSeqTPU sum over panes of 64 on the config-15 stream: promoted
-    onto the resident pane lane by the planner, against resident=False."""
+    onto the resident pane lane (the fused kernel per launch) by the
+    planner, against resident=False (K1 per launch).  Returns the fused
+    kernel's launches."""
     from windflow_tpu_torch.operators.tpu.win_seq_tpu import WinSeqTPU
-    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
-    from windflow_tpu_torch.ops.cuda import window_sum
     import windflow_tpu_torch as wf
 
     want = oracle15(N15, PANE_SLIDE)
     got = {}
-    k2 = 0
+    fused = 0
     for resident in (None, False):
-        fq.reset_launch_count()
-        window_sum.reset_launch_count()
+        reset_counts()
         g, sink, secs = run15(lambda: WinSeqTPU(
             "sum", WIN15, PANE_SLIDE, wf.WinType.CB, placement="device",
             value_of=lambda t: t.value, resident=resident), N15, PANE_SLIDE)
+        counts = read_counts()
         logic = find_logic(g)
         entry = g.placements[0]
         tag = "resident" if resident is None else "rebuild"
         if bool(entry.get("resident")) != (resident is None):
             raise AssertionError(f"[resident pane] {tag}: placement {entry}")
-        count = fq if resident is None else window_sum
-        launches = count.launch_count()
-        if launches <= 0 or launches != logic.launched_batches:
-            raise AssertionError(
-                f"[resident pane] {tag}: kernel launches {launches} != "
-                f"batches launched {logic.launched_batches}")
+        kernel = "flatfat_update_query" if resident is None else "window_sum"
+        launches = check_launches(f"resident pane {tag}", logic, counts,
+                                  kernel)
         if resident is None:
-            k2 = launches
+            fused = launches
         got[tag] = sorted_windows(sink, f"resident pane {tag}")
         hold_to_oracle(got[tag], want, f"resident pane {tag}")
-        p50, p99 = (float(np.percentile(got[tag][3], q)) * 1e3
-                    for q in (50, 99))
-        log(f"[resident pane] {tag} lane: {N15} events in {secs:.3f} s = "
-            f"{N15 / secs:.1f} tuples/s; {len(got[tag][0])} windows match "
-            f"the oracle; p50 {p50:.3f} ms, p99 {p99:.3f} ms; {launches} "
-            f"{'K2' if resident is None else 'K1'} launches = "
-            f"{logic.launched_batches} batches; "
-            f"{bytes_per_launch(logic):.1f} bytes per launch; "
+        log(f"[resident pane] {tag} lane: "
+            f"{reading('pane ' + tag, secs, got[tag])}; {launches} "
+            f"{kernel} launches = {logic.launched_batches} batches, other "
+            f"kernels 0; {bytes_per_launch(logic):.1f} bytes per launch; "
             f"Device_state_bytes_resident {logic.device_resident_bytes()} "
             f"({card})")
     if not all(np.array_equal(a, b) for a, b in zip(got["resident"][:3],
                                                      got["rebuild"][:3])):
         raise AssertionError("[resident pane] lanes differ")
     log("[resident pane] resident and rebuild lanes bitwise equal")
-    return k2
+    return fused
 
 
 def profile15(card: str, lane: str, n_events: int) -> None:
@@ -948,8 +1276,6 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    from windflow_tpu_torch.ops.cuda import window_sum
-
     name = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"[device] torch: {name}; nvidia-smi: {card}; "
@@ -957,20 +1283,20 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     build_all()
+    # the fused kernel first: its step walls are host times, taken
+    # before any phase has run the profiler in this process
+    k2f = check_fused(device, card)
     k1 = check_kernel(device, card)
     k2 = check_k2(device, card)
     log(f"[smoke] kernels checked at {time.perf_counter() - t_start:.1f} s")
 
-    window_sum.reset_launch_count()
+    reset_counts()
     g, sink, secs = run_main(N_EVENTS, "cuda")
-    launches = window_sum.launch_count()
+    counts = read_counts()
     logic = find_logic(g)
     if logic.device is None or logic.device.type != "cuda":
         raise AssertionError(f"[main] engine device {logic.device}")
-    if launches <= 0 or launches != logic.launched_batches:
-        raise AssertionError(
-            f"[main] window_sum kernel launches {launches} != batches "
-            f"launched {logic.launched_batches}")
+    launches = check_launches("main", logic, counts, "window_sum")
     windows = check_main(g, sink, N_EVENTS)
     p50, p99 = (float(np.percentile(sink.lats, q)) * 1e3 for q in (50, 99))
     log(f"[main] {N_EVENTS} events in {secs:.3f} s = "
@@ -980,28 +1306,37 @@ def main() -> int:
         f"{logic.launched_batches} batches ({card})")
     profile_main(card)
 
-    # K2's paths, each driven with the launch count set to 0 just before
-    # it and read just after: the two FFAT lanes, the resident pane lane
-    k2_launches = main15(card)["launches"]
-    log(f"[smoke] main15 done at {time.perf_counter() - t_start:.1f} s")
-    k2_launches += resident_pane(card)
-    log(f"[smoke] resident pane done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+    # config 15's four cells twice back to back; each path driven with
+    # every launch count set to 0 just before it and read just after
+    for rnd in (1, 2):
+        counts = main15(card)
+        counts["flatfat_update_query"] += resident_pane(card)
+        if rnd == 1:
+            launches15 = counts
+        log(f"[smoke] config 15 round {rnd} done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+    for cell, rows in READINGS15.items():
+        log(f"[main15 x2] {cell}: tuples/s "
+            f"{' / '.join(f'{r[0]:.1f}' for r in rows)}; p50 ms "
+            f"{' / '.join(f'{r[1]:.3f}' for r in rows)}; p99 ms "
+            f"{' / '.join(f'{r[2]:.3f}' for r in rows)} ({card})")
     profile15(card, "rebuild", N15)
-    # an eighth of the run: at the full 8M events the profiler's
-    # processing of the resident lane's ~2M kernel records alone took
-    # over 5 minutes
-    profile15(card, "resident", N15 // 8)
+    profile15(card, "resident", N15)
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
+    src = "windflow_tpu_torch/ops/cuda/flatfat_query.cu"
     log(json.dumps({"kernels": [
         kernel_entry("window_sum", "windflow_tpu_torch/ops/cuda/window_sum.cu",
                      "windflow_tpu/ops/pallas/window_sum.py:62", launches,
                      k1["max_abs_err"], k1),
-        kernel_entry("flatfat_query",
-                     "windflow_tpu_torch/ops/cuda/flatfat_query.cu",
+        kernel_entry("flatfat_query", src,
                      "windflow_tpu/ops/pallas/flatfat_query.py:91",
-                     k2_launches, k2["max_abs_err"], k2["resident"])]}))
+                     launches15["flatfat_query"], k2["max_abs_err"],
+                     k2["rebuild"]),
+        kernel_entry("flatfat_update_query", src,
+                     "windflow_tpu/ops/pallas/flatfat_query.py:91",
+                     launches15["flatfat_update_query"],
+                     k2f["max_abs_err"], k2f["resident"])]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -203,19 +203,3 @@ def test_resident_true_raises_naming_the_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7b"):
         WinSeqTPU(lambda g, c, m: 0.0, WIN, SLIDE, wf.WinType.CB,
                   resident=True, device="cpu").stages()
-
-
-@pytest.mark.cuda
-def test_headline_graph_on_the_card_launches_the_kernel_per_batch():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card: "
-                    "python -m pytest -m cuda tests/test_torch_*.py)")
-    from windflow_tpu_torch.ops.cuda import window_sum
-    _g_cpu, want = _run_graph("windflow_tpu_torch",
-                              config_kw={"device": "cpu"})
-    window_sum.reset_launch_count()
-    g, got = _run_graph("windflow_tpu_torch")
-    logic = _find_logic(g, "windflow_tpu_torch")
-    assert logic.device.type == "cuda"
-    assert window_sum.launch_count() == logic.launched_batches > 0
-    _assert_same(got, want)

@@ -138,25 +138,3 @@ def test_resident_carry_answers_pane_queries(kind):
 def test_unknown_kind_is_rejected():
     with pytest.raises(ValueError):
         WindowComputeEngine("median", device="cpu")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", KINDS)
-def test_cuda_engine_matches_cpu_engine(kind):
-    """On the card: the CUDA lane (the window-sum kernel for the sum
-    kinds) against the CPU lane, exact on integer data; one kernel
-    launch per sum operand."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card: "
-                    "python -m pytest -m cuda tests/test_torch_*.py)")
-    cols, starts, ends, gwids = _launch(5000, 3000, 16, seed=5)
-    eng = WindowComputeEngine(kind, device="cuda")
-    before = ws.launch_count()
-    with eng.launch_context():
-        h = eng.compute(cols, starts, ends, gwids)
-    got = h.block()
-    launches = {"sum": 1, "mean": 1, "mean_panes": 2}.get(kind, 0)
-    assert ws.launch_count() - before == launches
-    want = WindowComputeEngine(kind, device="cpu").compute(
-        cols, starts, ends, gwids).block()
-    np.testing.assert_array_equal(got, want)

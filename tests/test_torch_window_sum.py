@@ -2,8 +2,9 @@
 held against the reference: its plain version against the Pallas kernel
 ``windflow_tpu/ops/pallas/window_sum.py`` (interpret mode on the CPU, as
 tests/test_tpu_operators.py runs it) and against the reference engine's
-XLA programs ``_tile_sum_program`` / ``_scan_program``; the CUDA kernel
-against the plain version on the card.
+XLA programs ``_tile_sum_program`` / ``_scan_program``.  (The CUDA
+kernel is held against the plain version on the card by
+tests/test_torch_card.py and chip_smoke.py.)
 
 Inputs come from seeded numpy.  Tolerances: exact on integer-valued
 data (every sum below 2^24 is exact in f32 whatever the order), and
@@ -145,27 +146,3 @@ def test_wrapper_rejects_malformed_input(bad):
         vals = torch.zeros(32)[::2]
     with pytest.raises(ValueError):
         ws.window_sums(vals, se)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES)
-def test_cuda_kernel_matches_plain(case):
-    """On the card: the hand-written kernel against its plain version
-    (exact on integer data) and the float64 sum (rtol 1e-5 on f32)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card: "
-                    "python -m pytest -m cuda tests/test_torch_*.py)")
-    rng = np.random.default_rng(20 + CASES.index(case))
-    T, starts, ends = _extents(case, rng)
-    se = _se(starts, ends).cuda()
-    for integer in (True, False):
-        vals = _data(T, integer, rng)
-        v = torch.from_numpy(vals).cuda()
-        before = ws.launch_count()
-        got = ws.window_sums(v, se).cpu().numpy()
-        torch.cuda.synchronize()
-        assert ws.launch_count() == before + 1
-        _check(got, _f64(vals, starts, ends), integer)
-        if integer:
-            np.testing.assert_array_equal(
-                got, ws.window_sums_plain(v, se).cpu().numpy())

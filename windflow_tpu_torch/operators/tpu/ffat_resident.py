@@ -7,9 +7,10 @@ one FlatFAT per key **resident in HBM across batches** as a key-batched
 forest (ops/flatfat_torch.BatchedFlatFAT) and only scatters the new
 lifted leaves plus their root paths -- the circular-buffer tree update
 of the reference (win_seqffat_gpu.hpp:150 ``rebuild`` flag;
-UpdateTreeLevel_Kernel, flatfat_gpu.hpp:68-82).  Every launch queries
-its due windows with the FlatFAT query kernel
-(ops/cuda/flatfat_query.cu), so ``combine`` is a binary torch function:
+UpdateTreeLevel_Kernel, flatfat_gpu.hpp:68-82).  Every launch writes
+the new leaves, recomputes their root paths and answers its due windows
+in one launch of the fused FlatFAT kernel (ops/cuda/flatfat_query.cu,
+``wf_flatfat_update_query``), so ``combine`` is a binary torch function:
 ``torch.add``, ``torch.maximum`` or ``torch.minimum`` on the card.
 
 ``device=`` names the torch device (None: the graph's
@@ -211,7 +212,7 @@ class WinSeqFFATResidentLogic(NodeLogic):
         no due window's leaves can be overwritten): scatter the new
         lifted leaves, recompute their root paths and answer every due
         window against the post-update tree -- decode -> fold ->
-        trigger in a single jitted program.  New leaves are one
+        trigger in a single kernel launch.  New leaves are one
         CONSECUTIVE run per chunk, so the launch ships only the lifted
         values + a 12-byte (row, start, len) descriptor + extents --
         never positions, never state."""

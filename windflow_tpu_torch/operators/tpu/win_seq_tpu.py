@@ -18,9 +18,9 @@ private stream (svc :391-645), this engine:
   (win_seq_gpu.hpp:267-297);
 * on the resident lane (``resident=True``, or promoted by the planner)
   keeps per-key pane partials in a device forest across launches and
-  ships only new partials (ops/window_compute.ResidentPaneCarry; the
-  windows are answered by the FlatFAT query kernel
-  ops/cuda/flatfat_query.cu).
+  ships only new partials (ops/window_compute.ResidentPaneCarry; one
+  launch of the fused FlatFAT update+query kernel of
+  ops/cuda/flatfat_query.cu writes them and answers the windows).
 
 The device is explicit: ``device=`` (or the graph's
 ``RuntimeConfig.device``, bound by the planner at start) names the

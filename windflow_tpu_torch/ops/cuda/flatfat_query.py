@@ -26,6 +26,18 @@ The kernel replaces the Pallas TPU kernel
 ``windflow_tpu/ops/pallas/flatfat_query.py`` (``_build``'s kernel, entry
 ``flatfat_query_ranges``).  ``launch_count()`` counts kernel launches so
 a run can show that its main path went through the kernel.
+
+``flatfat_update_query(forest, inputs, combine, neutral)`` is the
+resident lanes' whole step in one launch of the second entry of the same
+source: it writes runs of new leaves into a forest ``[K, 2n]`` in place,
+recomputes their root paths and answers every window against the
+post-update rows, returning f32 ``[Q]``.  ``inputs`` is a
+:class:`FusedInputs` (row-grouped CSR; ``flatfat_torch.pack_step`` builds
+it).  It replaces the reference's fused program
+``_batched_programs.update_runs_and_query`` (windflow_tpu/ops/
+flatfat_jax.py:188-207) and its Pallas query.  The same rules hold: the
+kernel on a CUDA tensor (or ``unported``), :func:`flatfat_update_query_plain`
+on a CPU tensor, its own count in ``fused_launch_count()``.
 """
 from __future__ import annotations
 
@@ -33,7 +45,7 @@ import ctypes
 import os
 import subprocess
 import threading
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -47,8 +59,8 @@ _LIB_NAME = "libwf_flatfat_query.so"
 _lib = None
 _lib_lock = threading.Lock()
 _launches = 0
+_fused_launches = 0
 _count_lock = threading.Lock()
-
 
 def _left_weighted(a, b):
     """The reference tests' non-commutative combine ``0.5 a + b``
@@ -146,6 +158,108 @@ def flatfat_query_plain(tree: torch.Tensor, rows: Optional[torch.Tensor],
     return torch.where(bad_row, torch.full_like(out, float("nan")), out)
 
 
+def expand_runs(run_rows: torch.Tensor, run_starts: torch.Tensor,
+                run_lens: torch.Tensor, n_values: int, n: int):
+    """(keys, ring positions, valid) of ``n_values`` leaf slots from
+    (row, start, len) run descriptors: run r covers the next ``len``
+    values at consecutive ring positions from ``start``.  Expanded on
+    the device, so a step ships 12 bytes per run, not 8 per leaf."""
+    lens = run_lens.long()
+    cum = torch.cumsum(lens, 0)  # int64, as the searched values
+    v = torch.arange(n_values, dtype=torch.int64, device=lens.device)
+    r = torch.searchsorted(cum, v, right=True).clamp(max=lens.shape[0] - 1)
+    base = cum[r] - lens[r]
+    pos = (run_starts.long()[r] + (v - base)) % n
+    return run_rows.long()[r], pos, v < cum[-1]
+
+
+def update_sparse(tree: torch.Tensor, keys: torch.Tensor,
+                  positions: torch.Tensor, values: torch.Tensor,
+                  valid: torch.Tensor, combine: Any) -> torch.Tensor:
+    """Scatter new leaves at (key, pos) of a forest [K, 2n] in place,
+    then recompute ONLY the touched root paths: O(B log n) work.
+    Duplicate parents get identical recomputed values, and invalid lanes
+    write heap slot 0 of row 0 with its own value, so the unordered
+    duplicate-index scatters of CUDA cannot clobber a real update."""
+    comb = torch_combine(combine)
+    two_n = tree.shape[-1]
+    levels = _levels(two_n // 2)
+    flat = tree.view(-1)
+    row = torch.where(valid, keys.long(), 0) * two_n
+    idx = torch.where(valid, positions.long() + two_n // 2, 0)
+    lin = row + idx
+    flat[lin] = torch.where(valid, values, flat[lin])
+    for _ in range(levels):
+        idx = idx >> 1
+        child = row + 2 * idx
+        node = row + idx
+        flat[node] = torch.where(valid, comb(flat[child], flat[child + 1]),
+                                 flat[node])
+    return tree
+
+
+class FusedInputs(NamedTuple):
+    """One fused step's inputs, row-grouped, as the kernel reads them
+    (int32 unless named; all on the forest's device, usually views of
+    one staged buffer).
+
+    ``groups`` [3G + 2]: the G forest rows the step touches, then
+    ``run_ptr`` [G + 1] and ``q_ptr`` [G + 1], CSR offsets of each row's
+    runs and windows.  ``runs`` [3, R]: ring start (mod n), length and
+    offset into ``values`` of each run of new leaves, a row's runs in
+    the order they apply.  ``queries`` [3, Q]: ring start (mod n),
+    length and output index of each window.  ``values`` f32 [V]."""
+    groups: torch.Tensor
+    runs: torch.Tensor
+    queries: torch.Tensor
+    values: torch.Tensor
+
+    @property
+    def n_groups(self) -> int:
+        return (self.groups.shape[0] - 2) // 3
+
+
+def flatfat_update_query_plain(forest: torch.Tensor, inputs: FusedInputs,
+                               combine: Any, neutral: float) -> torch.Tensor:
+    """The fused step in torch, from the same packed inputs: the runs'
+    leaves through :func:`expand_runs` and :func:`update_sparse`, then
+    each window as two ordered pieces ([s, min(e, n)) and, past the
+    ring's end, [0, e - n)) through :func:`flatfat_query_plain`,
+    combined in time order."""
+    comb = torch_combine(combine)
+    n = forest.shape[-1] // 2
+    G = inputs.n_groups
+    dev = forest.device
+    grp = inputs.groups.long()
+    rows, run_ptr, q_ptr = grp[:G], grp[G:2 * G + 1], grp[2 * G + 1:]
+    starts, lens, voffs = inputs.runs
+    n_leaves = int(lens.sum())
+    if n_leaves:
+        run_rows = torch.repeat_interleave(rows, run_ptr.diff())
+        keys, pos, valid = expand_runs(run_rows, starts, lens, n_leaves, n)
+        # run r's i-th leaf takes values[voffs[r] + i]: the same expansion
+        # over the value offsets
+        vidx = expand_runs(run_rows, voffs, lens, n_leaves,
+                           inputs.values.shape[0])[1]
+        update_sparse(forest, keys, pos, inputs.values[vidx], valid, comb)
+    q_starts, q_lens, q_out = inputs.queries.long()
+    q_rows = torch.repeat_interleave(rows, q_ptr.diff()).to(torch.int32)
+    e = q_starts + q_lens
+    wraps = (q_lens > 0) & (e >= n)
+    ends1 = torch.where(wraps, n, e)
+    ends2 = torch.where(wraps, e - n, 0)
+    pieces = flatfat_query_plain(
+        forest, torch.cat([q_rows, q_rows]),
+        torch.cat([q_starts, torch.zeros_like(q_starts)]).to(torch.int32),
+        torch.cat([ends1, ends2]).to(torch.int32), comb, neutral)
+    Q = q_starts.shape[0]
+    head, tail = pieces[:Q], pieces[Q:]
+    res = torch.where(wraps, comb(head, tail), head)
+    out = torch.empty(Q, dtype=torch.float32, device=dev)
+    out[q_out] = res
+    return out
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel
 # ---------------------------------------------------------------------------
@@ -168,6 +282,11 @@ def load_kernel() -> ctypes.CDLL:
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_float, ctypes.c_int64, ctypes.c_void_p]
+        i64, ptr = ctypes.c_int64, ctypes.c_void_p
+        lib.wf_flatfat_update_query.restype = ctypes.c_int
+        lib.wf_flatfat_update_query.argtypes = [
+            ptr, i64, i64, i64, ptr, i64, ptr, i64, ptr, i64, ptr, i64,
+            ptr, ctypes.c_float, i64, ptr]
         _lib = lib
         return lib
 
@@ -180,6 +299,16 @@ def reset_launch_count() -> None:
     global _launches
     with _count_lock:
         _launches = 0
+
+
+def fused_launch_count() -> int:
+    return _fused_launches
+
+
+def reset_fused_launch_count() -> None:
+    global _fused_launches
+    with _count_lock:
+        _fused_launches = 0
 
 
 def _check(tree: torch.Tensor, rows: Optional[torch.Tensor],
@@ -233,4 +362,60 @@ def flatfat_query(tree: torch.Tensor, rows: Optional[torch.Tensor],
                            f"cudaError {rc}")
     with _count_lock:
         _launches += 1
+    return out
+
+
+def _check_fused(forest: torch.Tensor, inputs: FusedInputs) -> None:
+    if forest.dtype != torch.float32 or forest.dim() != 2 \
+            or forest.shape[-1] % 2:
+        raise ValueError("forest must be a float32 [K, 2n] tensor")
+    _levels(forest.shape[-1] // 2)
+    g, r, q, v = inputs
+    if g.dim() != 1 or g.shape[0] % 3 != 2 or r.dim() != 2 \
+            or r.shape[0] != 3 or q.dim() != 2 or q.shape[0] != 3:
+        raise ValueError("groups must be int32 [3G + 2], runs and queries "
+                         "int32 [3, R] and [3, Q]")
+    if any(t.dtype != torch.int32 for t in (g, r, q)) or v.dim() != 1 \
+            or v.dtype != torch.float32:
+        raise ValueError("groups, runs and queries must be int32, values "
+                         "float32 [V]")
+    if any(t.device != forest.device for t in inputs):
+        raise ValueError("forest and step inputs must be on one device")
+    if not all(t.is_contiguous() for t in (forest,) + tuple(inputs)):
+        raise ValueError("forest and step inputs must be contiguous")
+
+
+def flatfat_update_query(forest: torch.Tensor, inputs: FusedInputs,
+                         combine: Any, neutral: float) -> torch.Tensor:
+    """One resident-lane step as f32 [Q]: the fused CUDA kernel for a
+    CUDA forest (compiled combines only), the plain version for a CPU
+    one.  Updates ``forest`` in place."""
+    global _fused_launches
+    _check_fused(forest, inputs)
+    if forest.device.type == "cpu":
+        return flatfat_update_query_plain(forest, inputs, combine, neutral)
+    if forest.device.type != "cuda":
+        raise ValueError(f"unsupported device {forest.device}")
+    op = require_kernel_op(combine)
+    lib = load_kernel()
+    Q = inputs.queries.shape[1]
+    out = torch.empty(Q, dtype=torch.float32, device=forest.device)
+    G = inputs.n_groups
+    if G == 0:
+        return out
+    two_n = forest.shape[-1]
+    with torch.cuda.device(forest.device):
+        stream = torch.cuda.current_stream(forest.device).cuda_stream
+        rc = lib.wf_flatfat_update_query(
+            forest.data_ptr(), two_n // 2, _levels(two_n // 2),
+            forest.shape[0], inputs.groups.data_ptr(), G,
+            inputs.runs.data_ptr(), inputs.runs.shape[1],
+            inputs.queries.data_ptr(), Q, inputs.values.data_ptr(),
+            inputs.values.shape[0], out.data_ptr(), float(neutral), op,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"flatfat_update_query kernel launch failed: "
+                           f"cudaError {rc}")
+    with _count_lock:
+        _fused_launches += 1
     return out

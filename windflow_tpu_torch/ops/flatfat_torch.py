@@ -8,9 +8,12 @@ Trees are flat f32 arrays in heap layout (root at 1, leaves at
   (level sweeps of strided combines) and :func:`query_tree`, which runs
   the FlatFAT query kernel (``ops/cuda/flatfat_query.cu``; its plain
   version on the CPU);
-* ``_batched_programs`` (:88-210) -> :func:`update_sparse` (scatter the
-  new leaves, recompute only their root paths), :func:`expand_runs`, and
-  the fused :func:`update_and_query` / :func:`update_runs_and_query`;
+* ``_batched_programs`` (:88-210) -> the fused FlatFAT update+query
+  kernel (``flatfat_update_query``: new leaves, their root paths and
+  every window in one launch), fed by :func:`pack_step`; its plain
+  version is the reference's own composition in torch: ``expand_runs``
+  and ``update_sparse`` (scatter the new leaves, recompute only their
+  root paths), then the plain query over two pieces a wrapping window;
 * :class:`BatchedFlatFAT` / :class:`FlatFATTorch`, the stateful
   wrappers.
 
@@ -30,8 +33,10 @@ from typing import Any, Callable, Optional, Union
 import numpy as np
 import torch
 
-from .cuda.flatfat_query import _levels, flatfat_query, torch_combine
+from .cuda.flatfat_query import (FusedInputs, _levels, flatfat_query,
+                                 flatfat_update_query, torch_combine)
 from .device import resolve_device, stream_context
+
 
 
 def _pow2_at_least(n: int, floor: int = 1) -> int:
@@ -87,63 +92,78 @@ def query_tree(tree: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
                          ends.to(torch.int32).contiguous(), combine, neutral)
 
 
-def update_sparse(tree: torch.Tensor, keys: torch.Tensor,
-                  positions: torch.Tensor, values: torch.Tensor,
-                  valid: torch.Tensor, combine: Any) -> torch.Tensor:
-    """Scatter new leaves at (key, pos) of a forest [K, 2n] in place,
-    then recompute ONLY the touched root paths: O(B log n) work.
-    Duplicate parents get identical recomputed values, and invalid lanes
-    write heap slot 0 of row 0 with its own value, so the unordered
-    duplicate-index scatters of CUDA cannot clobber a real update."""
-    comb = torch_combine(combine)
-    two_n = tree.shape[-1]
-    levels = _levels(two_n // 2)
-    flat = tree.view(-1)
-    row = torch.where(valid, keys.long(), 0) * two_n
-    idx = torch.where(valid, positions.long() + two_n // 2, 0)
-    lin = row + idx
-    flat[lin] = torch.where(valid, values, flat[lin])
-    for _ in range(levels):
-        idx = idx >> 1
-        child = row + 2 * idx
-        node = row + idx
-        flat[node] = torch.where(valid, comb(flat[child], flat[child + 1]),
-                                 flat[node])
-    return tree
+def _by_row(group_row: np.ndarray, rows: np.ndarray):
+    """(order, ptr): items sorted stably by their row's group, and the
+    CSR offsets [G + 1] of each group's items."""
+    if len(group_row) == 1:  # one row: the resident FFAT lane's step
+        return slice(None), np.array([0, len(rows)])
+    g = np.searchsorted(group_row, rows)
+    ptr = np.zeros(len(group_row) + 1, np.int64)
+    np.cumsum(np.bincount(g, minlength=len(group_row)), out=ptr[1:])
+    return np.argsort(g, kind="stable"), ptr
 
 
-def expand_runs(run_rows: torch.Tensor, run_starts: torch.Tensor,
-                run_lens: torch.Tensor, n_values: int, n: int):
-    """(keys, ring positions, valid) of ``n_values`` leaf slots from
-    (row, start, len) run descriptors: run r covers the next ``len``
-    values at consecutive ring positions from ``start``.  Expanded on
-    the device, so a launch ships 12 bytes per run, not 8 per leaf."""
-    lens = run_lens.long()
-    cum = torch.cumsum(lens, 0)  # int64, as the searched values
-    v = torch.arange(n_values, dtype=torch.int64, device=lens.device)
-    r = torch.searchsorted(cum, v, right=True).clamp(max=lens.shape[0] - 1)
-    base = cum[r] - lens[r]
-    pos = (run_starts.long()[r] + (v - base)) % n
-    return run_rows.long()[r], pos, v < cum[-1]
+def pack_step(n: int, n_rows: int, run_rows, run_starts, run_lens, values,
+              q_rows, q_starts, q_ends, pinned: bool = False):
+    """One fused step's inputs, row-grouped, in ONE int32 host buffer
+    (pinned when asked): ``groups | runs | queries | values`` as
+    :class:`FusedInputs` lays them out.  Run r covers ``run_lens[r]``
+    consecutive leaves from ring position ``run_starts[r] mod n`` with
+    the next values of ``values`` (runs take them in order); a row's
+    runs apply in the order given.  Window w is ids
+    ``[q_starts[w], q_ends[w])`` of row ``q_rows[w]``, shipped as
+    (start mod n, length): a window of exactly n leaves stays whole.
+    Returns ``(buffer, (G, R, Q, V))``."""
+    run_rows = np.asarray(run_rows, np.int64).reshape(-1)
+    lens = np.asarray(run_lens, np.int64).reshape(-1)
+    q_rows = np.asarray(q_rows, np.int64).reshape(-1)
+    q_starts = np.asarray(q_starts, np.int64).reshape(-1)
+    q_lens = np.maximum(np.asarray(q_ends, np.int64).reshape(-1) - q_starts,
+                        0)
+    values = np.asarray(values, np.float32).reshape(-1)
+    R, Q, V = len(run_rows), len(q_rows), len(values)
+    if R and (lens.min() < 0 or lens.max() > n):
+        raise ValueError(f"a run must hold 0..{n} leaves (a longer one "
+                         f"would overwrite its own leaves)")
+    if int(lens.sum()) != V:
+        raise ValueError("run lengths must add up to the values")
+    if Q and q_lens.max() > n:
+        raise ValueError("window extent exceeds tree capacity")
+    group_row = np.unique(np.concatenate([run_rows, q_rows]))
+    G = len(group_row)
+    if G and (group_row[0] < 0 or group_row[-1] >= n_rows):
+        raise ValueError(f"forest row outside [0, {n_rows})")
+    r_order, run_ptr = _by_row(group_row, run_rows)
+    q_order, q_ptr = _by_row(group_row, q_rows)
+    nbuf = 3 * G + 2 + 3 * R + 3 * Q + V
+    t = torch.empty(nbuf, dtype=torch.int32, pin_memory=pinned)
+    buf = t.numpy()
+    buf[:G] = group_row
+    buf[G:2 * G + 1] = run_ptr
+    buf[2 * G + 1:3 * G + 2] = q_ptr
+    o = 3 * G + 2
+    runs = buf[o:o + 3 * R].reshape(3, R)
+    runs[0] = np.asarray(run_starts, np.int64).reshape(-1)[r_order] % n
+    runs[1] = lens[r_order]
+    runs[2] = (np.cumsum(lens) - lens)[r_order]
+    o += 3 * R
+    queries = buf[o:o + 3 * Q].reshape(3, Q)
+    queries[0] = q_starts[q_order] % n
+    queries[1] = q_lens[q_order]
+    queries[2] = np.arange(Q)[q_order]
+    buf[o + 3 * Q:].view(np.float32)[:] = values
+    return t, (G, R, Q, V)
 
 
-def update_and_query(tree, keys, positions, values, valid, q_rows,
-                     q_starts, q_ends, combine, neutral) -> torch.Tensor:
-    """The fused launch of the resident lane: scatter the new leaves,
-    recompute their root paths, then answer every due window against
-    the POST-update forest."""
-    update_sparse(tree, keys, positions, values, valid, combine)
-    return query_tree(tree, q_starts, q_ends, combine, neutral, rows=q_rows)
-
-
-def update_runs_and_query(tree, run_rows, run_starts, run_lens, values,
-                          q_rows, q_starts, q_ends, combine,
-                          neutral) -> torch.Tensor:
-    """Run-descriptor form of :func:`update_and_query`."""
-    keys, pos, valid = expand_runs(run_rows, run_starts, run_lens,
-                                   values.shape[0], tree.shape[-1] // 2)
-    return update_and_query(tree, keys, pos, values, valid, q_rows,
-                            q_starts, q_ends, combine, neutral)
+def step_inputs(buf: torch.Tensor, sizes) -> FusedInputs:
+    """The :class:`FusedInputs` views of a :func:`pack_step` buffer (on
+    whatever device it now lies)."""
+    G, R, Q, V = sizes
+    a = 3 * G + 2
+    b = a + 3 * R
+    c = b + 3 * Q
+    return FusedInputs(buf[:a], buf[a:b].view(3, R), buf[b:c].view(3, Q),
+                       buf[c:].view(torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -174,10 +194,11 @@ class BatchedFlatFAT(_OnDevice):
 
     One [K, 2n] tensor holds every key's aggregator tree across batches;
     leaves form a circular buffer over each key's series (leaf position
-    = id % n), so ``n_leaves`` must cover the window span.  Updates touch
-    only the modified root paths; range queries that wrap the ring are
-    answered in two ordered pieces combined on the host in time order,
-    to keep non-commutative combines oldest -> newest.
+    = id % n), so ``n_leaves`` must cover the window span.  Every update
+    and query is one step of the fused kernel: new leaves, their root
+    paths only, then the windows; a window that wraps the ring folds its
+    two pieces in time order inside the kernel, to keep non-commutative
+    combines oldest -> newest.
 
     ``device`` defaults to the card; ``stream`` is the CUDA stream every
     launch and read of this forest runs on (None: the current one)."""
@@ -215,142 +236,77 @@ class BatchedFlatFAT(_OnDevice):
             self.tree = t.to(self.device).contiguous()
         self.n_keys = self.tree.shape[0]
 
-    def _leaves(self, keys, ids, values):
-        """(keys, ring positions, values, valid) on the device, padded
-        to a pow2 bucket of at least 512 lanes."""
-        keys = np.asarray(keys)
-        b = _pow2_at_least(len(keys), 512)
-        k = np.zeros(b, np.int64)
-        p = np.zeros(b, np.int64)
-        v = np.full(b, self.neutral, np.float32)
-        ok = np.zeros(b, bool)
-        k[: len(keys)] = keys
-        p[: len(keys)] = np.asarray(ids) % self.n
-        v[: len(keys)] = values
-        ok[: len(keys)] = True
-        return self._put(k), self._put(p), self._put(v), self._put(ok)
-
-    def update(self, keys, ids, values) -> None:
-        """Insert values at ring positions ids % n for their keys."""
+    def _step(self, run_rows, run_starts, run_lens, values, q_rows,
+              q_starts, q_ends) -> torch.Tensor:
+        """One fused step on the forest's stream, without waiting: the
+        inputs packed on the host, ONE (pinned, async) copy to the
+        device, one launch of the fused kernel (its plain version on the
+        CPU).  Returns the device result, f32 [Q] in window order."""
+        pinned = self.device.type == "cuda"
+        buf, sizes = pack_step(self.n, self.tree.shape[0], run_rows,
+                               run_starts, run_lens, values, q_rows,
+                               q_starts, q_ends, pinned=pinned)
         with self._ctx():
-            update_sparse(self.tree, *self._leaves(keys, ids, values),
-                          self.combine)
-
-    def _pack_queries(self, keys, starts, ends):
-        """Pad query extents to a pow2 bucket with ring-wrap handling:
-        a wrapping range [s, e) is answered as two ordered pieces
-        ([s, n) then [0, e mod n)) so non-commutative combines keep
-        oldest -> newest order.  A piece that is not asked for is
-        empty (end = start), which the kernel answers with the neutral
-        element.  Returns (k2, s2, e2, wraps, B)."""
-        keys = np.asarray(keys, np.int64)
-        starts = np.asarray(starts, np.int64)
-        ends = np.asarray(ends, np.int64)
-        if np.any(ends - starts > self.n):
-            raise ValueError("window extent exceeds tree capacity")
-        s = starts % self.n
-        e_raw = ends % self.n
-        wraps = (ends > starts) & (e_raw <= s)
-        B = len(keys)
-        b = _pow2_at_least(2 * B, 256)
-        k2 = np.zeros(b, np.int32)
-        s2 = np.zeros(b, np.int32)
-        e2 = np.zeros(b, np.int32)
-        # piece 1: [s, wrap ? n : e_raw)
-        k2[:B] = keys
-        s2[:B] = s
-        e2[:B] = np.where(ends > starts, np.where(wraps, self.n, e_raw), s)
-        # piece 2 (wrapping only): [0, e_raw)
-        k2[B:2 * B] = keys
-        e2[B:2 * B] = np.where(wraps, e_raw, 0)
-        return k2, s2, e2, wraps, B
-
-    def _combine_pieces(self, out: np.ndarray, wraps: np.ndarray,
-                        B: int) -> np.ndarray:
-        head, tail = out[:B], out[B:2 * B]
-        if not wraps.any():
-            return head
-        combined = torch_combine(self.combine)(
-            torch.from_numpy(head), torch.from_numpy(tail)).numpy()
-        return np.where(wraps, combined, head)
-
-    def _queries(self, q_keys, q_starts, q_ends):
-        k2, s2, e2, wraps, B = self._pack_queries(q_keys, q_starts, q_ends)
-        packed = self._put(np.concatenate([k2, s2, e2]))
-        b = len(k2)
-        return packed[:b], packed[b:2 * b], packed[2 * b:], wraps, B
-
-    def update_query_launch(self, keys, ids, values, q_keys, q_starts,
-                            q_ends):
-        """Fused scatter + root-path recompute + range query, launched
-        on the forest's stream without waiting.  Returns ``(dev_out,
-        wraps, B)``: the device result (2B wrap pieces) plus what
-        :meth:`finish_query` needs to resolve it on the host."""
-        with self._ctx():
-            qk, qs, qe, wraps, B = self._queries(q_keys, q_starts, q_ends)
-            out = update_and_query(self.tree,
-                                   *self._leaves(keys, ids, values), qk, qs,
-                                   qe, self.combine, self.neutral)
-        return out, wraps, B
+            if pinned:
+                buf = buf.to(self.device, non_blocking=True)
+            return flatfat_update_query(self.tree, step_inputs(buf, sizes),
+                                        self.combine, self.neutral)
 
     def update_runs_query_launch(self, rows, starts, lens, values,
-                                 q_keys, q_starts, q_ends):
-        """Run-descriptor form of :meth:`update_query_launch`: each
-        (rows[i], starts[i], lens[i]) names a CONSECUTIVE run of new
-        leaves for one key; positions expand on the device.  ``starts``
-        may be absolute ids (reduced mod n on the host)."""
-        rows = np.asarray(rows, np.int64)
-        lens = np.asarray(lens, np.int64)
-        total = int(lens.sum())
-        R = len(rows)
-        rb = _pow2_at_least(R, 8)
-        runs = np.zeros(3 * rb, np.int32)
-        runs[:R] = rows
-        runs[rb:rb + R] = np.asarray(starts, np.int64) % self.n
-        runs[2 * rb:2 * rb + R] = lens
-        v = np.full(_pow2_at_least(total, 512), self.neutral, np.float32)
-        v[:total] = values
-        with self._ctx():
-            qk, qs, qe, wraps, B = self._queries(q_keys, q_starts, q_ends)
-            runs_d = self._put(runs)
-            out = update_runs_and_query(
-                self.tree, runs_d[:rb], runs_d[rb:2 * rb],
-                runs_d[2 * rb:], self._put(v), qk, qs, qe, self.combine,
-                self.neutral)
-        return out, wraps, B
+                                 q_keys, q_starts, q_ends) -> torch.Tensor:
+        """Fused scatter + root-path recompute + range query, launched
+        on the forest's stream without waiting: each (rows[i],
+        starts[i], lens[i]) names a CONSECUTIVE run of new leaves for
+        one key (``starts`` may be absolute ids); windows are ids
+        [q_starts, q_ends) of row q_keys, answered against the
+        post-update forest.  Returns the device result f32 [B], which
+        :meth:`finish_query` brings to the host."""
+        return self._step(rows, starts, lens, values, q_keys, q_starts,
+                          q_ends)
 
-    def finish_query(self, dev_out: torch.Tensor, wraps,
-                     B: int) -> np.ndarray:
-        """One launch's query results on the host (ring-wrap pieces
-        combined in time order), after the launch on the forest's
-        stream."""
+    def update_query_launch(self, keys, ids, values, q_keys, q_starts,
+                            q_ends) -> torch.Tensor:
+        """Position form of :meth:`update_runs_query_launch`: values at
+        ring positions ids % n for their keys.  Neighbouring values of
+        one key at consecutive positions go as one run (of at most n)."""
+        keys = np.asarray(keys, np.int64).reshape(-1)
+        pos = np.asarray(ids, np.int64).reshape(-1) % self.n
+        brk = np.ones(len(keys), bool)
+        brk[1:] = (keys[1:] != keys[:-1]) | (pos[1:] != (pos[:-1] + 1)
+                                             % self.n)
+        first = np.flatnonzero(brk)
+        within = np.arange(len(keys)) - first[np.cumsum(brk) - 1]
+        first = np.flatnonzero(brk | (within % self.n == 0))
+        lens = np.diff(np.append(first, len(keys)))
+        return self._step(keys[first], pos[first], lens, values, q_keys,
+                          q_starts, q_ends)
+
+    def finish_query(self, dev_out: torch.Tensor) -> np.ndarray:
+        """One launch's window results on the host, after the launch on
+        the forest's stream."""
         with self._ctx():
-            host = dev_out.cpu().numpy()
-        return self._combine_pieces(host, wraps, B)
+            return dev_out.cpu().numpy()
 
     def update_runs_query(self, rows, starts, lens, values, q_keys,
                           q_starts, q_ends) -> np.ndarray:
         """Blocking form of :meth:`update_runs_query_launch`."""
-        dev, wraps, B = self.update_runs_query_launch(
-            rows, starts, lens, values, q_keys, q_starts, q_ends)
-        return self.finish_query(dev, wraps, B)
+        return self.finish_query(self.update_runs_query_launch(
+            rows, starts, lens, values, q_keys, q_starts, q_ends))
 
     def update_query(self, keys, ids, values, q_keys, q_starts,
                      q_ends) -> np.ndarray:
         """Blocking form of :meth:`update_query_launch`."""
-        dev, wraps, B = self.update_query_launch(keys, ids, values,
-                                                 q_keys, q_starts, q_ends)
-        return self.finish_query(dev, wraps, B)
+        return self.finish_query(self.update_query_launch(
+            keys, ids, values, q_keys, q_starts, q_ends))
+
+    def update(self, keys, ids, values) -> None:
+        """Insert values at ring positions ids % n for their keys."""
+        self.update_query_launch(keys, ids, values, [], [], [])
 
     def query(self, keys, starts, ends) -> np.ndarray:
         """Window results for extents [starts, ends) in id space (end -
-        start <= n); wrapping ranges are combined as (tail, head) to
-        keep time order."""
-        with self._ctx():
-            qk, qs, qe, wraps, B = self._queries(keys, starts, ends)
-            out = query_tree(self.tree, qs, qe, self.combine, self.neutral,
-                             rows=qk)
-        return self.finish_query(out, wraps, B)
+        start <= n): a step with no new leaves."""
+        return self.update_runs_query([], [], [], [], keys, starts, ends)
 
 
 class FlatFATTorch(_OnDevice):

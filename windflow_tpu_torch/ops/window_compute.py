@@ -14,8 +14,9 @@ reference engine's jitted XLA programs.
   over the flat buffer and answer every window with the hand-written
   FlatFAT query kernel ``ops/cuda/flatfat_query.cu`` on a CUDA device.
 * the **resident lane** (:class:`ResidentPaneCarry`) keeps per-key pane
-  partials in a device forest across launches; each launch scatters the
-  new partials and queries the due windows with the same kernel.
+  partials in a device forest across launches; each launch writes the
+  new partials, recomputes their root paths and answers the due windows
+  in one launch of the fused FlatFAT kernel (``flatfat_update_query``).
 
 All shapes are bucketed to powers of two with a 2048 floor, so the
 buffers the caching allocators hand out come from a handful of sizes.
@@ -137,24 +138,17 @@ class DeviceBatchHandle:
 
 
 class _ResidentPaneHandle(DeviceBatchHandle):
-    """Async result of one fused resident-pane launch: 2B ring-wrap
-    query pieces behind an event, as :class:`DeviceBatchHandle`;
-    ``block()`` combines the pieces in time order with the forest's own
-    combine.  The handle keeps the forest it launched against
-    referenced, so a grow that swaps the forest out cannot free it
-    under a queued update."""
+    """Async result of one fused resident-pane launch, as
+    :class:`DeviceBatchHandle` (one result per window, nothing left to
+    combine on the host).  The handle keeps the forest it launched
+    against referenced, so a grow that swaps the forest out cannot free
+    it under a queued update."""
 
-    __slots__ = ("_forest", "_wraps")
+    __slots__ = ("_forest",)
 
-    def __init__(self, dev_out: torch.Tensor, forest: BatchedFlatFAT,
-                 wraps: np.ndarray, B: int):
-        super().__init__(dev_out, B)
+    def __init__(self, dev_out: torch.Tensor, forest: BatchedFlatFAT):
+        super().__init__(dev_out, dev_out.shape[0])
         self._forest = forest
-        self._wraps = wraps
-
-    def block(self) -> np.ndarray:
-        return self._forest._combine_pieces(self._landed(), self._wraps,
-                                            self._n)
 
 
 class _ResidentPaneLaunch:
@@ -174,11 +168,11 @@ class _ResidentPaneLaunch:
 
     def compute(self, cols, starts, ends, gwids) -> _ResidentPaneHandle:
         with self.carry._lock:
-            dev, wraps, B = self.forest.update_runs_query_launch(
+            dev = self.forest.update_runs_query_launch(
                 cols["run_rows"], cols["run_starts"], cols["run_lens"],
                 np.asarray(cols["value"], np.float32),
                 cols["q_rows"], starts, ends)
-            return _ResidentPaneHandle(dev, self.forest, wraps, B)
+            return _ResidentPaneHandle(dev, self.forest)
 
 
 class ResidentPaneCarry:
@@ -191,9 +185,10 @@ class ResidentPaneCarry:
     :class:`~windflow_tpu_torch.ops.flatfat_torch.BatchedFlatFAT` forest
     (one tensor, updated in place on the carry's CUDA stream) and ships
     only NEW/changed partials per launch; windows are answered as
-    pane-range queries by the FlatFAT query kernel in the same fused
-    launch.  Keyed by pane index: ring position = absolute pane id mod
-    capacity, alias-safe because the engine's fired frontier proves
+    pane-range queries in the same launch of the fused FlatFAT
+    update+query kernel.  Keyed by pane index: ring position = absolute
+    pane id mod capacity, alias-safe because the engine's fired frontier
+    proves
     panes below the oldest unfired window dead before their slots are
     reused.
 
