@@ -9,17 +9,25 @@ every phase passed):
 
 1. device  -- the CUDA card's name, and its name and power limit as
    nvidia-smi reports them.
-2. build   -- window_sum.cu (the window-sum kernel K1) and flatfat_query.cu
-   (the FlatFAT query kernel K2 and the fused FlatFAT update+query
-   kernel), nvcc for sm_90a, and the native C++ engine (g++), built from
+2. build   -- window_sum.cu (the window-sum kernel K1, two forms) and
+   flatfat_query.cu (the FlatFAT query kernel K2, the fused FlatFAT
+   update+query kernel and the fused build+query kernel of the rebuild
+   lane), nvcc for sm_90a, and the native C++ engine (g++), built from
    the checkout's sources in parallel into windflow_tpu_torch/_build/.
-3. kernel  -- K1, the window-sum kernel, against its plain torch version and
-   a float64 numpy sum on the card, at the headline launch shape (pane
-   partials, B = 4096, 2-pane extents), a wide raw-tuple shape (extents
-   up to 4096 over T = 2^21) and edge cases (empty extents, extents
-   ending at T, single elements): exact on integer data, rtol 1e-5 on
-   random f32.  Per shape: device time (torch.profiler), the bytes the
-   function must move and their share of the card's HBM rate.
+3. kernel  -- K1, the window-sum kernel, in both forms (a thread per
+   window, the engine's choice up to extents of 32; a warp per window
+   with float4 loads above) against its plain torch version and a
+   float64 numpy sum on the card, at the headline launch shape (pane
+   partials, B = 4096, 2-pane extents), the pane-rebuild cell's launch
+   (1,024 windows of 64 panes, padded to 2,048), a wide raw-tuple shape
+   (extents up to 4096 over T = 2^21), 12,288 such extents laid end to
+   end (~100 MB, each value read once, from HBM: the streaming rate)
+   and edge cases (empty extents, extents ending at T, single elements):
+   exact on integer data, rtol 1e-5 on random f32.  First the launch floor: the thread form's device
+   time on one window.  Per shape: device time of the form the engine
+   takes and of both forms (torch.profiler), its ratio to the floor, the
+   bytes the function must move and their share of the card's HBM rate,
+   the plain version's time and a sparse CSR mv's.
    kernel K2 -- the FlatFAT query kernel against its plain torch version
    for add, max, min and the non-commutative left_weighted test combine,
    at the rebuild lane's launch shape of bench config 15 (one tree of
@@ -31,6 +39,16 @@ every phase passed):
    random f32.  Per shape: device time, the bound (extents, output and
    each tree node the queries need, read once), the plain version's time
    and, for add, a sparse CSR mv.
+   kernel K2 rebuild -- the fused build+query kernel against its plain
+   version (build_tree, the plain query, the where) and the chain the
+   rebuild lane ran before it (build_tree's torch sweep, K2, the where),
+   bitwise for the four combines on integer and random f32 leaves, at
+   the rebuild lane's launch (2^17 leaves, 4096 windows), two tiles
+   (2048 leaves) with edges (empty and reversed extents, [0, n), end =
+   n) and two tiling rounds (2^22 leaves).  At the rebuild shape: device
+   time, the launch floor (2048 leaves, one window), the pre-PR chain's
+   device time, the bound (leaves and extents read, output written
+   once), the plain version's time and a sparse CSR mv's.
    kernel K2 fused (run first, before any phase starts the profiler) --
    the fused update+query kernel against its plain
    version on the same packed inputs, results and forests after the
@@ -62,11 +80,12 @@ every phase passed):
    events, 8 keys, CB window 4096 / slide 16, source batch 65,536)
    through PipeGraph -> BatchSource -> lane -> Sink of the port, for the
    FFAT rebuild lane (WinSeqTPU(("ffat", torch.add, 0.0)), batch 128,
-   buffer 2^21, 8 in flight; K2 per launch) and the resident FFAT lane
-   (WinSeqFFATResident; the fused kernel per launch): every window equal
-   between the lanes and to a closed-form float64 oracle, shipped bytes
-   per launch rebuild/resident >= 10x, each lane's kernel launches equal
-   to its launched batches and the other kernels not launched.  Prints
+   buffer 2^21, 8 in flight; the fused build+query kernel per launch)
+   and the resident FFAT lane (WinSeqFFATResident; the fused
+   update+query kernel per launch): every window equal between the
+   lanes and to a closed-form float64 oracle, shipped bytes per launch
+   rebuild/resident >= 10x, each lane's kernel launches equal to its
+   launched batches and the other kernels not launched.  Prints
    tuples/s, window latency p50/p99 and the forest's resident bytes.
 7. resident pane -- WinSeqTPU("sum", 4096, 64, CB) with value_of on the
    same stream, promoted by the planner onto the resident pane lane (the
@@ -74,8 +93,13 @@ every phase passed):
    bitwise equal, equal to the oracle, launches checked as in main15.
    Phases 6 and 7 run twice back to back; each cell's two readings are
    printed side by side.
-8. profile15 -- both FFAT lanes once more at the full 8M events under
-   torch.profiler: device busy and idle share and the top device ops.
+8. flatfat -- FlatFATTorch, the single tree a user builds, updates and
+   queries (the one path left that launches the query-only K2): built
+   over 2^17 leaves, queried, updated, queried, exact against float64
+   sums, two K2 launches and nothing else.
+9. profile15 -- both FFAT lanes once more at the full 8M events under
+   torch.profiler: device busy and idle share and the top device ops;
+   the rebuild lane's only kernel must be the fused build+query kernel.
 
 Then one JSON line describing each kernel, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -188,6 +212,17 @@ def wide_extents(rng, T=1 << 21, B=4096, max_w=4096):
     return T, starts, starts + lens
 
 
+def disjoint_extents(rng, B=3 * 4096, max_w=4096):
+    """The wide shape's extent lengths laid end to end, three times as
+    many (~100 MB of values in a buffer of 2^25, twice the 50 MB L2):
+    every value is read once and repeated calls cannot keep them in L2,
+    so the kernel's rate here is its streaming rate from HBM (the wide
+    shape's windows overlap and re-read from L2)."""
+    lens = rng.integers(1, max_w + 1, B)
+    ends = np.cumsum(lens)
+    return 1 << 25, ends - lens, ends
+
+
 def edge_extents(T=5000):
     starts = np.array([0, 7, 100, T - 1, T, T, 0, 4999, 128, 127])
     ends = np.array([0, 7, 101, T, T, T, T, 5000, 256, 129])
@@ -283,41 +318,79 @@ def csr_of(T: int, starts, ends, device):
             size=(len(starts), T), check_invariants=True)
 
 
+def pane_extents():
+    """The pane-rebuild cell's launch (config 15's stream through
+    WinSeqTPU("sum", 4096, 64) with resident=False): a 65,536-event
+    chunk gives each of the 8 keys 128 new pane partials after 63
+    carried ones and fires 128 windows of 64 panes a key; the engine
+    pads T = 1,528 and B = 1,024 to 2,048 (padding windows (0, 0))."""
+    w = WIN15 // PANE_SLIDE
+    per_key = PANE_NEW + w - 1
+    s = (np.arange(KEYS15)[:, None] * per_key
+         + np.arange(PANE_NEW)[None, :]).ravel()
+    starts = np.zeros(2048, np.int64)
+    ends = np.zeros(2048, np.int64)
+    starts[:len(s)], ends[:len(s)] = s, s + w
+    return 2048, starts, ends
+
+
+# a hint that picks each form of the window-sum kernel (either form is
+# right for any extent; the engine passes the batch's widest extent)
+K1_FORM_HINTS = {"thread": 0, "warp": None}
+
+
 def check_kernel(device, card: str) -> dict:
-    from windflow_tpu_torch.ops.cuda.window_sum import (window_sums,
-                                                        window_sums_plain)
+    from windflow_tpu_torch.ops.cuda import window_sum as ws
     rng = np.random.default_rng(0)
-    shapes = {"headline": headline_extents(),
+    shapes = {"headline": headline_extents(), "pane": pane_extents(),
               "wide": wide_extents(rng),
+              "wide_disjoint": disjoint_extents(rng),
               "edges": edge_extents()}
+    # the launch floor: the form the headline takes, on one window
+    one = pack([0], [2], device)
+    tiny = torch.ones(8, dtype=torch.float32, device=device)
+    t_floor = timed(lambda: ws.window_sums(tiny, one, max_extent=2))
+    floor_ms = t_floor[0] if t_floor[0] is not None else t_floor[1]
+    log(f"[kernel] launch floor: the thread form on one window, device ms "
+        f"per call (wall ms per call) {fmt(t_floor)} ({card})")
     entry = None
     worst_err = 0.0
     for name, (T, starts, ends) in shapes.items():
         se = pack(starts, ends, device)
+        # the engine's hint: the batch's widest extent, known on the host
+        hint = int((ends - starts).max())
+        form = ws.form_for(hint)
         # integer data: every sum below 2^24, so kernel, plain version
         # and the float64 oracle must agree exactly -- bounded by the
         # widest extent where the plain version sums tiles, by the whole
         # buffer where it takes the prefix scan
-        max_w = int((ends - starts).max())
-        hi = max(2, (1 << 24) // (T if max_w > 32 else max_w))
+        hi = max(2, (1 << 24) // (T if hint > 32 else hint))
         ints = rng.integers(0, hi, T).astype(np.float32)
-        vals = torch.from_numpy(ints).to(device)
-        k = window_sums(vals, se).cpu().numpy()
-        p = window_sums_plain(vals, se).cpu().numpy()
-        ref = float64_sums(ints, starts, ends)
-        if not (np.array_equal(k, ref) and np.array_equal(p, ref)):
-            raise AssertionError(
-                f"[kernel] {name}: integer data not exact: kernel err "
-                f"{np.abs(k - ref).max()}, plain err {np.abs(p - ref).max()}")
-        worst_err = max(worst_err, float(np.abs(k - p).max()))
-        # random f32 data against the float64 sum
         f32 = rng.random(T, dtype=np.float32)
+        p = ws.window_sums_plain(torch.from_numpy(ints).to(device),
+                                 se).cpu().numpy()
+        ref = float64_sums(ints, starts, ends)
+        if not np.array_equal(p, ref):
+            raise AssertionError(f"[kernel] {name}: plain version not exact "
+                                 f"on integers, err {np.abs(p - ref).max()}")
+        ref32 = float64_sums(f32, starts, ends)
+        # both forms: exact on integers, rtol 1e-5 on random f32
+        for fname, fhint in K1_FORM_HINTS.items():
+            vals = torch.from_numpy(ints).to(device)
+            k = ws.window_sums(vals, se, max_extent=fhint).cpu().numpy()
+            if not np.array_equal(k, ref):
+                raise AssertionError(
+                    f"[kernel] {name} {fname} form: integer data not "
+                    f"exact: err {np.abs(k - ref).max()}")
+            worst_err = max(worst_err, float(np.abs(k - p).max()))
+            vals = torch.from_numpy(f32).to(device)
+            k = ws.window_sums(vals, se, max_extent=fhint).cpu().numpy()
+            np.testing.assert_allclose(
+                k, ref32, rtol=RTOL_F32, atol=0,
+                err_msg=f"[kernel] {name} {fname} form: random f32")
         vals = torch.from_numpy(f32).to(device)
-        k = window_sums(vals, se).cpu().numpy()
-        ref = float64_sums(f32, starts, ends)
-        np.testing.assert_allclose(k, ref, rtol=RTOL_F32, atol=0,
-                                   err_msg=f"[kernel] {name}: random f32")
-        p = window_sums_plain(vals, se).cpu().numpy()
+        k = ws.window_sums(vals, se, max_extent=hint).cpu().numpy()
+        p = ws.window_sums_plain(vals, se).cpu().numpy()
         f32_err = float(np.abs(k - p).max())
         if name == "headline":
             # the plain version takes the tile form here: the same two
@@ -326,26 +399,33 @@ def check_kernel(device, card: str) -> dict:
                                        err_msg="[kernel] headline vs plain")
             worst_err = max(worst_err, f32_err)
         torch.cuda.synchronize()
-        t_k = timed(lambda: window_sums(vals, se))
-        t_p = timed(lambda: window_sums_plain(vals, se), reps=20)
+        t_forms = {f: timed(lambda: ws.window_sums(vals, se, max_extent=h))
+                   for f, h in K1_FORM_HINTS.items()}
+        t_k = t_forms[form]
+        t_p = timed(lambda: ws.window_sums_plain(vals, se), reps=20)
         csr = csr_of(T, starts, ends, device)
         t_l = timed(lambda: torch.mv(csr, vals), reps=20)
         # device time where the profiler saw it, else the call's wall
         ms, plain_ms, lib_ms = (d if d is not None else w
                                 for d, w in (t_k, t_p, t_l))
         lib = torch.mv(csr, vals).cpu().numpy()
-        np.testing.assert_allclose(lib, ref, rtol=RTOL_F32, atol=0,
+        np.testing.assert_allclose(lib, ref32, rtol=RTOL_F32, atol=0,
                                    err_msg=f"[kernel] {name}: library")
         nbytes, ops = work_of(T, starts, ends)
         bms, bound_by = bound_ms(nbytes, ops)
         share = nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
-        log(f"[kernel] {name}: T={T} B={len(starts)} "
-            f"max_extent={int((ends - starts).max())} exact on integers; "
-            f"f32 |kernel-plain|max={f32_err:.3g}; device ms per call "
-            f"(wall ms per call): kernel {fmt(t_k)}, plain {fmt(t_p)}, "
+        # what direct summation reads: every window its own extent
+        read = 4 * int(np.maximum(ends - starts, 0).sum())
+        log(f"[kernel] {name}: T={T} B={len(starts)} max_extent={hint} -> "
+            f"{form} form; both forms exact on integers, rtol {RTOL_F32} on "
+            f"f32; f32 |kernel-plain|max={f32_err:.3g}; device ms per call "
+            f"(wall ms per call): kernel {fmt(t_k)} (thread form "
+            f"{fmt(t_forms['thread'])}, warp form {fmt(t_forms['warp'])}), "
+            f"{ms / floor_ms:.2f}x the launch floor; plain {fmt(t_p)}, "
             f"sparse mv {fmt(t_l)}; bound {bms:.4g} ms ({bound_by}), "
             f"{nbytes} B moved = {100 * share:.2f}% of HBM peak at the "
-            f"kernel's device time ({card})")
+            f"kernel's device time; the windows' own extents are {read} B, "
+            f"{read / (ms * 1e-3) / 1e12:.3f} TB/s ({card})")
         if name == "headline":
             entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                      "bound_by": bound_by, "library_ms": lib_ms}
@@ -734,6 +814,107 @@ def check_k2(device, card: str) -> dict:
         del ints, f32, tree, add_tree
         torch.cuda.empty_cache()
     out["max_abs_err"] = worst_err
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 3b'. the fused build+query kernel of the rebuild lane (K2r)
+# ---------------------------------------------------------------------------
+
+def k2r_shapes(rng):
+    """name -> (n, starts, ends): the rebuild lane's launch (the query
+    kernel's rebuild extents over one tree of T_PAD15 leaves), two tiles
+    with the edges (empty and reversed extents, [0, n), end = n), and
+    two tiling rounds (2^22 leaves: 4096 tile roots)."""
+    rebuild = k2_shapes(rng)["rebuild"]
+    shapes = {"rebuild": (T_PAD15, rebuild[3], rebuild[4])}
+    for name, n in (("edges2048", 2048), ("rounds", 1 << 22)):
+        starts = rng.integers(0, n, 4096)
+        ends = np.minimum(starts + rng.integers(0, WIN15 + 1, 4096), n)
+        edges = [(0, n), (n - 1, n), (5, 5), (9, 3), (1021, 1027), (n, n),
+                 (0, 1), (n - 4096, n)]
+        for i, (s, e) in enumerate(edges):
+            starts[i], ends[i] = s, e
+        shapes[name] = (n, starts, ends)
+    return shapes
+
+
+def legacy_rebuild(leaves, se, comb, neutral):
+    """The rebuild lane's launch as it ran before the fused kernel: the
+    17-level torch sweep of build_tree, the query kernel, the where."""
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    tree = fq.build_tree(leaves, comb, neutral)
+    out = fq.flatfat_query(tree, None, se[0], se[1], comb, neutral)
+    return torch.where(se[1] > se[0], out, torch.zeros_like(out))
+
+
+def check_k2r(device, card: str) -> dict:
+    """The fused build+query kernel against its plain version: bitwise
+    for the four combines on integer and random f32 leaves, at every
+    shape; timings at the rebuild lane's launch."""
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    rng = np.random.default_rng(3)
+    for name, (n, starts, ends) in k2r_shapes(rng).items():
+        se = pack(starts, ends, device)
+        leaves = {"int": torch.from_numpy(rng.integers(0, 97, n).astype(
+            np.float32)).to(device),
+            "f32": torch.from_numpy(rng.random(n, dtype=np.float32)).to(
+                device)}
+        for cname, (comb, neutral, _opc) in k2_combines().items():
+            for data, v in leaves.items():
+                k = fq.flatfat_build_query(v, se, comb, neutral)
+                p = fq.flatfat_build_query_plain(v, se, comb, neutral)
+                legacy = legacy_rebuild(v, se, comb, neutral)
+                torch.cuda.synchronize()
+                k, p = k.cpu().numpy(), p.cpu().numpy()
+                if not (np.array_equal(k, p) and np.array_equal(
+                        k, legacy.cpu().numpy())):
+                    raise AssertionError(
+                        f"[kernel K2 rebuild] {name} {cname} {data}: not "
+                        f"bitwise the plain version (err "
+                        f"{np.nanmax(np.abs(k - p), initial=0)})")
+        log(f"[kernel K2 rebuild] {name}: n={n} B={len(starts)} bitwise "
+            f"equal to the plain version and the pre-PR chain for add, "
+            f"max, min, left_weighted on integer and random f32 leaves")
+        if name != "rebuild":
+            del leaves
+            continue
+        v = leaves["int"]
+        t_k = timed(lambda: fq.flatfat_build_query(v, se, torch.add, 0.0))
+        t_chain = timed(lambda: legacy_rebuild(v, se, torch.add, 0.0))
+        t_p = timed(lambda: fq.flatfat_build_query_plain(
+            v, se, torch.add, 0.0), reps=20)
+        csr = range_csr(n, n, None, starts, ends, device)
+        lib = torch.mv(csr, v).cpu().numpy()
+        np.testing.assert_array_equal(
+            lib, fq.flatfat_build_query(v, se, torch.add, 0.0).cpu().numpy(),
+            err_msg="[kernel K2 rebuild] sparse mv")
+        t_l = timed(lambda: torch.mv(csr, v), reps=20)
+        # the launch floor: the same kernel on its smallest tree, one window
+        small = torch.ones(2048, dtype=torch.float32, device=device)
+        one = pack([0], [2], device)
+        t_floor = timed(lambda: fq.flatfat_build_query(small, one, torch.add,
+                                                       0.0))
+        # the least work: leaves and extents read, outputs written once;
+        # n - 1 combines to build, and the walks' combines
+        nbytes = 4 * n + 8 * len(starts) + 4 * len(starts)
+        ops = n - 1 + walk_nodes(n, None, starts, ends)[1]
+        bms, bound_by = bound_ms(nbytes, ops)
+        ms, chain_ms, plain_ms, lib_ms, floor_ms = (
+            d if d is not None else w
+            for d, w in (t_k, t_chain, t_p, t_l, t_floor))
+        log(f"[kernel K2 rebuild] {name}: device ms per call (wall ms per "
+            f"call): kernel (add) {fmt(t_k)}, launch floor (n=2048, one "
+            f"window) {fmt(t_floor)} = {ms / floor_ms:.2f}x it; pre-PR "
+            f"chain (build_tree, query kernel, where) {fmt(t_chain)} = "
+            f"{chain_ms / ms:.1f}x the kernel; plain (add) {fmt(t_p)}; sparse "
+            f"mv (add) {fmt(t_l)}, max/min: no library call; bound "
+            f"{bms:.4g} ms ({bound_by}; {nbytes} B, {ops} combines) ({card})")
+        out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+               "bound_by": bound_by, "library_ms": lib_ms,
+               "max_abs_err": 0.0}
+        del leaves, v, csr
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1128,6 +1309,7 @@ def reset_counts() -> None:
     from windflow_tpu_torch.ops.cuda import window_sum
     fq.reset_launch_count()
     fq.reset_fused_launch_count()
+    fq.reset_build_query_launch_count()
     window_sum.reset_launch_count()
 
 
@@ -1136,6 +1318,7 @@ def read_counts() -> dict:
     from windflow_tpu_torch.ops.cuda import window_sum
     return {"flatfat_query": fq.launch_count(),
             "flatfat_update_query": fq.fused_launch_count(),
+            "flatfat_build_query": fq.build_query_launch_count(),
             "window_sum": window_sum.launch_count()}
 
 
@@ -1148,9 +1331,10 @@ def reading(cell: str, secs: float, got) -> str:
 
 
 def main15(card: str) -> dict:
-    """Config 15 through the FFAT rebuild lane (the query kernel K2 per
-    launch) and the resident FFAT lane (the fused kernel per launch):
-    returns each path's kernel launches."""
+    """Config 15 through the FFAT rebuild lane (the fused build+query
+    kernel per launch) and the resident FFAT lane (the fused
+    update+query kernel per launch): returns each path's kernel
+    launches."""
     from windflow_tpu_torch.operators.tpu.ffat_resident import \
         WinSeqFFATResidentLogic
     from windflow_tpu_torch.ops.cuda.window_sum import next_pow2
@@ -1172,7 +1356,7 @@ def main15(card: str) -> dict:
 
     lanes = {}
     for lane, cls, hook, kernel in (
-            ("rebuild", None, record_shapes, "flatfat_query"),
+            ("rebuild", None, record_shapes, "flatfat_build_query"),
             ("resident", WinSeqFFATResidentLogic, None,
              "flatfat_update_query")):
         reset_counts()
@@ -1198,13 +1382,13 @@ def main15(card: str) -> dict:
             + f" ({card})")
     if shapes.most_common(1)[0][0] != (T_PAD15, B_PAD15):
         raise AssertionError(f"[main15] rebuild launch shapes {shapes}: "
-                             f"[kernel K2] timed another shape")
+                             f"[kernel K2 rebuild] timed another shape")
     ratio = lanes["rebuild"]["bpl"] / lanes["resident"]["bpl"]
     if ratio < 10:
         raise AssertionError(f"[main15] bytes/launch ratio {ratio:.2f} < 10")
     log(f"[main15] both lanes equal window for window; shipped bytes per "
         f"launch rebuild/resident = {ratio:.1f}x")
-    return {"flatfat_query": lanes["rebuild"]["launches"],
+    return {"flatfat_build_query": lanes["rebuild"]["launches"],
             "flatfat_update_query": lanes["resident"]["launches"]}
 
 
@@ -1252,14 +1436,63 @@ def resident_pane(card: str) -> int:
 
 def profile15(card: str, lane: str, n_events: int) -> None:
     """One FFAT lane of config 15 once more under torch.profiler (CUDA
-    activity only): device busy and idle share, top device ops."""
+    activity only): device busy and idle share, top device ops.  The
+    rebuild lane must show one kernel, the fused build+query kernel;
+    the rest is copies."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         g, sink, secs = run15(lambda: ffat_lane(lane), n_events, SLIDE15)
     hold_to_oracle(sorted_windows(sink, "profile15"),
                    oracle15(n_events, SLIDE15), "profile15")
+    extra = ""
+    if lane == "rebuild":
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if getattr(e, "self_device_time_total", 0) > 0
+                   and not e.key.startswith(("Memcpy", "Memset"))}
+        if not kernels or any("flatfat_build_query_kernel" not in k
+                              for k in kernels):
+            raise AssertionError(f"[profile15] rebuild lane kernels "
+                                 f"{kernels}: not one fused kernel")
+        extra = (f"; kernels traced: {sum(kernels.values())} fused "
+                 f"build+query for {find_logic(g).launched_batches} "
+                 f"launched batches, no other kernel")
     log(f"[profile15] {lane} lane, {n_events} events, under the profiler: "
-        f"{profile_summary(prof, secs, 8)} ({card})")
+        f"{profile_summary(prof, secs, 8)}{extra} ({card})")
+
+
+def drive_flatfat(card: str) -> int:
+    """The single-tree FlatFAT a user builds, updates and queries
+    (FlatFATTorch, the twin of the reference's FlatFATJax), the one
+    path that launches the query-only kernel: a tree of T_PAD15 leaves,
+    the rebuild lane's 4096 windows, then 1024 leaves updated and the
+    windows again.  Every window against a float64 prefix sum; returns
+    the query kernel's launches."""
+    from windflow_tpu_torch.ops.flatfat_torch import FlatFATTorch
+    rng = np.random.default_rng(4)
+    leaves = rng.integers(0, 97, T_PAD15).astype(np.float32)
+    starts, ends = k2_shapes(rng)["rebuild"][3:]
+    ft = FlatFATTorch(torch.add, 0.0, T_PAD15, device=DEVICE15)
+    reset_counts()
+    ft.build(leaves)
+    got = [ft.query_ranges(starts, ends)]
+    want = [float64_sums(leaves, starts, ends)]
+    pos = rng.choice(T_PAD15, 1024, replace=False)
+    leaves[pos] = rng.integers(0, 97, 1024)
+    ft.update(pos, leaves[pos])
+    got.append(ft.query_ranges(starts, ends))
+    want.append(float64_sums(leaves, starts, ends))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["flatfat_query"] != 2 or sum(counts.values()) != 2:
+        raise AssertionError(f"[flatfat] launches {counts}: expected two "
+                             f"query kernel launches and nothing else")
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("[flatfat] windows differ from the float64 sum")
+    log(f"[flatfat] FlatFATTorch: build, {len(starts)} windows, 1024 leaves "
+        f"updated, the windows again, exact against the float64 sum; "
+        f"{counts['flatfat_query']} query kernel launches, other kernels 0 "
+        f"({card})")
+    return counts["flatfat_query"]
 
 
 def kernel_entry(name, source, replaces, launches, err, t) -> dict:
@@ -1288,6 +1521,7 @@ def main() -> int:
     k2f = check_fused(device, card)
     k1 = check_kernel(device, card)
     k2 = check_k2(device, card)
+    k2r = check_k2r(device, card)
     log(f"[smoke] kernels checked at {time.perf_counter() - t_start:.1f} s")
 
     reset_counts()
@@ -1320,6 +1554,7 @@ def main() -> int:
             f"{' / '.join(f'{r[0]:.1f}' for r in rows)}; p50 ms "
             f"{' / '.join(f'{r[1]:.3f}' for r in rows)}; p99 ms "
             f"{' / '.join(f'{r[2]:.3f}' for r in rows)} ({card})")
+    launches15["flatfat_query"] = drive_flatfat(card)
     profile15(card, "rebuild", N15)
     profile15(card, "resident", N15)
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
@@ -1336,7 +1571,11 @@ def main() -> int:
         kernel_entry("flatfat_update_query", src,
                      "windflow_tpu/ops/pallas/flatfat_query.py:91",
                      launches15["flatfat_update_query"],
-                     k2f["max_abs_err"], k2f["resident"])]}))
+                     k2f["max_abs_err"], k2f["resident"]),
+        kernel_entry("flatfat_build_query", src,
+                     "windflow_tpu/ops/pallas/flatfat_query.py:91",
+                     launches15["flatfat_build_query"], k2r["max_abs_err"],
+                     k2r)]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,6 +1,7 @@
 """The port's kernels and the lanes that run them, on the card: the
-window-sum kernel (K1), the FlatFAT query kernel (K2) and the fused
-FlatFAT update+query kernel against their plain versions, the engines,
+window-sum kernel (K1, both forms), the FlatFAT query kernel (K2), the
+fused FlatFAT update+query kernel and the fused build+query kernel of
+the FFAT rebuild lane against their plain versions, the engines,
 the headline graph and the resident lanes on CUDA against the same on
 the CPU, one kernel launch per launched batch, and the refusal of
 combines the kernels do not compile.
@@ -14,6 +15,8 @@ Every test is marked ``cuda`` and skips without a card.  Tolerances:
 exact for max/min and for add on integer-valued data; ``rtol=1e-5`` for
 the non-commutative ``left_weighted`` test combine and for sums of
 random f32 data (the kernel and the float64 sum add in other orders).
+The build+query kernel is exact for every combine and any data: it
+combines the very pairs the plain version combines.
 """
 import numpy as np
 import pytest
@@ -123,15 +126,17 @@ def test_lane_on_the_card_matches_the_cpu_and_launches_per_batch(lane):
     lg = make("cuda")
     fq.reset_launch_count()
     fq.reset_fused_launch_count()
+    fq.reset_build_query_launch_count()
     got = _run_logic(lg, 6000)
     assert want and got == want
-    # the resident lanes run only the fused kernel, the rebuild lane
-    # only the query kernel
-    fused, query = ((fq.fused_launch_count(), fq.launch_count())
-                    if lane != "ffat_rebuild" else
-                    (fq.launch_count(), fq.fused_launch_count()))
-    assert fused == lg.launched_batches > 0
-    assert query == 0
+    # the resident lanes run only the fused update+query kernel, the
+    # rebuild lane only the fused build+query kernel
+    counts = {"update": fq.fused_launch_count(),
+              "build": fq.build_query_launch_count(),
+              "query": fq.launch_count()}
+    mine = "build" if lane == "ffat_rebuild" else "update"
+    assert counts.pop(mine) == lg.launched_batches > 0
+    assert counts == {k: 0 for k in counts}
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +219,79 @@ def test_fused_non_kernel_combine_raises_naming_the_roadmap_item():
 
 
 # ---------------------------------------------------------------------------
+# the fused build+query kernel (the FFAT rebuild lane)
+# ---------------------------------------------------------------------------
+
+def _build_query_case(case, rng):
+    """(n, se [2, B]): the rebuild lane's launch shape (config 15: 8 keys
+    x 512 windows of 4096 sliding by 16), two tiles with the edges, two
+    tiling rounds (4096 tile roots), and a batch of empty windows."""
+    if case == "rebuild":
+        n, per_key = 1 << 17, 4096 + 511 * 16
+        starts = (np.repeat(np.arange(8) * per_key, 512)
+                  + np.tile(np.arange(512) * 16, 8))
+        return n, np.stack([starts, starts + 4096])
+    if case == "empty":
+        return 2048, np.stack([np.arange(100), np.arange(100) // 2])
+    n = 2048 if case == "two_tiles" else 1 << 22
+    starts = rng.integers(0, n, 500)
+    ends = np.minimum(starts + rng.integers(0, 5000, 500), n)
+    for i, (a, b) in enumerate([(0, n), (n - 1, n), (5, 5), (9, 3),
+                                (1021, 1027), (n, n), (0, 1)]):
+        starts[i], ends[i] = a, b
+    return n, np.stack([starts, ends])
+
+
+@pytest.mark.parametrize("name", list(COMBINES))
+@pytest.mark.parametrize("case", ["rebuild", "two_tiles", "two_rounds",
+                                  "empty"])
+def test_build_query_kernel_matches_plain(case, name):
+    """One launch of the fused build+query kernel against build_tree,
+    the plain query and the where, bitwise, on integer and random f32
+    leaves."""
+    comb, neutral, _exact = COMBINES[name]
+    rng = np.random.default_rng(50)
+    n, se = _build_query_case(case, rng)
+    se = _i32(se).cuda()
+    for leaves in (rng.integers(0, 97, n), rng.normal(size=n)):
+        v = torch.from_numpy(leaves.astype(np.float32)).cuda()
+        before = fq.build_query_launch_count()
+        got = fq.flatfat_build_query(v, se, comb, neutral)
+        torch.cuda.synchronize()
+        assert fq.build_query_launch_count() == before + 1
+        want = fq.flatfat_build_query_plain(v, se, comb, neutral)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      want.cpu().numpy())
+
+
+def test_build_query_non_kernel_combine_raises_naming_the_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7b"):
+        fq.flatfat_build_query(torch.zeros(2048, device="cuda"),
+                               _i32([[0], [4]]).cuda(), lambda a, b: a + b,
+                               0.0)
+
+
+def test_cuda_ffat_engine_launches_one_build_query_per_batch():
+    rng = np.random.default_rng(51)
+    T, B = 70_000, 3000
+    starts = rng.integers(0, T - 4096, B)
+    ends = starts + rng.integers(0, 4097, B)
+    cols = {"value": rng.integers(0, 97, T).astype(np.float64)}
+    gwids = np.arange(B, dtype=np.int64)
+    for comb, neutral in ((torch.add, 0.0), (torch.maximum, -np.inf)):
+        eng = WindowComputeEngine(("ffat", comb, neutral), device="cuda")
+        before = (fq.build_query_launch_count(), fq.launch_count())
+        with eng.launch_context():
+            got = eng.compute(cols, starts, ends, gwids).block()
+        assert (fq.build_query_launch_count(), fq.launch_count()) == \
+            (before[0] + 1, before[1])
+        want = WindowComputeEngine(("ffat", comb, neutral),
+                                   device="cpu").compute(
+            cols, starts, ends, gwids).block()
+        np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
 # the window-sum kernel, its engine and the headline graph
 # ---------------------------------------------------------------------------
 
@@ -263,6 +341,59 @@ def test_cuda_kernel_matches_plain(case):
         else:
             np.testing.assert_allclose(got, c[ends] - c[starts], rtol=1e-5,
                                        atol=1e-5)
+
+
+def _form_extents(case, rng):
+    """(T, starts, ends, max_extent) at the main paths' launch shapes:
+    the headline's 2-pane windows, the pane-rebuild cell's 64 panes, the
+    wide raw-tuple shape, and edges past the buffer's ends."""
+    if case == "headline":
+        per_key = np.arange(64)
+        starts = (np.arange(64)[:, None] * 65 + per_key[None, :]).ravel()
+        return 64 * 65, starts, starts + 2, 2
+    if case == "pane":
+        starts = (np.arange(8)[:, None] * 191
+                  + np.arange(128)[None, :]).ravel()
+        return 8 * 191, starts, starts + 64, 64
+    if case == "wide":
+        T = 1 << 21
+        starts = rng.integers(0, T - 4096, 4096)
+        return T, starts, starts + rng.integers(1, 4097, 4096), 4096
+    starts = np.array([-5, 0, 3, 4999, 5000, 10, 7, 33])
+    ends = np.array([3, 5000, 3, 5003, 5000, 42, 6, 66])
+    return 5000, starts, ends, 33
+
+
+@pytest.mark.parametrize("form", ["thread", "warp"])
+@pytest.mark.parametrize("case", ["headline", "pane", "wide", "edges"])
+def test_window_sum_forms_match_plain(case, form):
+    """Each form of the window-sum kernel at each main-path shape (the
+    hint names the form; either form is right for any extent): exact on
+    integer data against the plain version and the float64 sum, rtol
+    1e-5 on random f32."""
+    rng = np.random.default_rng(52)
+    T, starts, ends, widest = _form_extents(case, rng)
+    hint = min(widest, 32) if form == "thread" else None
+    assert ws.form_for(hint) == form
+    se = _se(starts, ends).cuda()
+    s, e = np.clip(starts, 0, T), np.clip(ends, 0, T)
+    # integer data: every prefix sum below 2^24, so the plain version's
+    # prefix scan is exact too
+    hi = min(97, (1 << 24) // T)
+    for integer in (True, False):
+        vals = (rng.integers(0, hi, T) if integer
+                else rng.random(T)).astype(np.float32)
+        v = torch.from_numpy(vals).cuda()
+        got = ws.window_sums(v, se, max_extent=hint).cpu().numpy()
+        c = np.concatenate([[0.0], np.cumsum(vals.astype(np.float64))])
+        want = np.where(e > s, c[e] - c[np.minimum(s, e)], 0.0)
+        if integer:
+            np.testing.assert_array_equal(got, want)
+            if case != "edges":  # the plain version does not clamp
+                np.testing.assert_array_equal(
+                    got, ws.window_sums_plain(v, se).cpu().numpy())
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("kind", ["sum", "count", "mean", "max", "min",

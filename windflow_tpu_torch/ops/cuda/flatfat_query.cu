@@ -61,6 +61,47 @@
 // descriptors, the dirty nodes written once and the clean nodes read
 // once (siblings on the root paths, nodes the walks take) -- tens of KB
 // a step on the lanes.
+//
+// Third entry, wf_flatfat_build_query: the FFAT rebuild lane's whole
+// launch -- build a tree over the launch's flat buffer, answer every
+// window, drop the tree -- in one cooperative launch.  It replaces the
+// reference's jitted `_ffat_program` / `_ffat_pallas_program`
+// (windflow_tpu/ops/window_compute.py:224, :282: the XLA level sweep,
+// then the XLA or Pallas query, then where(valid, out, 0)), which the
+// port had run as ~40 eager launches (a fill, a leaf copy, two launches
+// a level, the query, the where).
+//
+//   out[b] = fold(combine, leaves[s_b, e_b))  if e_b > s_b (raw extents)
+//            else 0;  extents clamped to [0, n], a clamped-empty one
+//            gives the neutral, as the query kernel above.
+//
+// (1) Blocks loop over tiles of 1,024 leaves: a 16-byte load a thread,
+// the tile's ten levels built in shared memory, written to a per-launch
+// scratch array of the n inner nodes (heap indices; the leaves are not
+// copied: the walk reads them from the input).  A node is always
+// op(left child, right child), as build_tree's level sweep computes it,
+// so the tree is bitwise the plain version's for every combine.
+// (2) One grid.sync().  (Past 2^21 leaves the tile roots are themselves
+// tiled, a sync a round, until at most kTopMax roots are left.)  Every
+// block then rebuilds the top levels from the tile roots in its own
+// shared memory: no sync a level, and no block waits on another.
+// (3) A thread per window walks the tree as the query kernel does, with
+// separate left and right accumulators: the ten levels inside a tile
+// are loaded up front (20 independent loads, one latency instead of
+// twenty), the levels above from shared memory.  Nodes written by this
+// launch are read with __ldcg (L2), never __ldg.  Windows are split
+// evenly over the grid so every block walks a share.
+//
+// Bound: bytes.  The least a launch must move is the leaves read, the
+// extents read and the output written once (573,440 B at the rebuild
+// lane's 2^17 leaves and 4,096 windows: 0.17 us at 3.35 TB/s); the
+// scratch nodes (n floats, written once and read from L2) come on top.
+// What sets the time is the launch, one grid-wide barrier and the
+// walk's latency, not the bytes.  A cooperative launch keeps every block
+// resident, so the barrier cannot deadlock; the grid is capped at the
+// card's co-resident block count and blocks loop over tiles and windows,
+// so no input needs a larger grid.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -293,6 +334,178 @@ int launch_fused(float* forest, int n, int levels, int64_t n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// fused tree build + range query (the rebuild lane)
+// ---------------------------------------------------------------------------
+
+constexpr int kTileLevels = 10;
+constexpr int kTile = 1 << kTileLevels;    // level nodes a tile covers
+constexpr int kBuildThreads = kTile / 4;   // one float4 a thread
+constexpr int kTopMax = 2048;              // tile roots kept in shared memory
+constexpr int kWalksPerBlock = 32;         // windows a block takes, at least
+
+// The ten levels above one tile of kTile nodes of a level: src[i] is the
+// tile's i-th node, tile t's root is global node m_dst + t.  Local node
+// j (root 1) at depth d is global ((m_dst + t) << d) + (j - 2^d).
+template <typename Op>
+__device__ __forceinline__ void build_tile(const float* src, bool coherent,
+                                           float* nodes, int m_dst, int t,
+                                           float* sh, const Op& op) {
+  const float4* s4 = reinterpret_cast<const float4*>(src) +
+                     static_cast<int64_t>(t) * (kTile / 4) + threadIdx.x;
+  const float4 v = coherent ? __ldcg(s4) : __ldg(s4);
+  sh[kTile / 2 + 2 * threadIdx.x] = op(v.x, v.y);
+  sh[kTile / 2 + 2 * threadIdx.x + 1] = op(v.z, v.w);
+  for (int half = kTile / 4; half >= 1; half >>= 1) {
+    __syncthreads();
+    for (int j = half + threadIdx.x; j < 2 * half; j += kBuildThreads)
+      sh[j] = op(sh[2 * j], sh[2 * j + 1]);
+  }
+  __syncthreads();
+  for (int j = 1 + threadIdx.x; j < kTile; j += kBuildThreads) {
+    const int d = 31 - __clz(j);
+    nodes[((m_dst + t) << d) + (j - (1 << d))] = sh[j];
+  }
+  __syncthreads();  // sh is the next tile's
+}
+
+// se: int32 [2, B] (starts, then ends); nodes: scratch [n] (inner nodes
+// at heap indices 1..n-1); n a power of two >= 2 kTile.
+template <typename Op>
+__global__ void __launch_bounds__(kBuildThreads)
+flatfat_build_query_kernel(const float* __restrict__ leaves, int n,
+                           int levels, const int32_t* __restrict__ se,
+                           int n_windows, float* nodes,
+                           float* __restrict__ out, float neutral) {
+  __shared__ float sh[2 * kTopMax];  // a tile's nodes, then the top tree
+  const Op op;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+
+  // 1. tiles, kTileLevels levels a round, until <= kTopMax roots are left
+  int m = n;
+  const float* src = leaves;
+  bool coherent = false;  // the leaves are input; later rounds read nodes
+  do {
+    const int m_dst = m / kTile;
+    for (int t = blockIdx.x; t < m_dst; t += gridDim.x)
+      build_tile(src, coherent, nodes, m_dst, t, sh, op);
+    grid.sync();
+    m = m_dst;
+    src = nodes + m;
+    coherent = true;
+  } while (m > kTopMax);
+
+  // 2. the top tree (global nodes 1 .. 2m-1) in this block's shared memory
+  const int top = 2 * m;
+  for (int i = threadIdx.x; i < m; i += kBuildThreads)
+    sh[m + i] = __ldcg(nodes + m + i);
+  for (int half = m / 2; half >= 1; half >>= 1) {
+    __syncthreads();
+    for (int j = half + threadIdx.x; j < 2 * half; j += kBuildThreads)
+      sh[j] = op(sh[2 * j], sh[2 * j + 1]);
+  }
+  __syncthreads();
+
+  // 3. the walks, an even share of the windows a block
+  const int64_t per = (n_windows + gridDim.x - 1) / gridDim.x;
+  const int b1 = static_cast<int>(
+      min(static_cast<int64_t>(n_windows), (blockIdx.x + 1) * per));
+  for (int b = static_cast<int>(blockIdx.x * per) + threadIdx.x; b < b1;
+       b += kBuildThreads) {
+    const int s_raw = __ldg(se + b);
+    const int e_raw = __ldg(se + n_windows + b);
+    if (e_raw <= s_raw) {  // the engine's where(valid, out, 0)
+      out[b] = 0.0f;
+      continue;
+    }
+    const int s = s_raw < 0 ? 0 : (s_raw > n ? n : s_raw);
+    const int e = e_raw < 0 ? 0 : (e_raw > n ? n : e_raw);
+    if (e <= s) {
+      out[b] = neutral;
+      continue;
+    }
+    int lo = s + n;
+    int hi = e + n;
+    // the levels inside a tile: every load issued before the first use
+    float lv[kTileLevels], rv[kTileLevels];
+    bool tl[kTileLevels], tr[kTileLevels];
+#pragma unroll
+    for (int k = 0; k < kTileLevels; ++k) {
+      tl[k] = lo < hi && (lo & 1);
+      const int il = lo;
+      if (tl[k]) ++lo;
+      tr[k] = lo < hi && (hi & 1);
+      if (tr[k]) --hi;
+      const int ir = hi;
+      lv[k] = !tl[k] ? 0.0f : (k == 0 ? __ldg(leaves + (il - n))
+                                      : __ldcg(nodes + il));
+      rv[k] = !tr[k] ? 0.0f : (k == 0 ? __ldg(leaves + (ir - n))
+                                      : __ldcg(nodes + ir));
+      lo >>= 1;
+      hi >>= 1;
+    }
+    float left = neutral;
+    float right = neutral;
+#pragma unroll
+    for (int k = 0; k < kTileLevels; ++k) {
+      if (tl[k]) left = op(left, lv[k]);
+      if (tr[k]) right = op(rv[k], right);
+    }
+    // the levels above: shared memory (scratch only between tiling rounds)
+    for (int k = kTileLevels; k <= levels; ++k) {
+      if (lo < hi && (lo & 1)) {
+        left = op(left, lo < top ? sh[lo] : __ldcg(nodes + lo));
+        ++lo;
+      }
+      if (lo < hi && (hi & 1)) {
+        --hi;
+        right = op(hi < top ? sh[hi] : __ldcg(nodes + hi), right);
+      }
+      lo >>= 1;
+      hi >>= 1;
+    }
+    out[b] = op(left, right);
+  }
+}
+
+constexpr int kMaxDevices = 64;
+
+template <typename Op>
+int launch_build_query(const float* leaves, int n, int levels,
+                       const int32_t* se, int n_windows, float* nodes,
+                       float* out, float neutral, cudaStream_t stream) {
+  // co-resident blocks of this instantiation, once per device
+  static int resident[kMaxDevices];
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (dev < 0 || dev >= kMaxDevices) return -2;
+  if (resident[dev] == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (!coop) return static_cast<int>(cudaErrorNotSupported);
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, flatfat_build_query_kernel<Op>, kBuildThreads, 0);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    if (per_sm * sms <= 0)
+      return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    resident[dev] = per_sm * sms;
+  }
+  int blocks = n / kTile;
+  const int walk_blocks = (n_windows + kWalksPerBlock - 1) / kWalksPerBlock;
+  if (walk_blocks > blocks) blocks = walk_blocks;
+  if (blocks > resident[dev]) blocks = resident[dev];
+  void* args[] = {&leaves, &n, &levels, &se, &n_windows, &nodes, &out,
+                  &neutral};
+  rc = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(flatfat_build_query_kernel<Op>),
+      dim3(blocks), dim3(kBuildThreads), args, 0, stream);
+  if (rc != cudaSuccess) cudaGetLastError();  // clear it for later launches
+  return static_cast<int>(rc);
+}
+
 }  // namespace
 
 // op: 0 add, 1 max, 2 min, 3 left_weighted.  `rows` may be null (one
@@ -358,6 +571,44 @@ extern "C" int wf_flatfat_update_query(
       return launch_fused<LeftWeightedOp>(forest, n, lv, n_rows, groups, g,
                                           runs, r, queries, q, values, v, out,
                                           neutral, stream);
+    default:
+      return -1;
+  }
+}
+
+// The rebuild lane's launch: the tree over `leaves` [n] (n a power of
+// two, 2048 <= n <= 2^30, 16-byte aligned) built into `nodes` [n]
+// (scratch, this launch's alone), then every window of `se` [2, B]
+// answered into `out` [B], in one cooperative launch.  op codes as
+// wf_flatfat_query.  Launches on `stream`; returns the cudaError_t of
+// the launch (0 = ok; cudaErrorCooperativeLaunchTooLarge when the card
+// cannot hold the grid), -1 for an unknown op code, -2 for sizes the
+// kernel does not take.
+extern "C" int wf_flatfat_build_query(const float* leaves, int64_t n_leaves,
+                                      const int32_t* se, int64_t n_windows,
+                                      float* nodes, float* out, float neutral,
+                                      int64_t op, cudaStream_t stream) {
+  if (n_windows <= 0) return 0;
+  if (n_leaves < 2 * kTile || n_leaves > (int64_t{1} << 30) ||
+      (n_leaves & (n_leaves - 1)) || n_windows > 0x7fffffff ||
+      (reinterpret_cast<uintptr_t>(leaves) & 15))
+    return -2;
+  const int n = static_cast<int>(n_leaves);
+  const int lv = 31 - __builtin_clz(static_cast<unsigned>(n));
+  const int b = static_cast<int>(n_windows);
+  switch (op) {
+    case 0:
+      return launch_build_query<AddOp>(leaves, n, lv, se, b, nodes, out,
+                                       neutral, stream);
+    case 1:
+      return launch_build_query<MaxOp>(leaves, n, lv, se, b, nodes, out,
+                                       neutral, stream);
+    case 2:
+      return launch_build_query<MinOp>(leaves, n, lv, se, b, nodes, out,
+                                       neutral, stream);
+    case 3:
+      return launch_build_query<LeftWeightedOp>(leaves, n, lv, se, b, nodes,
+                                                out, neutral, stream);
     default:
       return -1;
   }

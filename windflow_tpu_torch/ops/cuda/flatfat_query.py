@@ -38,6 +38,18 @@ it).  It replaces the reference's fused program
 flatfat_jax.py:188-207) and its Pallas query.  The same rules hold: the
 kernel on a CUDA tensor (or ``unported``), :func:`flatfat_update_query_plain`
 on a CPU tensor, its own count in ``fused_launch_count()``.
+
+``flatfat_build_query(leaves, se, combine, neutral)`` is the FFAT
+rebuild lane's whole launch in one cooperative launch of the third entry:
+it builds the tree over ``leaves [n]`` (n a power of two, at least 2048)
+into a scratch array of this call, answers every window of the packed
+int32 extents ``se [2, B]`` and returns f32 ``[B]``, 0 for a window with
+``end <= start``.  It replaces the reference's jitted ``_ffat_program``
+/ ``_ffat_pallas_program`` (windflow_tpu/ops/window_compute.py:224,
+:282).  The kernel on a CUDA tensor (or ``unported``),
+:func:`flatfat_build_query_plain` (:func:`build_tree`, the plain query,
+the reference's ``where``) on a CPU tensor, its own count in
+``build_query_launch_count()``.
 """
 from __future__ import annotations
 
@@ -60,6 +72,7 @@ _lib = None
 _lib_lock = threading.Lock()
 _launches = 0
 _fused_launches = 0
+_build_query_launches = 0
 _count_lock = threading.Lock()
 
 def _left_weighted(a, b):
@@ -117,6 +130,22 @@ def _levels(n: int) -> int:
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
+
+def build_tree(leaves: torch.Tensor, combine: Any,
+               neutral: float) -> torch.Tensor:
+    """The tree [2n] over ``leaves`` [n]: one strided combine per level."""
+    comb = torch_combine(combine)
+    n = leaves.shape[0]
+    levels = _levels(n)
+    tree = torch.full((2 * n,), neutral, dtype=torch.float32,
+                      device=leaves.device)
+    tree[n:] = leaves
+    for j in range(levels - 1, -1, -1):  # level j holds 2^j nodes
+        lo = 1 << j
+        children = tree[2 * lo: 4 * lo]
+        tree[lo: 2 * lo] = comb(children[0::2], children[1::2])
+    return tree
+
 
 def flatfat_query_plain(tree: torch.Tensor, rows: Optional[torch.Tensor],
                         starts: torch.Tensor, ends: torch.Tensor,
@@ -260,6 +289,16 @@ def flatfat_update_query_plain(forest: torch.Tensor, inputs: FusedInputs,
     return out
 
 
+def flatfat_build_query_plain(leaves: torch.Tensor, se: torch.Tensor,
+                              combine: Any, neutral: float) -> torch.Tensor:
+    """The rebuild lane's launch in torch: :func:`build_tree` over the
+    leaves, the plain query for every window, and 0 where ``end <=
+    start``, as the reference's ``jnp.where(valid, out, 0)``."""
+    tree = build_tree(leaves, combine, neutral)
+    out = flatfat_query_plain(tree, None, se[0], se[1], combine, neutral)
+    return torch.where(se[1] > se[0], out, torch.zeros_like(out))
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel
 # ---------------------------------------------------------------------------
@@ -287,6 +326,9 @@ def load_kernel() -> ctypes.CDLL:
         lib.wf_flatfat_update_query.argtypes = [
             ptr, i64, i64, i64, ptr, i64, ptr, i64, ptr, i64, ptr, i64,
             ptr, ctypes.c_float, i64, ptr]
+        lib.wf_flatfat_build_query.restype = ctypes.c_int
+        lib.wf_flatfat_build_query.argtypes = [
+            ptr, i64, ptr, i64, ptr, ptr, ctypes.c_float, i64, ptr]
         _lib = lib
         return lib
 
@@ -309,6 +351,16 @@ def reset_fused_launch_count() -> None:
     global _fused_launches
     with _count_lock:
         _fused_launches = 0
+
+
+def build_query_launch_count() -> int:
+    return _build_query_launches
+
+
+def reset_build_query_launch_count() -> None:
+    global _build_query_launches
+    with _count_lock:
+        _build_query_launches = 0
 
 
 def _check(tree: torch.Tensor, rows: Optional[torch.Tensor],
@@ -418,4 +470,61 @@ def flatfat_update_query(forest: torch.Tensor, inputs: FusedInputs,
                            f"cudaError {rc}")
     with _count_lock:
         _fused_launches += 1
+    return out
+
+
+# the fused build+query kernel's smallest tree: two tiles of 1024 leaves
+BUILD_QUERY_MIN_LEAVES = 2048
+
+
+def _check_build_query(leaves: torch.Tensor, se: torch.Tensor) -> None:
+    if leaves.dtype != torch.float32 or leaves.dim() != 1:
+        raise ValueError("leaves must be a 1-D float32 tensor")
+    n = leaves.shape[0]
+    _levels(n)
+    if not BUILD_QUERY_MIN_LEAVES <= n <= 1 << 30:
+        raise ValueError(f"leaves must number {BUILD_QUERY_MIN_LEAVES} .. "
+                         f"2^30, not {n}")
+    if se.dtype != torch.int32 or se.dim() != 2 or se.shape[0] != 2:
+        raise ValueError("se must be an int32 [2, B] tensor")
+    if leaves.device != se.device:
+        raise ValueError("leaves and se must be on the same device")
+    if not (leaves.is_contiguous() and se.is_contiguous()):
+        raise ValueError("leaves and se must be contiguous")
+    if leaves.data_ptr() % 16:
+        raise ValueError("leaves must be 16-byte aligned")
+
+
+def flatfat_build_query(leaves: torch.Tensor, se: torch.Tensor,
+                        combine: Any, neutral: float) -> torch.Tensor:
+    """The tree over ``leaves`` and the fold of every window of ``se``
+    as f32 [B] (0 where ``end <= start``): one launch of the fused CUDA
+    kernel for a CUDA tensor (compiled combines only), the plain version
+    for a CPU tensor."""
+    global _build_query_launches
+    _check_build_query(leaves, se)
+    if leaves.device.type == "cpu":
+        return flatfat_build_query_plain(leaves, se, combine, neutral)
+    if leaves.device.type != "cuda":
+        raise ValueError(f"unsupported device {leaves.device}")
+    op = require_kernel_op(combine)
+    lib = load_kernel()
+    n_windows = se.shape[1]
+    out = torch.empty(n_windows, dtype=torch.float32, device=leaves.device)
+    if n_windows == 0:
+        return out
+    n = leaves.shape[0]
+    with torch.cuda.device(leaves.device):
+        # this launch's own tree: several launches of the lane are in
+        # flight, each allocated on the stream it runs on
+        nodes = torch.empty(n, dtype=torch.float32, device=leaves.device)
+        stream = torch.cuda.current_stream(leaves.device).cuda_stream
+        rc = lib.wf_flatfat_build_query(
+            leaves.data_ptr(), n, se.data_ptr(), n_windows,
+            nodes.data_ptr(), out.data_ptr(), float(neutral), op, stream)
+    if rc != 0:
+        raise RuntimeError(f"flatfat_build_query kernel launch failed: "
+                           f"cudaError {rc}")
+    with _count_lock:
+        _build_query_launches += 1
     return out

@@ -1,13 +1,18 @@
 """Batched window sum: the hand-written Hopper kernel and its plain twin.
 
-``window_sums(values, se)`` computes ``out[b] = sum(values[se[0, b]:
-se[1, b]])`` (empty extent -> 0) for a flat f32 buffer ``values [T]``
-and the engine's packed int32 extents ``se [2, B]``.
+``window_sums(values, se, max_extent=None)`` computes ``out[b] =
+sum(values[se[0, b]:se[1, b]])`` (empty extent -> 0) for a flat f32
+buffer ``values [T]`` and the engine's packed int32 extents ``se [2, B]``.
 
-* On a CUDA tensor it launches ``window_sum.cu`` (one warp per window;
-  built with nvcc for ``sm_90a`` into ``windflow_tpu_torch/_build/`` on
-  first use and bound through ctypes) on the current stream.  A build
-  or launch failure raises: there is no fallback.
+* On a CUDA tensor it launches ``window_sum.cu`` (built with nvcc for
+  ``sm_90a`` into ``windflow_tpu_torch/_build/`` on first use and bound
+  through ctypes) on the current stream, in the form
+  :func:`form_for` picks from ``max_extent``, the batch's widest extent
+  as the caller knows it on the host: a thread per window up to
+  ``_TILE_MAX_W`` (32), a warp per window above it or with no hint (the
+  wrapper never reads the extents back to learn it).  Either form is
+  right for any extent.  A build or launch failure raises: there is no
+  fallback.
 * On a CPU tensor it runs :func:`window_sums_plain`, the torch form of
   the reference engine's XLA pair ``_tile_sum_program`` /
   ``_scan_program`` (windflow_tpu/ops/window_compute.py:80,105).
@@ -23,6 +28,7 @@ import ctypes
 import os
 import subprocess
 import threading
+from typing import Optional
 
 import torch
 
@@ -33,8 +39,12 @@ _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 _LIB_NAME = "libwf_window_sum.so"
 
 # max window extent (already padded to a power of two) served by the
-# gather-tile form; wider windows take the prefix scan
+# gather-tile form; wider windows take the prefix scan.  The kernel takes
+# its thread-per-window form up to the same extent.
 _TILE_MAX_W = 32
+
+# the kernel's forms (window_sum.cu)
+_FORMS = {"warp": 0, "thread": 1}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -106,7 +116,7 @@ def load_kernel() -> ctypes.CDLL:
         lib.wf_window_sum.restype = ctypes.c_int
         lib.wf_window_sum.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         _lib = lib
         return lib
 
@@ -132,9 +142,20 @@ def _check(values: torch.Tensor, se: torch.Tensor) -> None:
         raise ValueError("values and se must be contiguous")
 
 
-def window_sums(values: torch.Tensor, se: torch.Tensor) -> torch.Tensor:
+def form_for(max_extent: Optional[int]) -> str:
+    """The kernel form for a batch whose widest extent is ``max_extent``
+    (None: not known): ``"thread"`` up to ``_TILE_MAX_W``, else
+    ``"warp"``."""
+    if max_extent is not None and max_extent <= _TILE_MAX_W:
+        return "thread"
+    return "warp"
+
+
+def window_sums(values: torch.Tensor, se: torch.Tensor,
+                max_extent: Optional[int] = None) -> torch.Tensor:
     """``out[b] = sum(values[se[0, b]:se[1, b]])`` as f32 [B]: the CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    kernel for a CUDA tensor (in the form ``max_extent`` picks), the
+    plain version for a CPU tensor."""
     global _launches
     _check(values, se)
     if values.device.type == "cpu":
@@ -150,7 +171,7 @@ def window_sums(values: torch.Tensor, se: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(values.device).cuda_stream
         rc = lib.wf_window_sum(values.data_ptr(), values.shape[0],
                                se.data_ptr(), out.data_ptr(), n_windows,
-                               stream)
+                               _FORMS[form_for(max_extent)], stream)
     if rc != 0:
         raise RuntimeError(f"window_sum kernel launch failed: "
                            f"cudaError {rc}")

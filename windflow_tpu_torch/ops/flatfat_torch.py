@@ -4,10 +4,13 @@
 Trees are flat f32 arrays in heap layout (root at 1, leaves at
 ``[n, 2n)``, n a power of two).  The reference's jitted programs map to:
 
-* ``_programs`` (:29-85) -> :func:`build_tree` / :func:`update_tree`
-  (level sweeps of strided combines) and :func:`query_tree`, which runs
-  the FlatFAT query kernel (``ops/cuda/flatfat_query.cu``; its plain
-  version on the CPU);
+* ``_programs`` (:29-85) -> ``build_tree`` / :func:`update_tree`
+  (level sweeps of strided combines; ``build_tree`` lives beside the
+  plain versions in ``ops/cuda/flatfat_query.py``) and
+  :func:`query_tree`, which runs the FlatFAT query kernel
+  (``ops/cuda/flatfat_query.cu``; its plain version on the CPU).  The
+  engine's ffat kind builds and queries in one launch of the fused
+  build+query kernel instead (``flatfat_build_query``);
 * ``_batched_programs`` (:88-210) -> the fused FlatFAT update+query
   kernel (``flatfat_update_query``: new leaves, their root paths and
   every window in one launch), fed by :func:`pack_step`; its plain
@@ -33,8 +36,9 @@ from typing import Any, Callable, Optional, Union
 import numpy as np
 import torch
 
-from .cuda.flatfat_query import (FusedInputs, _levels, flatfat_query,
-                                 flatfat_update_query, torch_combine)
+from .cuda.flatfat_query import (FusedInputs, _levels, build_tree,
+                                 flatfat_query, flatfat_update_query,
+                                 torch_combine)
 from .device import resolve_device, stream_context
 
 
@@ -49,22 +53,6 @@ def _pow2_at_least(n: int, floor: int = 1) -> int:
 # ---------------------------------------------------------------------------
 # programs
 # ---------------------------------------------------------------------------
-
-def build_tree(leaves: torch.Tensor, combine: Any,
-               neutral: float) -> torch.Tensor:
-    """The tree [2n] over ``leaves`` [n]: one strided combine per level."""
-    comb = torch_combine(combine)
-    n = leaves.shape[0]
-    levels = _levels(n)
-    tree = torch.full((2 * n,), neutral, dtype=torch.float32,
-                      device=leaves.device)
-    tree[n:] = leaves
-    for j in range(levels - 1, -1, -1):  # level j holds 2^j nodes
-        lo = 1 << j
-        children = tree[2 * lo: 4 * lo]
-        tree[lo: 2 * lo] = comb(children[0::2], children[1::2])
-    return tree
-
 
 def update_tree(tree: torch.Tensor, positions: torch.Tensor,
                 values: torch.Tensor, valid: torch.Tensor,

@@ -11,8 +11,9 @@ reference engine's jitted XLA programs.
 * **max/min** use a sparse table (log-sweep of strided combines) + two
   gathers per window, in plain torch.
 * **ffat** kinds ``("ffat", combine, neutral)`` build a FlatFAT tree
-  over the flat buffer and answer every window with the hand-written
-  FlatFAT query kernel ``ops/cuda/flatfat_query.cu`` on a CUDA device.
+  over the flat buffer and answer every window in one launch of the
+  hand-written fused build+query kernel (``flatfat_build_query``,
+  ``ops/cuda/flatfat_query.cu``) on a CUDA device.
 * the **resident lane** (:class:`ResidentPaneCarry`) keeps per-key pane
   partials in a device forest across launches; each launch writes the
   new partials, recomputes their root paths and answers the due windows
@@ -36,10 +37,10 @@ import numpy as np
 import torch
 
 from .._unported import unported
-from .cuda.flatfat_query import require_kernel_op
+from .cuda.flatfat_query import flatfat_build_query, require_kernel_op
 from .cuda.window_sum import next_pow2, window_sums
 from .device import resolve_device, stream_context
-from .flatfat_torch import BatchedFlatFAT, build_tree, query_tree
+from .flatfat_torch import BatchedFlatFAT
 
 BUILTIN_KINDS = ("sum", "count", "mean", "max", "min")
 
@@ -378,6 +379,8 @@ class WindowComputeEngine:
         se = np.zeros((2, B_pad), dtype=np.int32)
         se[0, :B] = starts
         se[1, :B] = ends
+        # the widest extent picks the window-sum kernel's form
+        max_extent = int(np.max(se[1] - se[0], initial=0))
 
         pinned = dev.type == "cuda"
 
@@ -397,28 +400,25 @@ class WindowComputeEngine:
             dev, non_blocking=True)
         kind = self.kind
         if self.is_ffat:
-            # the FFAT twin of the reference's _ffat_program: build the
-            # tree over the flat buffer (padded with the neutral), then
-            # the FlatFAT query kernel answers every window
+            # the twin of the reference's _ffat_program: the tree over the
+            # flat buffer (padded with the neutral) and every window, in
+            # one launch of the fused build+query kernel
             _, comb, neutral = kind
-            tree = build_tree(put(cols[self.value_col], neutral), comb,
-                              neutral)
-            out = query_tree(tree, se_dev[0], se_dev[1], comb, neutral)
-            out = torch.where(se_dev[1] > se_dev[0], out,
-                              torch.zeros_like(out))
+            out = flatfat_build_query(put(cols[self.value_col], neutral),
+                                      se_dev, comb, neutral)
         elif kind == "sum":
-            out = window_sums(put(cols[self.value_col]), se_dev)
+            out = window_sums(put(cols[self.value_col]), se_dev, max_extent)
         elif kind == "count":
             out = (se_dev[1] - se_dev[0]).to(torch.float32)
         elif kind == "mean":
             n = (se_dev[1] - se_dev[0]).to(torch.float32)
-            out = window_sums(put(cols[self.value_col]), se_dev) \
-                / torch.clamp(n, min=1.0)
+            out = window_sums(put(cols[self.value_col]), se_dev,
+                              max_extent) / torch.clamp(n, min=1.0)
         elif kind == "mean_panes":
             # a windowed mean is the sum of pane sums over the sum of
             # pane counts, NOT the mean of pane means
-            s = window_sums(put(cols[self.value_col]), se_dev)
-            n = window_sums(put(cols["count"]), se_dev)
+            s = window_sums(put(cols[self.value_col]), se_dev, max_extent)
+            n = window_sums(put(cols["count"]), se_dev, max_extent)
             out = s / torch.clamp(n, min=1.0)
         else:  # max / min
             fill = float("-inf") if kind == "max" else float("inf")
