@@ -65,7 +65,9 @@ every phase passed):
    node the update or the walks read once), the plain version's time,
    and one whole step as a lane pays it (host staging to host result,
    perf_counter and CUDA events) against the chain of torch ops and the
-   query kernel that ran before the fused kernel.
+   query kernel that ran before the fused kernel.  Then the fused
+   kernel's launch floor: one forest row of 2048 leaves, one run of one
+   leaf, one window.
 4. main    -- the headline graph, bench.py config 2 (64M events, 64
    keys, TB window 4096 / slide 2048, source batch 2^20, device batch
    4096, buffer 2^21, 8 in flight, 10 ms delay), through PipeGraph ->
@@ -76,6 +78,30 @@ every phase passed):
    latency.
 5. profile -- the main path once more under torch.profiler: the
    device's busy and idle share and its top device ops.
+5b. main3 -- bench.py config 3 (bench.py:501-527): PaneFarmTPU("sum",
+   "sum", 4096, 2048, TB, LEVEL2, emit_batches) -- the device PLQ (pane
+   sums, the window-sum kernel) thread-fused with the host's columnar
+   WLQ -- over the headline's stream at 32M events, as bench.py runs it
+   (bench.py:2434); the chunks SyntheticSource(chunked=True) emits,
+   stamped at the source for the window latency.
+   main4 -- bench.py config 4 (:530-551): KeyFarmTPU("sum", ...,
+   parallelism=2) at 32M events, coalesced into one engine (the
+   default) and as two replicas behind the key hash.
+   farms -- WinFarmTPU(parallelism=2) at 8M events and WinMapReduceTPU
+   (MAP on the card, two stripes; REDUCE on the host) at 2^19 events
+   of the same law as records (its map emitter routes records, not
+   batches).
+   custom -- KeyFarmTPU over a torch custom window function (the sum of
+   squares, vmapped over the windows) at 1M events.
+   Each: every window held against the closed-form float64 oracle
+   (exact; the sums of squares within rtol 1e-5), per key in id order,
+   the launches of the lane's kernel equal to the batches of the farm's
+   device engines and no other kernel launched -- the window-sum kernel,
+   or the fused update+query kernel where the planner promotes the
+   engines onto the resident pane lane (WinFarmTPU's striped replicas),
+   none for the custom function; tuples/s, p50/p99 window latency.
+   Then configs 3 and 4 once more each under torch.profiler: device
+   busy and idle share, top device ops.
 6. main15  -- bench.py config 15_resident_state at its full size (8M
    events, 8 keys, CB window 4096 / slide 16, source batch 65,536)
    through PipeGraph -> BatchSource -> lane -> Sink of the port, for the
@@ -101,7 +127,8 @@ every phase passed):
    torch.profiler: device busy and idle share and the top device ops;
    the rebuild lane's only kernel must be the fused build+query kernel.
 
-Then one JSON line describing each kernel, the card line, and
+Then one JSON line describing each kernel (the window-sum kernel's
+launches: the headline's and phase 5b's), the card line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -437,17 +464,18 @@ def check_kernel(device, card: str) -> dict:
 # 4. main path
 # ---------------------------------------------------------------------------
 
-def oracle(n_events: int):
+def oracle(n_events: int, power: int = 1):
     """Closed form of the synthetic law under TB windows, float64:
     key k holds ts 0..M-1 (M = n/keys) with value (ts*keys + k) % 97;
     window w covers ts [w*slide, w*slide + win), and every window opened
-    by a tuple fires (partial tail windows flush at EOS)."""
+    by a tuple fires (partial tail windows flush at EOS).  Each window
+    holds the sum of its values to the ``power``."""
     assert n_events % N_KEYS == 0
     M = n_events // N_KEYS
     keys = np.arange(N_KEYS)
     t = np.arange(VMOD)
     # partial[k, r] = sum_{t < r} (t*keys + k) % 97; the law has period 97
-    per = (t[None, :] * N_KEYS + keys[:, None]) % VMOD
+    per = ((t[None, :] * N_KEYS + keys[:, None]) % VMOD) ** power
     partial = np.concatenate([np.zeros((N_KEYS, 1), np.int64),
                               np.cumsum(per, axis=1)], axis=1)
     full = int(per[0].sum())
@@ -467,10 +495,12 @@ def oracle(n_events: int):
 
 class LatencySink:
     """bench.py's window-latency sink: birth = emit stamp of the source
-    chunk carrying the window's closing tuple, emission = arrival."""
+    chunk (``chunk`` events) carrying the window's closing tuple,
+    emission = arrival.  Takes result batches and result records."""
 
-    def __init__(self, stamps):
+    def __init__(self, stamps, chunk=SOURCE_BATCH):
         self.stamps = stamps
+        self.chunk = chunk
         self.lock = threading.Lock()
         self.keys, self.ids, self.vals, self.lats = [], [], [], []
 
@@ -478,57 +508,90 @@ class LatencySink:
         if item is None:
             return
         now = time.perf_counter()
+        if hasattr(item, "get_control_fields"):
+            keys, ids = np.array([item.key]), np.array([item.id])
+            vals = np.array([item.value], np.float64)
+        else:
+            keys, ids = np.asarray(item.key).copy(), np.asarray(item.id).copy()
+            vals = np.asarray(item["value"]).copy()
         with self.lock:
-            self.keys.append(np.asarray(item.key).copy())
-            self.ids.append(np.asarray(item.id).copy())
-            self.vals.append(np.asarray(item["value"]).copy())
-            closing = (item.id * SLIDE + (WIN - 1)) * N_KEYS + item.key
-            chunk = np.minimum(closing // SOURCE_BATCH, len(self.stamps) - 1)
+            self.keys.append(keys)
+            self.ids.append(ids)
+            self.vals.append(vals)
+            closing = (ids * SLIDE + (WIN - 1)) * N_KEYS + keys
+            chunk = np.minimum(closing // self.chunk, len(self.stamps) - 1)
             self.lats.extend((now - np.asarray(self.stamps)[chunk]).tolist())
 
 
-def find_logic(graph, cls=None):
+def device_logics(graph, cls=None):
+    """Every window engine of class ``cls`` (default: the device window
+    engine) in a graph: fused segments' logics, and both halves of an
+    operator-fused stage (PaneFarmTPU's PLQ)."""
     from windflow_tpu_torch.operators.tpu.win_seq_tpu import WinSeqTPULogic
-    from windflow_tpu_torch.runtime.node import FusedLogic
+    from windflow_tpu_torch.runtime.node import ChainedLogic, FusedLogic
     cls = cls or WinSeqTPULogic
     found = []
     for node in graph._all_nodes():
-        logics = ([s.logic for s in node.logic.segments]
-                  if isinstance(node.logic, FusedLogic) else [node.logic])
-        found += [lg for lg in logics if isinstance(lg, cls)]
+        for lg in ([seg.logic for seg in node.logic.segments]
+                   if isinstance(node.logic, FusedLogic) else [node.logic]):
+            halves = [lg.a, lg.b] if isinstance(lg, ChainedLogic) else [lg]
+            found += [h for h in halves if isinstance(h, cls)]
+    return found
+
+
+def find_logic(graph, cls=None):
+    found = device_logics(graph, cls)
     if len(found) != 1:
-        raise AssertionError(f"expected one {cls.__name__}, found "
+        raise AssertionError(f"expected one window engine, found "
                              f"{len(found)}")
     return found[0]
 
 
-def run_main(n_events: int, device: str):
+def run_main(n_events: int, device: str, make_op=None, records=False):
+    """The headline's stream through the headline's operator, or through
+    ``make_op()``: SynthChunks of SOURCE_BATCH events, stamped as they
+    leave the source -- the chunks SyntheticSource(chunked=True) emits
+    -- or, with ``records``, their records, pushed one by one by a
+    record source (65,536 a stamp), for operators on the record plane."""
     import windflow_tpu_torch as wf
-    from windflow_tpu_torch.core.tuples import SynthChunk
-    from windflow_tpu_torch.operators.basic_ops import Sink
+    from windflow_tpu_torch.core.tuples import BasicRecord, SynthChunk
+    from windflow_tpu_torch.operators.basic_ops import Sink, Source
     from windflow_tpu_torch.operators.batch_ops import BatchSource
     from windflow_tpu_torch.operators.tpu.win_seq_tpu import WinSeqTPU
 
     stamps: list = []
     state = {"i": 0}
+    chunk = RECORD_CHUNK if records else SOURCE_BATCH
 
-    def source(ctx):
+    def next_chunk():
         i = state["i"]
         if i >= n_events:
             return None
-        state["i"] = i + SOURCE_BATCH
+        state["i"] = i + chunk
         stamps.append(time.perf_counter())
-        return SynthChunk(i, min(SOURCE_BATCH, n_events - i), N_KEYS, VMOD,
-                          1.0, 0.0)
+        return SynthChunk(i, min(chunk, n_events - i), N_KEYS, VMOD, 1.0,
+                          0.0)
 
-    sink = LatencySink(stamps)
+    def record_source(shipper):
+        c = next_chunk()
+        if c is None:
+            return False
+        b = c.materialize()
+        for k, t, v in zip(b.key.tolist(), b.ts.tolist(),
+                           b["value"].tolist()):
+            shipper.push(BasicRecord(k, t, t, v))
+        return True
+
+    sink = LatencySink(stamps, chunk)
     g = wf.PipeGraph("chip_smoke", wf.Mode.DEFAULT,
                      config=wf.RuntimeConfig(device=device))
-    op = WinSeqTPU("sum", WIN, SLIDE, wf.WinType.TB,
-                   batch_len=DEVICE_BATCH, emit_batches=True,
-                   max_buffer_elems=MAX_BUFFER, inflight_depth=INFLIGHT,
-                   max_batch_delay_ms=DELAY_MS)
-    g.add_source(BatchSource(source, 1)).add(op).add_sink(Sink(sink))
+    op = make_op() if make_op is not None else WinSeqTPU(
+        "sum", WIN, SLIDE, wf.WinType.TB, batch_len=DEVICE_BATCH,
+        emit_batches=True, max_buffer_elems=MAX_BUFFER,
+        inflight_depth=INFLIGHT, max_batch_delay_ms=DELAY_MS)
+    src = (Source(record_source) if records
+           else BatchSource(lambda ctx: next_chunk(), 1))
+    g.add_source(src).add(op).add_sink(Sink(sink))
     t0 = time.perf_counter()
     g.run()
     secs = time.perf_counter() - t0
@@ -539,6 +602,13 @@ def check_main(g, sink, n_events: int) -> int:
     logic = find_logic(g)
     if logic._native is None:
         raise AssertionError("[main] the native lane was not active")
+    return check_windows(sink, oracle(n_events), "main")
+
+
+def check_windows(sink, want, tag: str, rtol: float = 0.0) -> int:
+    """Every window the sink received, held against ``want`` (keys, ids,
+    values: exact, or within ``rtol`` of the float64 values); per key,
+    ids arrive in order."""
     keys = np.concatenate(sink.keys)
     ids = np.concatenate(sink.ids)
     vals = np.concatenate(sink.vals)
@@ -546,16 +616,18 @@ def check_main(g, sink, n_events: int) -> int:
     for k in range(N_KEYS):
         kid = ids[keys == k]
         if len(kid) > 1 and not np.all(np.diff(kid) > 0):
-            raise AssertionError(f"[main] key {k}: ids out of order")
-    ok, oi, ov = oracle(n_events)
+            raise AssertionError(f"[{tag}] key {k}: ids out of order")
+    ok, oi, ov = want
     if len(keys) != len(ok):
-        raise AssertionError(f"[main] {len(keys)} windows, oracle "
+        raise AssertionError(f"[{tag}] {len(keys)} windows, oracle "
                              f"{len(ok)}")
     order = np.lexsort((ids, keys))
+    close = (np.array_equal(vals[order], ov) if not rtol else
+             np.allclose(vals[order], ov, rtol=rtol, atol=0))
     if not (np.array_equal(keys[order], ok) and np.array_equal(ids[order], oi)
-            and np.array_equal(vals[order], ov)):
+            and close):
         bad = np.nonzero(vals[order] != ov)[0]
-        raise AssertionError(f"[main] windows differ from the oracle "
+        raise AssertionError(f"[{tag}] windows differ from the oracle "
                              f"({len(bad)} values differ)")
     return len(keys)
 
@@ -583,6 +655,118 @@ def profile_summary(prof, secs: float, n_top: int) -> str:
     return (f"wall {secs:.3f} s, device busy {busy:.3f} ms = "
             f"{100 * busy / (secs * 1e3):.3f}% (idle "
             f"{100 - 100 * busy / (secs * 1e3):.3f}%); top device ops: {top}")
+
+
+# ---------------------------------------------------------------------------
+# 4b. bench configs 3 and 4, the device farms, a custom window function
+# ---------------------------------------------------------------------------
+
+# bench.py runs configs 3 and 4 at 32M events (bench.py:2434-2437)
+N34 = 32_000_000
+# [farms]: WinFarmTPU on 8M events of the headline stream; WinMapReduceTPU
+# on 2^19 (its map emitter routes records, not batches: the record plane
+# runs at 1-2e4 tuples/s, so more would outlast the rest of the script)
+N_FARM = 8_000_000
+N_WMR = 1 << 19
+N_CUSTOM = 1_000_000
+RECORD_CHUNK = 65_536
+# f32 sums of squares of values < 97 over 4096-tick windows reach 3.8e7,
+# past f32's exact integers: held to the float64 oracle within rtol
+RTOL_SQUARES = RTOL_F32
+
+
+def sum_of_squares(gwid, cols, mask):
+    """The custom window function of the reference's engine test
+    (tests/test_tpu_operators.py:96-98), in torch."""
+    v = torch.where(mask, cols["value"], 0.0)
+    return torch.sum(v * v)
+
+
+def reduce_sum(gwid, iterable, result):
+    result.value = sum(t.value for t in iterable)
+
+
+def farm_op(cell: str):
+    """The operator of one farm cell, as bench.py builds configs 3
+    (bench.py:501-527) and 4 (:530-551): the headline's window, device
+    batch, buffer and in-flight depth, the default 10 ms delay."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.operators.tpu.farms_tpu import (
+        KeyFarmTPU, PaneFarmTPU, WinFarmTPU, WinMapReduceTPU)
+    common = dict(batch_len=DEVICE_BATCH, max_buffer_elems=MAX_BUFFER,
+                  inflight_depth=INFLIGHT)
+    tb = wf.WinType.TB
+    if cell == "main3":
+        return PaneFarmTPU("sum", "sum", WIN, SLIDE, tb, plq_parallelism=1,
+                           wlq_parallelism=1, opt_level=wf.OptLevel.LEVEL2,
+                           emit_batches=True, **common)
+    if cell in ("main4 coalesced", "main4 replicas"):
+        return KeyFarmTPU("sum", WIN, SLIDE, tb, parallelism=2,
+                          emit_batches=True,
+                          coalesce=cell == "main4 coalesced", **common)
+    if cell == "farms WinFarmTPU":
+        return WinFarmTPU("sum", WIN, SLIDE, tb, parallelism=2, **common)
+    if cell == "farms WinMapReduceTPU":
+        return WinMapReduceTPU("sum", reduce_sum, WIN, SLIDE, tb,
+                               map_parallelism=2, **common)
+    return KeyFarmTPU(sum_of_squares, WIN, SLIDE, tb, parallelism=2,
+                      emit_batches=True, **common)
+
+
+def run_farm(cell: str, n_events: int, card: str, device="cuda"):
+    """One farm cell on the card through PipeGraph -> source -> farm ->
+    Sink: every window held against the closed-form oracle, the launches
+    of the lane's kernel equal to the batches of the farm's device
+    engines, no other kernel launched.  The lane's kernel is the
+    window-sum kernel, or the fused update+query kernel where the
+    planner promoted the engines onto the resident pane lane (as it
+    promotes WinFarmTPU's striped replicas, whose private slide makes
+    the pane as long as the window); a custom window function launches
+    none.  Returns (kernel name or None, its launches)."""
+    custom = cell == "custom"
+    reset_counts()
+    g, sink, secs = run_main(n_events, device, lambda: farm_op(cell),
+                             records=cell == "farms WinMapReduceTPU")
+    counts = read_counts()
+    logics = device_logics(g)
+    if not logics or any(lg.device is None or lg.device.type != device
+                         for lg in logics):
+        raise AssertionError(f"[{cell}] device engines "
+                             f"{[str(lg.device) for lg in logics]}")
+    resident = sum(lg._resident is not None for lg in logics)
+    if resident not in (0, len(logics)):
+        raise AssertionError(f"[{cell}] {resident} of {len(logics)} "
+                             f"engines on the resident lane")
+    kernel = (None if custom else
+              "flatfat_update_query" if resident else "window_sum")
+    launches = check_launches(cell, logics, counts, kernel)
+    windows = check_windows(sink, oracle(n_events, 2 if custom else 1),
+                            cell, RTOL_SQUARES if custom else 0.0)
+    p50, p99 = (float(np.percentile(sink.lats, q)) * 1e3 for q in (50, 99))
+    batches = sum(lg.launched_batches for lg in logics)
+    log(f"[{cell}] {n_events} events in {secs:.3f} s = "
+        f"{n_events / secs:.1f} tuples/s; {windows} windows match the "
+        f"oracle {'within rtol %g' % RTOL_SQUARES if custom else 'exactly'}"
+        f"; window latency p50 {p50:.3f} ms, p99 {p99:.3f} ms; "
+        f"{len(logics)} device engine(s)"
+        f"{' on the resident pane lane' if resident else ''}, {batches} "
+        f"batches, "
+        + (f"{launches} {kernel} launches, other kernels 0"
+           if kernel else "no kernel launched (a torch program)")
+        + f" ({card})")
+    return kernel, launches
+
+
+def profile_farm(cell: str, n_events: int, card: str) -> None:
+    """A farm cell once more under torch.profiler (CUDA activity only):
+    the device's busy and idle share and its top device ops; every
+    window held against the oracle again."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _g, sink, secs = run_main(n_events, "cuda", lambda: farm_op(cell))
+    check_windows(sink, oracle(n_events), cell)
+    log(f"[profile {cell}] {n_events} events under the profiler: "
+        f"{profile_summary(prof, secs, 6)} ({card})")
 
 
 # ---------------------------------------------------------------------------
@@ -1155,6 +1339,19 @@ def check_fused(device, card: str) -> dict:
                      "bound_by": bound_by, "library_ms": None}
         del fk, bf, data, inputs
         torch.cuda.empty_cache()
+    # the launch floor: one forest row of 2048 leaves, one run of one
+    # leaf, one window of two leaves
+    buf, sizes = pack_step(2048, 1, [0], [5], [1], np.ones(1, np.float32),
+                           [0], [4], [6], pinned=True)
+    inputs = step_inputs(buf.to(device), sizes)
+    f1 = forest_of(torch.zeros(1, 2048, device=device), torch.add)
+    t_floor = timed(lambda: fq.flatfat_update_query(f1, inputs, torch.add,
+                                                    0.0))
+    floor_ms = t_floor[0] if t_floor[0] is not None else t_floor[1]
+    log(f"[kernel K2 fused] launch floor (K=1, n=2048, one run of one "
+        f"leaf, one window): device ms per call (wall ms per call) "
+        f"{fmt(t_floor)}; the resident step is "
+        f"{out['resident']['ms'] / floor_ms:.2f}x it ({card})")
     out["max_abs_err"] = worst_err
     return out
 
@@ -1289,11 +1486,20 @@ def ffat_lane(lane: str):
 READINGS15: dict = collections.defaultdict(list)
 
 
-def check_launches(tag: str, logic, kernels: dict, expect: str) -> int:
-    """The path's launches of the kernel named ``expect`` equal its
-    launched batches, and every other kernel counted in ``kernels``
-    (name -> launches in the run) stayed at 0."""
-    want = logic.launched_batches
+def check_launches(tag: str, logics, kernels: dict, expect) -> int:
+    """The path's launches of the kernel named ``expect`` equal the
+    batches its device window engine (or engines: a list) launched, and
+    every other kernel counted in ``kernels`` (name -> launches in the
+    run) stayed at 0; ``expect=None``: a path that launches none of
+    them (a custom window function's torch program)."""
+    if not isinstance(logics, (list, tuple)):
+        logics = [logics]
+    want = sum(lg.launched_batches for lg in logics)
+    if expect is None:
+        if want <= 0 or any(kernels.values()):
+            raise AssertionError(f"[{tag}] {want} batches; kernels "
+                                 f"{kernels} on a path that runs none")
+        return 0
     if kernels[expect] <= 0 or kernels[expect] != want:
         raise AssertionError(f"[{tag}] {expect} launches {kernels[expect]} "
                              f"!= batches launched {want}")
@@ -1540,6 +1746,21 @@ def main() -> int:
         f"{logic.launched_batches} batches ({card})")
     profile_main(card)
 
+    # bench configs 3 and 4 (config 4 with its replicas coalesced into
+    # one engine, the default, and as two), the other device farms and
+    # a custom window function; each path driven with every launch
+    # count set to 0 just before it and read just after
+    farm_launches = collections.Counter()
+    for cell, n in (("main3", N34), ("main4 coalesced", N34),
+                    ("main4 replicas", N34), ("farms WinFarmTPU", N_FARM),
+                    ("farms WinMapReduceTPU", N_WMR), ("custom", N_CUSTOM)):
+        kernel, count = run_farm(cell, n, card)
+        if kernel is not None:
+            farm_launches[kernel] += count
+    for cell in ("main3", "main4 coalesced", "main4 replicas"):
+        profile_farm(cell, N34, card)
+    log(f"[smoke] farms done at {time.perf_counter() - t_start:.1f} s")
+
     # config 15's four cells twice back to back; each path driven with
     # every launch count set to 0 just before it and read just after
     for rnd in (1, 2):
@@ -1562,7 +1783,8 @@ def main() -> int:
     src = "windflow_tpu_torch/ops/cuda/flatfat_query.cu"
     log(json.dumps({"kernels": [
         kernel_entry("window_sum", "windflow_tpu_torch/ops/cuda/window_sum.cu",
-                     "windflow_tpu/ops/pallas/window_sum.py:62", launches,
+                     "windflow_tpu/ops/pallas/window_sum.py:62",
+                     launches + farm_launches["window_sum"],
                      k1["max_abs_err"], k1),
         kernel_entry("flatfat_query", src,
                      "windflow_tpu/ops/pallas/flatfat_query.py:91",
@@ -1570,7 +1792,8 @@ def main() -> int:
                      k2["rebuild"]),
         kernel_entry("flatfat_update_query", src,
                      "windflow_tpu/ops/pallas/flatfat_query.py:91",
-                     launches15["flatfat_update_query"],
+                     launches15["flatfat_update_query"]
+                     + farm_launches["flatfat_update_query"],
                      k2f["max_abs_err"], k2f["resident"]),
         kernel_entry("flatfat_build_query", src,
                      "windflow_tpu/ops/pallas/flatfat_query.py:91",

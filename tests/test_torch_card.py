@@ -2,9 +2,10 @@
 window-sum kernel (K1, both forms), the FlatFAT query kernel (K2), the
 fused FlatFAT update+query kernel and the fused build+query kernel of
 the FFAT rebuild lane against their plain versions, the engines,
-the headline graph and the resident lanes on CUDA against the same on
-the CPU, one kernel launch per launched batch, and the refusal of
-combines the kernels do not compile.
+the headline graph, the resident lanes and the device farms (KeyFarmTPU
+coalesced and not, PaneFarmTPU fused at LEVEL2, a custom window
+function) on CUDA against the same on the CPU, one kernel launch per
+launched batch, and the refusal of combines the kernels do not compile.
 
 This file imports neither jax nor the reference package, so it runs
 where the card is:
@@ -35,7 +36,9 @@ from windflow_tpu_torch.ops.cuda import window_sum as ws
 from windflow_tpu_torch.ops.flatfat_torch import (build_tree, pack_step,
                                                   step_inputs)
 from windflow_tpu_torch.ops.window_compute import WindowComputeEngine
-from windflow_tpu_torch.runtime.node import FusedLogic
+from windflow_tpu_torch.operators.tpu.farms_tpu import (KeyFarmTPU,
+                                                        PaneFarmTPU)
+from windflow_tpu_torch.runtime.node import ChainedLogic, FusedLogic
 
 pytestmark = pytest.mark.cuda
 
@@ -87,12 +90,12 @@ def test_kernel_matches_plain(name):
 
 def test_non_kernel_combine_raises_naming_the_roadmap_item():
     tree = torch.zeros(16, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
         fq.flatfat_query(tree, None, _i32([0]).cuda(), _i32([4]).cuda(),
                          lambda a, b: a + b, 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
         WindowComputeEngine(("ffat", torch.mul, 1.0), device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
         WinSeqFFATResidentLogic(lambda t: t.value, torch.mul, 1.0, 64, 16,
                                 device="cuda")
 
@@ -212,7 +215,7 @@ def test_fused_kernel_matches_plain(case, name):
 
 def test_fused_non_kernel_combine_raises_naming_the_roadmap_item():
     buf, sizes = pack_step(8, 1, [0], [0], [1], [1.0], [0], [0], [1])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
         fq.flatfat_update_query(torch.zeros((1, 16), device="cuda"),
                                 step_inputs(buf.cuda(), sizes),
                                 lambda a, b: a + b, 0.0)
@@ -265,7 +268,7 @@ def test_build_query_kernel_matches_plain(case, name):
 
 
 def test_build_query_non_kernel_combine_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
         fq.flatfat_build_query(torch.zeros(2048, device="cuda"),
                                _i32([[0], [4]]).cuda(), lambda a, b: a + b,
                                0.0)
@@ -464,3 +467,82 @@ def test_headline_graph_on_the_card_launches_the_kernel_per_batch():
     np.testing.assert_array_equal(got[0], want[0])  # keys, in order
     np.testing.assert_array_equal(got[1], want[1])  # ids, in order
     np.testing.assert_allclose(got[2], want[2], rtol=1e-6, atol=0)
+
+
+def _device_logics(g):
+    """Every device window engine of a graph, fused stages' halves
+    included."""
+    found = []
+    for node in g._all_nodes():
+        for lg in ([seg.logic for seg in node.logic.segments]
+                   if isinstance(node.logic, FusedLogic) else [node.logic]):
+            halves = [lg.a, lg.b] if isinstance(lg, ChainedLogic) else [lg]
+            found += [h for h in halves if isinstance(h, WinSeqTPULogic)]
+    return found
+
+
+def _sum_of_squares(gwid, cols, mask):
+    v = torch.where(mask, cols["value"], 0.0)
+    return torch.sum(v * v)
+
+
+FARMS = {
+    "key_farm": lambda: KeyFarmTPU(
+        "sum", 64, 32, wf.WinType.TB, parallelism=2, batch_len=512,
+        emit_batches=True, max_batch_delay_ms=1e9),
+    "key_farm_par2": lambda: KeyFarmTPU(
+        "sum", 64, 32, wf.WinType.TB, parallelism=2, coalesce=False,
+        batch_len=512, emit_batches=True, max_batch_delay_ms=1e9),
+    "pane_farm_level2": lambda: PaneFarmTPU(
+        "sum", "sum", 64, 32, wf.WinType.TB, batch_len=512,
+        opt_level=wf.OptLevel.LEVEL2, emit_batches=True,
+        max_batch_delay_ms=1e9),
+    "custom": lambda: KeyFarmTPU(
+        _sum_of_squares, 64, 32, wf.WinType.TB, parallelism=2,
+        batch_len=512, emit_batches=True, max_batch_delay_ms=1e9),
+}
+
+
+def _farm_rows(farm, device):
+    """The headline's stream law at a small size through one device
+    farm; returns (graph, key -> [(id, value)] in arrival order)."""
+    n_events, n_keys, source_batch = 100_000, 16, 10_000
+    chunks = iter(range(0, n_events, source_batch))
+    rows = {}
+
+    def source(ctx):
+        i = next(chunks, None)
+        return None if i is None else SynthChunk(
+            i, min(source_batch, n_events - i), n_keys, 97, 1.0, 0.0)
+
+    def sink(item):
+        if item is None:
+            return
+        for k, i, v in zip(np.asarray(item.key).tolist(),
+                           np.asarray(item.id).tolist(),
+                           np.asarray(item["value"]).tolist()):
+            rows.setdefault(k, []).append((i, v))
+
+    g = wf.PipeGraph("farm", wf.Mode.DEFAULT,
+                     config=wf.RuntimeConfig(device=device))
+    g.add_source(BatchSource(source, 1)).add(FARMS[farm]()) \
+        .add_sink(Sink(sink))
+    g.run()
+    return g, rows
+
+
+@pytest.mark.parametrize("farm", list(FARMS))
+def test_device_farm_on_the_card_matches_the_cpu(farm):
+    """Every window of the farm on the card equals the CPU run's (per
+    key, in arrival order; exact on these integer values); the builtin
+    sum stages launch the window-sum kernel once per batch, the custom
+    window function never."""
+    _g, want = _farm_rows(farm, "cpu")
+    ws.reset_launch_count()
+    g, got = _farm_rows(farm, "cuda")
+    logics = _device_logics(g)
+    assert logics and all(lg.device.type == "cuda" for lg in logics)
+    batches = sum(lg.launched_batches for lg in logics)
+    assert batches > 0
+    assert ws.launch_count() == (0 if farm == "custom" else batches)
+    assert got == want

@@ -57,8 +57,12 @@ def test_umbrella_exports_ported_names_and_names_the_rest():
     import windflow_tpu_torch as wf
     assert wf.PipeGraph.__module__ == "windflow_tpu_torch.graph.pipegraph"
     assert wf.RuntimeConfig().device == "cuda"
-    with pytest.raises(AttributeError, match="ROADMAP.md A8"):
-        wf.WinSeqTPUBuilder
+    assert wf.WinSeqTPUBuilder.__module__ == \
+        "windflow_tpu_torch.builders.builders_tpu"
+    assert wf.KeyFarmBuilder.__module__ == \
+        "windflow_tpu_torch.builders.builders"
+    with pytest.raises(AttributeError, match="ROADMAP.md A10"):
+        wf.Server
     with pytest.raises(AttributeError, match="ROADMAP.md A11"):
         wf.KeyFarmMesh
     with pytest.raises(AttributeError, match="no attribute"):

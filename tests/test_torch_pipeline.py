@@ -192,14 +192,19 @@ def test_graph_defaults_to_cuda_and_raises_without_a_card():
 
 
 def test_resident_true_raises_naming_the_roadmap_item():
-    """resident=True is ported; a custom window function, which the
-    resident lane never serves, still names its ROADMAP item."""
+    """resident=True is ported.  A custom window function (ported too)
+    is not a shape the resident lane serves: resident=True rejects it
+    as the reference does; a user FFAT combine on the card names its
+    ROADMAP item."""
     logic = _op("windflow_tpu_torch", resident=True,
                 device="cpu").stages()[0].replicas[0]
     assert logic._resident is not None and logic._native is None
-    wf = importlib.import_module("windflow_tpu_torch")
-    WinSeqTPU = _mod("windflow_tpu_torch", "operators.tpu.win_seq_tpu") \
-        .WinSeqTPU
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7b"):
-        WinSeqTPU(lambda g, c, m: 0.0, WIN, SLIDE, wf.WinType.CB,
-                  resident=True, device="cpu").stages()
+    for pkg in PACKAGES:
+        wf = importlib.import_module(pkg)
+        WinSeqTPU = _mod(pkg, "operators.tpu.win_seq_tpu").WinSeqTPU
+        with pytest.raises(ValueError, match="eligible engine"):
+            WinSeqTPU(lambda g, c, m: 0.0, WIN, SLIDE, wf.WinType.CB,
+                      resident=True).stages()
+    from windflow_tpu_torch.ops.cuda.flatfat_query import require_kernel_op
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
+        require_kernel_op(lambda a, b: a * b)

@@ -91,12 +91,15 @@ def test_cuda_is_the_default_and_raises_without_a_card():
         eng.compute(cols, starts, ends, gwids)
 
 
-@pytest.mark.parametrize("kind", [lambda g, c, m: 0.0])
+@pytest.mark.parametrize("kind", [lambda a, b: a * b])
 def test_unported_kinds_raise_naming_the_roadmap_item(kind):
-    """Custom window functions are still to port (the ffat kind is
-    ported: tests/test_torch_flatfat.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        WindowComputeEngine(kind, device="cpu")
+    """Custom window functions are ported (tests/test_torch_custom.py);
+    a user FFAT combine is not, on the card: binding such an ffat kind
+    to a CUDA device raises through this check, naming ROADMAP.md A7c."""
+    from windflow_tpu_torch.ops.cuda.flatfat_query import require_kernel_op
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
+        require_kernel_op(kind)
+    WindowComputeEngine(("ffat", kind, 1.0), device="cpu")  # CPU: runs
 
 
 def test_ffat_kind_works_on_the_cpu():

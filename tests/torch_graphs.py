@@ -1,0 +1,124 @@
+"""Shared harness of the port's graph tests: one graph, built by a
+function of the package, runs through the reference (``windflow_tpu``)
+and the port (``windflow_tpu_torch``, on the CPU) on the same record
+stream, and the two sinks are compared.
+
+The stream is the reference tests' ordered source: key = i % n_keys,
+id = ts = i // n_keys, value = float(id).  What must match: the set of
+keys, and for every key the window ids in the order the sink received
+them.  Values are compared as the reference test of the same graph
+compares them with its oracle (exact, or a stated relative tolerance).
+The interleaving of keys at the sink depends on thread timing in both
+packages, so it is not compared.
+"""
+import importlib
+import threading
+
+import numpy as np
+
+PACKAGES = ("windflow_tpu", "windflow_tpu_torch")
+PORT = "windflow_tpu_torch"
+
+
+def mod(pkg, path):
+    return importlib.import_module(f"{pkg}.{path}")
+
+
+def ordered_source(pkg, n_keys, per_key):
+    BasicRecord = mod(pkg, "core").BasicRecord
+    state = {}
+
+    def fn(shipper, ctx):
+        i = state.setdefault("i", 0)
+        if i >= n_keys * per_key:
+            return False
+        key = i % n_keys
+        tid = i // n_keys
+        shipper.push(BasicRecord(key, tid, tid, float(tid)))
+        state["i"] = i + 1
+        return True
+
+    return fn
+
+
+class Collector:
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.results = []
+
+    def __call__(self, rec):
+        if rec is not None:
+            with self.lock:
+                self.results.append((rec.key, rec.id, rec.value))
+
+
+def run_graph(pkg, make_op, n_keys=3, per_key=48, mode="DEFAULT",
+              config_kw=None):
+    """Run source -> ``make_op(wf)`` -> sink in package ``pkg``; the
+    port on the CPU.  Returns the sink's (key, id, value) rows in
+    arrival order and the graph."""
+    wf = importlib.import_module(pkg)
+    cfg = wf.RuntimeConfig(**(config_kw or {}))
+    if pkg == PORT:
+        cfg.device = "cpu"
+    coll = Collector()
+    g = wf.PipeGraph("t", getattr(wf.Mode, mode), config=cfg)
+    g.add_source(wf.SourceBuilder(ordered_source(pkg, n_keys, per_key))
+                 .build()).add(make_op(wf)).add_sink(
+        wf.SinkBuilder(coll).build())
+    g.run()
+    return coll.results, g
+
+
+def per_key(rows):
+    """key -> ([ids in arrival order], [values])."""
+    out = {}
+    for k, i, v in rows:
+        ids, vals = out.setdefault(k, ([], []))
+        ids.append(i)
+        vals.append(v)
+    return out
+
+
+def assert_same(got, want, rtol=0.0):
+    """Equal keys and per-key id order exactly; values equal (rtol 0)
+    or within ``rtol``."""
+    g, w = per_key(got), per_key(want)
+    assert sorted(g) == sorted(w)
+    for k in w:
+        assert g[k][0] == w[k][0], (k, g[k][0], w[k][0])
+        if rtol:
+            np.testing.assert_allclose(g[k][1], w[k][1], rtol=rtol)
+        else:
+            assert g[k][1] == w[k][1], (k, g[k][1], w[k][1])
+
+
+def by_key(rows):
+    out = {}
+    for k, i, v in rows:
+        out.setdefault(k, {})[i] = v
+    return out
+
+
+def oracle(per_key_n, win, slide, agg=sum):
+    """gwid -> agg over ids [g*slide, g*slide + win), every window whose
+    start was reached (partial tail windows flush at EOS)."""
+    out = {}
+    g = 0
+    while g * slide < per_key_n:
+        vals = [float(v) for v in range(per_key_n)
+                if g * slide <= v < g * slide + win]
+        out[g] = float(agg(vals)) if vals else 0.0
+        g += 1
+    return out
+
+
+def both(make_op, n_keys=3, per_key=48, mode="DEFAULT", rtol=0.0,
+         config_kw=None):
+    """The graph through both packages, held equal; returns the port's
+    rows and graph."""
+    want, _ = run_graph(PACKAGES[0], make_op, n_keys, per_key, mode,
+                        config_kw)
+    got, g = run_graph(PORT, make_op, n_keys, per_key, mode, config_kw)
+    assert_same(got, want, rtol)
+    return got, g

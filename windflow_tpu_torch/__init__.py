@@ -5,20 +5,23 @@ device lane running on an NVIDIA GPU: batched window sums launch a
 hand-written Hopper kernel (``ops/cuda/window_sum.cu``), FlatFAT range
 queries (the FFAT kinds, the resident FFAT forest and the resident pane
 lane) another (``ops/cuda/flatfat_query.cu``), and the engine's other
-programs are torch code on CUDA tensors.  The port goes
-slice by slice (ROADMAP.md queue A); this umbrella exports the names
-the ported slices provide, and a name of the reference package that is
-not ported yet raises an ``AttributeError`` naming its ROADMAP item.
+programs (max/min, custom window functions) are torch code on CUDA
+tensors.  The port goes slice by slice (ROADMAP.md queue A); this
+umbrella exports the names the ported slices provide, and a name of the
+reference package that is not ported yet raises an ``AttributeError``
+naming its ROADMAP item.
 
     import windflow_tpu_torch as wf
-    from windflow_tpu_torch.operators.batch_ops import BatchSource
-    from windflow_tpu_torch.operators.basic_ops import Sink
-    from windflow_tpu_torch.operators.tpu.win_seq_tpu import WinSeqTPU
     g = wf.PipeGraph("app", wf.Mode.DEFAULT)
-    g.add_source(BatchSource(fn)).add(WinSeqTPU("sum", 4096, 2048,
-        wf.WinType.TB)).add_sink(Sink(sink_fn))
+    op = (wf.KeyFarmTPUBuilder("sum").with_parallelism(2)
+          .with_tb_windows(4096, 2048).build())
+    g.add_source(wf.SourceBuilder(gen).build()).add(op).add_sink(
+        wf.SinkBuilder(sink_fn).build())
     g.run()     # on the CUDA device; RuntimeConfig(device="cpu") asks
                 # for the CPU
+
+A device window function is a builtin name or a torch callable
+``fn(gwid, cols, mask) -> 0-d tensor``, vmapped over the windows.
 """
 from ._unported import ROADMAP_ITEMS
 from .core import (Mode, WinType, OptLevel, RoutingMode, Pattern, WinEvent,
@@ -64,17 +67,19 @@ _LAZY = {
     # resident FFAT lane (operators/tpu/ffat_resident.py)
     "WinSeqFFATResident": "windflow_tpu_torch.operators.tpu.ffat_resident",
 }
+# the fluent builders (builders/): host operators, then device operators
+_LAZY.update({name: "windflow_tpu_torch.builders.builders" for name in (
+    "SourceBuilder", "FilterBuilder", "MapBuilder", "FlatMapBuilder",
+    "AccumulatorBuilder", "SinkBuilder", "WinSeqBuilder",
+    "WinFarmBuilder", "KeyFarmBuilder", "PaneFarmBuilder",
+    "WinMapReduceBuilder", "WinSeqFFATBuilder", "KeyFFATBuilder")})
+_LAZY.update({name: "windflow_tpu_torch.builders.builders_tpu" for name in (
+    "WinSeqTPUBuilder", "WinFarmTPUBuilder", "KeyFarmTPUBuilder",
+    "PaneFarmTPUBuilder", "WinMapReduceTPUBuilder",
+    "WinSeqFFATTPUBuilder", "KeyFFATTPUBuilder")})
 
 # names of the reference umbrella that later slices port, by ROADMAP item
 _NOT_YET = {
-    "farms": (
-        "SourceBuilder", "FilterBuilder", "MapBuilder", "FlatMapBuilder",
-        "AccumulatorBuilder", "SinkBuilder", "WinSeqBuilder",
-        "WinFarmBuilder", "KeyFarmBuilder", "PaneFarmBuilder",
-        "WinMapReduceBuilder", "WinSeqFFATBuilder", "KeyFFATBuilder",
-        "WinSeqTPUBuilder", "WinFarmTPUBuilder", "KeyFarmTPUBuilder",
-        "PaneFarmTPUBuilder", "WinMapReduceTPUBuilder",
-        "WinSeqFFATTPUBuilder", "KeyFFATTPUBuilder"),
     "host_planes": (
         "ElasticityConfig", "ElasticController", "RescaleEvent",
         "RescaleError", "LoadReport", "DistributedSpec", "run_distributed",

@@ -1,13 +1,16 @@
 """Carry a window engine's state from the reference package to the port.
 
-``from_reference_state`` takes a ``WinSeqTPULogic.state_dict()`` or a
-``WinSeqFFATResidentLogic.state_dict()`` snapshot taken in
-``windflow_tpu`` -- numpy arrays, the native engine's serialized bytes,
-counters, a resident forest -- and returns the state the port's logic
-of the same name takes in ``load_state``, so a stream checkpointed
-under the reference resumes under the port and produces the same
-remaining windows.  This is the stream processor's counterpart of
-carrying weights across.
+``from_reference_state`` takes a ``WinSeqTPULogic.state_dict()``, a
+``WinSeqFFATResidentLogic.state_dict()`` or a
+``PaneCombineLogic.state_dict()`` snapshot taken in ``windflow_tpu`` --
+numpy arrays, the native engine's serialized bytes, counters, a
+resident forest, pane runs -- and returns the state the port's logic of
+the same name takes in ``load_state``, so a stream checkpointed under
+the reference resumes under the port and produces the same remaining
+windows.  A farm's snapshot (a list of per-replica snapshots) and a
+fused stage's (``ChainedLogic``: ``{"a": ..., "b": ...}``, e.g.
+PaneFarmTPU's PLQ + WLQ at LEVEL2) convert element by element.  This is
+the stream processor's counterpart of carrying weights across.
 
 A resident FFAT snapshot carries its forest as a numpy ``[K, 2n]``
 array; the port's ``load_state`` puts it on the logic's device.  (The
@@ -33,6 +36,8 @@ _PASS_THROUGH = ("descriptors", "ignored_tuples", "launched_batches",
                  "buffered", "native", "plq_counters", "key_intern")
 # a WinSeqFFATResidentLogic snapshot: per-key tuples, forest, capacity
 _RESIDENT_FFAT = ("keys", "tree", "capacity")
+# a ChainedLogic snapshot: its two halves
+_CHAINED = {"a", "b"}
 
 
 def _key_state(ref) -> _TPUKeyState:
@@ -42,9 +47,32 @@ def _key_state(ref) -> _TPUKeyState:
     return st
 
 
-def from_reference_state(state: Dict[str, Any]) -> Dict[str, Any]:
-    """The port's ``WinSeqTPULogic`` (or ``WinSeqFFATResidentLogic``)
-    state for a reference snapshot."""
+def _pane_runs(keys: Dict[Any, tuple]) -> Dict[Any, tuple]:
+    """A PaneCombineLogic snapshot's per-key (vals, ts, base, next_fire,
+    pending) runs, copied."""
+    return {k: (np.array(vals, np.float64), np.array(ts, np.int64),
+                int(base), int(next_fire), dict(pending))
+            for k, (vals, ts, base, next_fire, pending) in keys.items()}
+
+
+def _is_pane_combine(state: Dict[str, Any]) -> bool:
+    return set(state) == {"keys"} and all(
+        isinstance(v, tuple) and len(v) == 5 for v in state["keys"].values())
+
+
+def from_reference_state(state: Any) -> Any:
+    """The port's state for a reference snapshot: of a
+    ``WinSeqTPULogic``, ``WinSeqFFATResidentLogic`` or
+    ``PaneCombineLogic``, a list of them (a farm's replicas, in replica
+    order) or a ``ChainedLogic``'s pair."""
+    if isinstance(state, (list, tuple)):
+        return [from_reference_state(s) for s in state]
+    if state is None:
+        return None
+    if set(state) == _CHAINED:
+        return {h: from_reference_state(state[h]) for h in ("a", "b")}
+    if _is_pane_combine(state):
+        return {"keys": _pane_runs(state["keys"])}
     if "tree" in state:
         unknown = set(state) - set(_RESIDENT_FFAT)
         if unknown:

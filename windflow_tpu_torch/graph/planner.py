@@ -50,8 +50,6 @@ import time
 from dataclasses import dataclass
 from typing import List, Optional
 
-from .._unported import unported
-
 # device must beat the measured host rate by this factor to win an
 # 'auto' placement: the host number is measured on this box, the device
 # number is a projection over a shared transport
@@ -338,7 +336,7 @@ def plan_graph(graph) -> List[dict]:
     stored on ``graph.placements`` and in the stats JSON)."""
     from ..operators.tpu.ffat_resident import WinSeqFFATResidentLogic
     from ..operators.tpu.win_seq_tpu import WinSeqTPULogic
-    from ..runtime.node import FusedLogic
+    from ..runtime.node import ChainedLogic, FusedLogic
 
     decisions: List[dict] = []
     placed: List[tuple] = []
@@ -353,6 +351,17 @@ def plan_graph(graph) -> List[dict]:
             pairs = [(node.name, node.logic, node)]
         for name, logic, holder in pairs:
             if id(logic) in seen:
+                continue
+            if isinstance(logic, ChainedLogic):
+                # an operator-fused stage (PaneFarmTPU at LEVEL1/2): as
+                # in the reference its device half is not lane-planned,
+                # but it runs on the graph's device
+                seen.add(id(logic))
+                for half in (logic.a, logic.b):
+                    if isinstance(half, WinSeqTPULogic) \
+                            and half.device is None \
+                            and half.resolved_placement != "host":
+                        half.set_device(graph.config.device)
                 continue
             if isinstance(logic, WinSeqFFATResidentLogic):
                 # the resident FFAT engine is structurally
@@ -378,7 +387,7 @@ def plan_graph(graph) -> List[dict]:
             pinned = getattr(logic, "placement", "device")
             if pinned == "auto":
                 if not isinstance(logic.engine.kind, str):
-                    # FFAT combines have no host program
+                    # custom / FFAT combines have no host program
                     entry = {"placement": "device",
                              "reason": "custom combine: device only"}
                 else:
@@ -475,14 +484,18 @@ def select_strategy(win_kind, win_len: int, slide_len: int,
 def plan_window_operator(win_kind, win_len: int, slide_len: int,
                          win_type, key_cardinality: int = 1,
                          parallelism: int = 2, **kwargs):
-    """Build the operator :func:`select_strategy` picks.  'win_seq' and
-    'ffat' are ported; the farm strategies raise until their operators
-    are (ROADMAP.md A8)."""
-    from ..operators.tpu.farms_tpu import WinSeqFFATTPU
+    """Build the operator :func:`select_strategy` picks (the planner's
+    builder-level entry point; every knob in ``kwargs`` reaches the
+    chosen operator's constructor)."""
+    from ..operators.tpu.farms_tpu import (KeyFarmTPU, PaneFarmTPU,
+                                           WinFarmTPU, WinSeqFFATTPU)
     from ..operators.tpu.win_seq_tpu import WinSeqTPU
 
     strategy = select_strategy(win_kind, win_len, slide_len,
                                key_cardinality)
+    if strategy == "pane_farm":
+        return PaneFarmTPU(win_kind, win_kind, win_len, slide_len,
+                           win_type, **kwargs)
     if strategy == "ffat":
         # the FFAT tree is device-pinned (no host twin of the
         # incremental combine): reject lane knobs loudly instead of a
@@ -495,6 +508,10 @@ def plan_window_operator(win_kind, win_len: int, slide_len: int,
         lift = (lambda t: t.value)
         return WinSeqFFATTPU(lift, win_kind, win_len, slide_len,
                              win_type, **kwargs)
-    if strategy != "win_seq":
-        raise unported(f"the {strategy!r} window strategy", "farms")
+    if strategy == "key_farm":
+        return KeyFarmTPU(win_kind, win_len, slide_len, win_type,
+                          parallelism=parallelism, **kwargs)
+    if strategy == "win_farm":
+        return WinFarmTPU(win_kind, win_len, slide_len, win_type,
+                          parallelism=parallelism, **kwargs)
     return WinSeqTPU(win_kind, win_len, slide_len, win_type, **kwargs)

@@ -1,0 +1,206 @@
+"""Columnar WLQ: vectorized pane->window combine on the host.
+
+The reference's Pane_Farm_GPU runs one of the two stages on device and
+the other as a compiled C++ functor over pane RESULTS
+(pane_farm_gpu.hpp:105-106).  The stock host WLQ here (WinSeqLogic)
+processes pane records one at a time -- measured ~47us/record under
+GIL contention, which made the whole farm slower than the single-stage
+engine.  For builtin associative combines the WLQ is just an
+alignment-insensitive reduction over each window's pane slice, so this
+logic consumes the PLQ's columnar TupleBatches and fires all complete
+windows of a batch with one numpy sliding-window reduction per key.
+
+Window model (matches the stock WLQ stage of PaneFarmTPU): CB windows
+of ``win`` panes sliding by ``slide`` panes over each key's dense pane
+ids (the PLQ renumbers panes per key from 0).  Result ts is the last
+contained pane's ts; EOS fires opened partial windows -- both exactly
+the WinSeqLogic CB semantics the record path produces.
+
+Only ``sum``/``max``/``min`` are accepted: they are insensitive to how
+tuples landed in panes.  ``count``/``mean`` over pane RESULTS would
+count/average panes, not tuples (an end-to-end count is
+plq='count' + wlq='sum'), so they are rejected at construction.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+
+from ...core.tuples import BasicRecord, TupleBatch
+from ...runtime.node import EOSMarker, NodeLogic
+
+WLQ_KINDS = frozenset({"sum", "max", "min"})
+
+
+class _KeyPanes:
+    __slots__ = ("vals", "ts", "base", "next_fire", "pending")
+
+    def __init__(self):
+        self.vals = np.empty(0, np.float64)
+        self.ts = np.empty(0, np.int64)
+        self.base = 0       # pane id of vals[0] (evicted prefix count)
+        self.next_fire = 0  # next window index to fire
+        self.pending: Dict[int, tuple] = {}  # out-of-order panes by id
+
+
+class PaneCombineLogic(NodeLogic):
+    """Host columnar pane->window combine (the builtin-WLQ stage of
+    PaneFarmTPU)."""
+
+    def __init__(self, kind: str, win: int, slide: int, *,
+                 result_factory=BasicRecord, emit_batches: bool = False):
+        if kind not in WLQ_KINDS:
+            raise ValueError(
+                f"builtin WLQ combine must be one of {sorted(WLQ_KINDS)} "
+                f"(count/mean over pane results would aggregate panes, "
+                f"not tuples; use plq='count' + wlq='sum'): {kind!r}")
+        if win <= 0 or slide <= 0 or slide > win:
+            raise ValueError(f"need 0 < slide <= win panes, got "
+                             f"win={win} slide={slide}")
+        self.kind = kind
+        self.win = win
+        self.slide = slide
+        self.result_factory = result_factory
+        self.emit_batches = emit_batches
+        self.keys: Dict[Any, _KeyPanes] = {}
+
+    # -- ingest ------------------------------------------------------------
+    def _append(self, st: _KeyPanes, ids, ts, vals) -> None:
+        """Append panes, keeping vals/ts a contiguous id run from base.
+        Out-of-order ids park in ``pending`` until the gap fills."""
+        n = st.base + len(st.vals)  # next expected pane id
+        if len(ids) and ids[0] == n and np.all(np.diff(ids) == 1):
+            st.vals = np.concatenate([st.vals, vals])
+            st.ts = np.concatenate([st.ts, ts])
+            n += len(ids)
+        else:
+            for i, ts_i, v in zip(ids.tolist(), ts.tolist(), vals.tolist()):
+                st.pending[i] = (ts_i, v)
+        if st.pending:
+            run_v: List[float] = []
+            run_t: List[int] = []
+            while n in st.pending:
+                ts_i, v = st.pending.pop(n)
+                run_t.append(ts_i)
+                run_v.append(v)
+                n += 1
+            if run_v:
+                st.vals = np.concatenate(
+                    [st.vals, np.asarray(run_v, np.float64)])
+                st.ts = np.concatenate(
+                    [st.ts, np.asarray(run_t, np.int64)])
+
+    # -- firing ------------------------------------------------------------
+    def _windows(self, key, st: _KeyPanes, eos: bool):
+        """All fireable windows of one key: complete ones, plus opened
+        partials at EOS.  Returns (wids, tss, values) arrays."""
+        n = st.base + len(st.vals)  # contiguous pane count
+        W, S = self.win, self.slide
+        if eos:  # every opened window fires, partial extents included
+            w_hi = (n - 1) // S if n else -1
+        else:    # only complete extents
+            w_hi = (n - W) // S if n >= W else -1
+        if w_hi < st.next_fire:
+            return None
+        ws = np.arange(st.next_fire, w_hi + 1, dtype=np.int64)
+        starts = ws * S - st.base
+        ends = np.minimum(starts + W, len(st.vals))
+        if self.kind == "sum":
+            # one cumsum covers all (overlapping) windows of the batch
+            cs = np.concatenate([[0.0], np.cumsum(st.vals)])
+            vals = cs[ends] - cs[starts]
+        else:
+            ufunc = np.maximum if self.kind == "max" else np.minimum
+            # partial extents only occur at the tail (EOS)
+            n_full = len(ws) - int((ends - starts < W).sum())
+            vals = np.empty(len(ws), np.float64)
+            if n_full:
+                # complete extents share width W: one strided view,
+                # one vectorized reduction over axis 1
+                view = np.lib.stride_tricks.sliding_window_view(
+                    st.vals, W)[starts[:n_full]]
+                vals[:n_full] = (view.max(axis=1) if self.kind == "max"
+                                 else view.min(axis=1))
+            for j in range(n_full, len(ws)):  # EOS partials: few
+                vals[j] = ufunc.reduce(st.vals[starts[j]:ends[j]])
+        tss = st.ts[ends - 1]
+        st.next_fire = w_hi + 1
+        # evict panes no later window reaches
+        cut = min(st.next_fire * S - st.base, len(st.vals))
+        if cut > 0:
+            st.vals = st.vals[cut:]
+            st.ts = st.ts[cut:]
+            st.base += cut
+        return ws, tss, vals
+
+    def _emit(self, key, fired, emit) -> None:
+        ws, tss, vals = fired
+        if self.emit_batches and isinstance(key, (int, np.integer)):
+            emit(TupleBatch({"key": np.full(len(ws), key, np.int64),
+                             "id": ws, "ts": tss, "value": vals}))
+            return
+        for w, ts, v in zip(ws.tolist(), tss.tolist(), vals.tolist()):
+            out = self.result_factory()
+            out.value = float(v)
+            out.set_control_fields(key, w, ts)
+            emit(out)
+
+    # -- NodeLogic ---------------------------------------------------------
+    def _key_state(self, key) -> _KeyPanes:
+        st = self.keys.get(key)
+        if st is None:
+            st = self.keys[key] = _KeyPanes()
+        return st
+
+    def svc(self, item, channel_id, emit) -> None:
+        if isinstance(item, EOSMarker):
+            return  # triggering is purely count-based here
+        if isinstance(item, TupleBatch):
+            from .win_seq_tpu import _key_groups
+            keys = item.key
+            order, keys_s, bounds = _key_groups(keys)
+            ids, tss, vals = item.id, item.ts, item["value"]
+            if order is not None:
+                ids, tss, vals = ids[order], tss[order], vals[order]
+            for j in range(len(bounds) - 1):
+                lo, hi = int(bounds[j]), int(bounds[j + 1])
+                key = keys_s[lo].item()
+                st = self._key_state(key)
+                self._append(st, ids[lo:hi], tss[lo:hi],
+                             vals[lo:hi].astype(np.float64))
+                fired = self._windows(key, st, eos=False)
+                if fired is not None:
+                    self._emit(key, fired, emit)
+            return
+        key, pid, ts = item.get_control_fields()
+        st = self._key_state(key)
+        self._append(st, np.asarray([pid], np.int64),
+                     np.asarray([ts], np.int64),
+                     np.asarray([item.value], np.float64))
+        fired = self._windows(key, st, eos=False)
+        if fired is not None:
+            self._emit(key, fired, emit)
+
+    def eos_flush(self, emit) -> None:
+        for key, st in self.keys.items():
+            fired = self._windows(key, st, eos=True)
+            if fired is not None:
+                self._emit(key, fired, emit)
+
+    # -- checkpoint --------------------------------------------------------
+    def state_dict(self):
+        return {"keys": {k: (st.vals.copy(), st.ts.copy(), st.base,
+                             st.next_fire, dict(st.pending))
+                         for k, st in self.keys.items()}}
+
+    def load_state(self, state) -> None:
+        self.keys = {}
+        for k, (vals, ts, base, next_fire, pending) in \
+                state["keys"].items():
+            st = self.keys[k] = _KeyPanes()
+            st.vals = np.asarray(vals, np.float64).copy()
+            st.ts = np.asarray(ts, np.int64).copy()
+            st.base = base
+            st.next_fire = next_fire
+            st.pending = dict(pending)

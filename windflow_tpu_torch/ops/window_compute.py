@@ -10,6 +10,9 @@ reference engine's jitted XLA programs.
   fallback -- and its plain version (the tile/scan pair) on the CPU.
 * **max/min** use a sparse table (log-sweep of strided combines) + two
   gathers per window, in plain torch.
+* **custom window functions** (a torch callable ``fn(gwid, cols, mask)
+  -> 0-d tensor``) gather every column into ``[B_pad, w_pad]`` tiles
+  and run ``torch.vmap(fn)`` over the windows on the engine's device.
 * **ffat** kinds ``("ffat", combine, neutral)`` build a FlatFAT tree
   over the flat buffer and answer every window in one launch of the
   hand-written fused build+query kernel (``flatfat_build_query``,
@@ -36,7 +39,6 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from .._unported import unported
 from .cuda.flatfat_query import flatfat_build_query, require_kernel_op
 from .cuda.window_sum import next_pow2, window_sums
 from .device import resolve_device, stream_context
@@ -91,6 +93,25 @@ def _sparse_table(values: torch.Tensor, se: torch.Tensor, kind: str,
     # padding rows ((0,0) extents) may hold +-inf; zero them so the
     # host-side result buffer stays finite
     return torch.where(ends > starts, out, torch.zeros_like(out))
+
+
+def _custom_program(fn, gwids: torch.Tensor, se: torch.Tensor,
+                    n_valid: int, cols: Dict[str, torch.Tensor],
+                    w_pad: int) -> torch.Tensor:
+    """A user window function over every window: each column gathered
+    into a ``[B_pad, w_pad]`` tile (lanes past a window's end clipped to
+    the buffer and masked out), ``torch.vmap(fn)`` over the rows, and
+    padding rows zeroed.  A function that branches in Python on its
+    data fails under ``vmap``, as it does under ``jax.vmap``."""
+    T = next(iter(cols.values())).shape[0]
+    starts, ends = se[0].long(), se[1].long()
+    idx = starts[:, None] + torch.arange(w_pad, device=se.device)[None, :]
+    mask = idx < ends[:, None]
+    idx = idx.clamp(0, T - 1)
+    win_cols = {name: c[idx] for name, c in cols.items()}
+    out = torch.vmap(fn)(gwids, win_cols, mask)
+    valid = torch.arange(se.shape[1], device=se.device) < n_valid
+    return torch.where(valid, out, torch.zeros_like(out))
 
 
 class DeviceBatchHandle:
@@ -303,15 +324,17 @@ class WindowComputeEngine:
     """Executes batches of window extents against a flat value buffer.
 
     ``kind`` is a builtin combine name (:data:`BUILTIN_KINDS`), a
-    pane-pair kind (:data:`PAIR_KINDS`), or ``("ffat", combine,
-    neutral)``: a FlatFAT tree over the flat buffer answers every window
-    (the Win_SeqFFAT_GPU pipeline), with ``combine`` a binary torch
-    function forming a monoid with ``neutral``; on the card it must be
-    one the FlatFAT query kernel compiles (``torch.add``,
-    ``torch.maximum``, ``torch.minimum``).  ``device`` is the torch
-    device the engine launches on; ``None`` leaves the engine unbound
-    until :meth:`bind` (the planner binds it to
-    ``RuntimeConfig.device`` at graph start) and binds it to the CUDA
+    pane-pair kind (:data:`PAIR_KINDS`), a torch callable
+    ``fn(gwid, cols: dict[str, f32[W]], mask: bool[W]) -> 0-d tensor``
+    (the GPU functor signature, API:104/118; vmapped over the windows),
+    or ``("ffat", combine, neutral)``: a FlatFAT tree over the flat
+    buffer answers every window (the Win_SeqFFAT_GPU pipeline), with
+    ``combine`` a binary torch function forming a monoid with
+    ``neutral``; on the card it must be one the FlatFAT query kernel
+    compiles (``torch.add``, ``torch.maximum``, ``torch.minimum``).
+    ``device`` is the torch device the engine launches on; ``None``
+    leaves the engine unbound until :meth:`bind` (the planner binds it
+    to ``RuntimeConfig.device`` at graph start) and binds it to the CUDA
     device on first use otherwise."""
 
     def __init__(self, kind: Any = "sum", value_col: str = "value",
@@ -323,9 +346,8 @@ class WindowComputeEngine:
                 raise ValueError(f"ffat combine must be a binary torch "
                                  f"function, not {kind[1]!r}")
             kind = ("ffat", kind[1], float(kind[2]))
-        elif callable(kind):
-            raise unported("custom window functions", "custom")
-        elif kind not in BUILTIN_KINDS and kind not in PAIR_KINDS:
+        elif not (callable(kind) or kind in BUILTIN_KINDS
+                  or kind in PAIR_KINDS):
             raise ValueError(f"unknown window combine kind: {kind!r}")
         self.kind = kind
         self.value_col = value_col
@@ -406,6 +428,15 @@ class WindowComputeEngine:
             _, comb, neutral = kind
             out = flatfat_build_query(put(cols[self.value_col], neutral),
                                       se_dev, comb, neutral)
+        elif callable(kind):
+            gw = np.zeros(B_pad, np.int64)
+            gw[:B] = gwids
+            gw_host = torch.from_numpy(gw)
+            out = _custom_program(
+                kind, (gw_host.pin_memory() if pinned else gw_host).to(
+                    dev, non_blocking=True), se_dev, B,
+                {c: put(cols[c]) for c in sorted(cols)},
+                next_pow2(max_extent))
         elif kind == "sum":
             out = window_sums(put(cols[self.value_col]), se_dev, max_extent)
         elif kind == "count":
