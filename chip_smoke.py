@@ -12,8 +12,10 @@ every phase passed):
 2. build   -- window_sum.cu (the window-sum kernel K1, two forms) and
    flatfat_query.cu (the FlatFAT query kernel K2, the fused FlatFAT
    update+query kernel and the fused build+query kernel of the rebuild
-   lane), nvcc for sm_90a, and the native C++ engine (g++), built from
-   the checkout's sources in parallel into windflow_tpu_torch/_build/.
+   lane) for the builtin combines and once more for each user combine
+   below (a library of its own, the combine lowered from its torch ops),
+   nvcc for sm_90a, and the native C++ engine (g++), built from the
+   checkout's sources in parallel into windflow_tpu_torch/_build/.
 3. kernel  -- K1, the window-sum kernel, in both forms (a thread per
    window, the engine's choice up to extents of 32; a warp per window
    with float4 loads above) against its plain torch version and a
@@ -28,8 +30,15 @@ every phase passed):
    takes and of both forms (torch.profiler), its ratio to the floor, the
    bytes the function must move and their share of the card's HBM rate,
    the plain version's time and a sparse CSR mv's.
+   User combines: torch.mul (leaves near 1), the non-commutative
+   left_weighted (0.5 a + b), torch.logaddexp (neutral -inf) and a
+   NaN-skipping max written with torch.where (NaNs among the leaves),
+   each through its generated library in K2, K2f and K2r at every shape
+   below: bitwise against the plain version for the arithmetic ones,
+   within 64 ulp for logaddexp (the run reports whether it came out
+   bitwise); device time beside add's at the same shape.
    kernel K2 -- the FlatFAT query kernel against its plain torch version
-   for add, max, min and the non-commutative left_weighted test combine,
+   for add, max, min and the user combines,
    at the rebuild lane's launch shape of bench config 15 (one tree of
    T_pad = 2^17 leaves, B = 4096 windows), the resident shape before the
    fused kernel (16 rows x 8192 leaves, ring-wrap pieces), a
@@ -42,7 +51,7 @@ every phase passed):
    kernel K2 rebuild -- the fused build+query kernel against its plain
    version (build_tree, the plain query, the where) and the chain the
    rebuild lane ran before it (build_tree's torch sweep, K2, the where),
-   bitwise for the four combines on integer and random f32 leaves, at
+   bitwise for add, max and min on integer and random f32 leaves, at
    the rebuild lane's launch (2^17 leaves, 4096 windows), two tiles
    (2048 leaves) with edges (empty and reversed extents, [0, n), end =
    n) and two tiling rounds (2^22 leaves).  At the rebuild shape: device
@@ -52,7 +61,8 @@ every phase passed):
    kernel K2 fused (run first, before any phase starts the profiler) --
    the fused update+query kernel against its plain
    version on the same packed inputs, results and forests after the
-   step, for the four combines, at the resident FFAT lane's step (forest
+   step, for add, max, min and the user combines, at the resident FFAT
+   lane's step (forest
    [16, 2 x 8192], one 1024-leaf run crossing the ring's end, 64 windows
    of 4096, half wrapping), the resident pane lane's step (the carry's
    forest [16, 2 x 2048], a 128-pane run for each of 8 keys, 1024
@@ -113,22 +123,36 @@ every phase passed):
    rebuild/resident >= 10x, each lane's kernel launches equal to its
    launched batches and the other kernels not launched.  Prints
    tuples/s, window latency p50/p99 and the forest's resident bytes.
+   main15 logaddexp -- the same two cells under the user combine, built
+   as a user builds them: WinSeqFFATTPUBuilder(lift, (torch.logaddexp,
+   -inf)), with_rebuild(True) (K2r) and the CB default (the resident
+   lane, K2f); keys and ids exact, values within rtol 1e-5 of the
+   float64 closed form (96 + log of window differences of prefix sums of
+   exp(v - 96)) and of each other; every FlatFAT launch one of the
+   generated library's, equal to the batches or steps.
 7. resident pane -- WinSeqTPU("sum", 4096, 64, CB) with value_of on the
    same stream, promoted by the planner onto the resident pane lane (the
    fused kernel per launch), against resident=False (K1 per launch):
    bitwise equal, equal to the oracle, launches checked as in main15.
    Phases 6 and 7 run twice back to back; each cell's two readings are
-   printed side by side.
+   printed side by side, the logaddexp cells beside the add cells.
+   key_ffat -- KeyFFATTPUBuilder with the same combine at parallelism 2,
+   coalesce=False (two replicas, one library), on config 15's stream
+   cut 32x (250,000 events), held as main15 logaddexp.
 8. flatfat -- FlatFATTorch, the single tree a user builds, updates and
    queries (the one path left that launches the query-only K2): built
    over 2^17 leaves, queried, updated, queried, exact against float64
-   sums, two K2 launches and nothing else.
+   sums, two K2 launches and nothing else; then the same under
+   torch.logaddexp, within rtol 1e-5 of a float64 log-sum-exp, two
+   launches of the generated K2.
 9. profile15 -- both FFAT lanes once more at the full 8M events under
    torch.profiler: device busy and idle share and the top device ops;
    the rebuild lane's only kernel must be the fused build+query kernel.
 
 Then one JSON line describing each kernel (the window-sum kernel's
-launches: the headline's and phase 5b's), the card line, and
+launches: the headline's and phase 5b's; the three FlatFAT kernels
+twice: builtin, and compiled with torch.logaddexp, each with the
+launches of its own paths), the card line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -197,10 +221,15 @@ def build_all() -> None:
             results[name] = (e, time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=run, args=(n, f)) for n, f in
-               (("window_sum.cu (nvcc)", window_sum.load_kernel),
-                ("flatfat_query.cu (nvcc)", flatfat_query.load_kernel),
-                ("native/*.cpp (g++)", native.get_lib))]
+    # one nvcc per library, all started together: the builtin library
+    # of each source, and flatfat_query.cu once per user combine
+    builds = [("window_sum.cu (nvcc)", window_sum.load_kernel),
+              ("flatfat_query.cu (nvcc)", flatfat_query.load_kernel),
+              ("native/*.cpp (g++)", native.get_lib)]
+    for uname, (comb, *_rest) in user_combines().items():
+        builds.append((f"flatfat_query.cu, user combine {uname} (nvcc)",
+                       lambda c=comb: flatfat_query.resolve_combine(c)))
+    threads = [threading.Thread(target=run, args=(n, f)) for n, f in builds]
     for t in threads:
         t.start()
     for t in threads:
@@ -303,6 +332,21 @@ def timed(fn, reps: int = 50, warmup: int = 5):
         torch.cuda.synchronize()
     busy = device_busy_ms(prof)
     return (busy / reps if busy > 0 else None), float(np.median(times))
+
+
+def user_timing(t_k, t_p, work) -> dict:
+    """A user-combine kernel's JSON numbers: its device ms per call and
+    its plain version's (the call's wall where the profiler saw no
+    device time), and its bound from (bytes, f32 ops); no library call
+    computes a fold under a user combine."""
+    ms, plain_ms = (d if d is not None else w for d, w in (t_k, t_p))
+    bms, bound_by = bound_ms(*work)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def fmt_ms(ms) -> str:
+    return f"{ms:.5f}"
 
 
 def fmt(t) -> str:
@@ -796,11 +840,109 @@ DEVICE15 = "cuda"
 
 
 def k2_combines():
-    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
-    # name -> (combine, neutral, f32 ops per combine)
+    """The builtin combines, compiled into the FlatFAT kernels' shared
+    library: name -> (combine, neutral, f32 ops per combine)."""
     return {"add": (torch.add, 0.0, 1), "max": (torch.maximum, -np.inf, 1),
-            "min": (torch.minimum, np.inf, 1),
-            "left_weighted": (fq._left_weighted, 0.0, 2)}
+            "min": (torch.minimum, np.inf, 1)}
+
+
+def left_weighted(a, b):
+    """The reference tests' non-commutative combine (0.5 a is exact): it
+    shows that the walks keep oldest -> newest order."""
+    return a * 0.5 + b
+
+
+def nan_skipping_max(a, b):
+    return torch.where(torch.isnan(a) | (b > a), b, a)
+
+
+# the path phase's user combine: config 15's FFAT lanes under
+# log-sum-exp, through the public builder
+PATH_COMBINE = "logaddexp"
+
+
+def user_combines():
+    """User FFAT combines that no kernel builds in: each lowered from
+    its torch ops and compiled into a library of its own.  name ->
+    (combine, neutral, f32 ops per combine, transcendental)."""
+    return {"mul": (torch.mul, 1.0, 1, False),
+            "left_weighted": (left_weighted, 0.0, 2, False),
+            # |a - b|, exp, log1p, max, add (and the isinf test)
+            "logaddexp": (torch.logaddexp, -np.inf, 7, True),
+            "where_max": (nan_skipping_max, -np.inf, 3, False)}
+
+
+# a transcendental combine (logaddexp) in the kernels against its plain
+# version on the card: the kernel calls the expf/log1pf that torch's own
+# CUDA kernel calls, so each combine is expected bitwise; the bound
+# allows one ulp a combine over the deepest fold checked (2 x 22 levels
+# + 1, the 2^22-leaf tree) with room to spare
+ULP_BOUND = 64
+
+
+def combine_values(name, rng, shape) -> np.ndarray:
+    """f32 leaves for a user combine: near 1 for the product (no
+    overflow or underflow inside a window), with a NaN in 16 for the
+    NaN-skipping max, uniform [0, 1) otherwise."""
+    if name == "mul":
+        return rng.uniform(0.9, 1.1, shape).astype(np.float32)
+    v = rng.random(shape, dtype=np.float32)
+    if name == "where_max" and v.size:
+        flat = v.reshape(-1)
+        flat[rng.integers(0, flat.size, max(1, flat.size // 16))] = np.nan
+    return v
+
+
+def ulp_distance(k: np.ndarray, p: np.ndarray) -> int:
+    """The largest distance in f32 ulps between two arrays (NaNs must
+    sit at the same places; equal infinities are 0 apart)."""
+    k = np.ascontiguousarray(k, np.float32).reshape(-1)
+    p = np.ascontiguousarray(p, np.float32).reshape(-1)
+    nan = np.isnan(k)
+    if not np.array_equal(nan, np.isnan(p)):
+        return 1 << 31
+    if nan.all():
+        return 0
+
+    def ordered(a):
+        i = a[~nan].view(np.int32).astype(np.int64)
+        return np.where(i >= 0, i, -(i & 0x7FFFFFFF))
+
+    return int(np.abs(ordered(k) - ordered(p)).max())
+
+
+def hold_user(k, p, transcendental: bool, tag: str):
+    """A user combine's kernel result against its plain version:
+    bitwise for an arithmetic combine, within ULP_BOUND for a
+    transcendental one.  Returns (bitwise, ulps)."""
+    k = np.ascontiguousarray(k, np.float32)
+    p = np.ascontiguousarray(p, np.float32)
+    bitwise = k.tobytes() == p.tobytes()
+    ulps = 0 if bitwise else ulp_distance(k, p)
+    if not bitwise and (not transcendental or ulps > ULP_BOUND):
+        want = (f"within {ULP_BOUND} ulp of" if transcendental
+                else "bitwise")
+        raise AssertionError(f"[{tag}] not {want} the plain version "
+                             f"({ulps} ulp)")
+    return bitwise, ulps
+
+
+class UserTally:
+    """Per user combine, across a phase's shapes: bitwise or not, the
+    largest ulp distance and the largest absolute difference."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def add(self, name, bitwise, ulps, k, p):
+        b, u, e = self.rows.get(name, (True, 0, 0.0))
+        fin = np.isfinite(k) & np.isfinite(p)
+        err = float(np.abs(k[fin] - p[fin]).max()) if fin.any() else 0.0
+        self.rows[name] = (b and bitwise, max(u, ulps), max(e, err))
+
+    def line(self) -> str:
+        return "; ".join(f"{n} {'bitwise' if b else f'{u} ulp max'}"
+                         for n, (b, u, _e) in self.rows.items())
 
 
 def forest_of(leaves: torch.Tensor, comb) -> torch.Tensor:
@@ -929,6 +1071,7 @@ def check_k2(device, card: str) -> dict:
     rng = np.random.default_rng(1)
     out = {}
     worst_err = 0.0
+    tally = UserTally()
     for name, (K, n, rows, starts, ends) in k2_shapes(rng).items():
         r_d = None if rows is None else torch.from_numpy(
             np.asarray(rows, np.int32)).to(device)
@@ -968,6 +1111,29 @@ def check_k2(device, card: str) -> dict:
             times.append(f"{cname} {fmt(t_k)}")
             if cname == "add":
                 add_tree, add_k = tree, t_k
+        # the user combines, each through its own generated library
+        for uname, (comb, neutral, opc, trans) in user_combines().items():
+            leaves = torch.from_numpy(
+                combine_values(uname, rng, (K, n))).to(device)
+            tree = forest_of(leaves, comb)
+            k = fq.flatfat_query(tree, r_d, s_d, e_d, comb, neutral)
+            p = fq.flatfat_query_plain(tree, r_d, s_d, e_d, comb, neutral)
+            torch.cuda.synchronize()
+            k, p = k.cpu().numpy(), p.cpu().numpy()
+            tally.add(uname, *hold_user(k, p, trans,
+                                        f"kernel K2 {name} {uname}"), k, p)
+            t_u = timed(lambda: fq.flatfat_query(tree, r_d, s_d, e_d, comb,
+                                                 neutral))
+            times.append(f"{uname} {fmt(t_u)}")
+            if name == "rebuild" and uname == PATH_COMBINE:
+                t_up = timed(lambda: fq.flatfat_query_plain(
+                    tree, r_d, s_d, e_d, comb, neutral), reps=20)
+                user_entry = user_timing(t_u, t_up, walk_work(
+                    n, rows, starts, ends, opc))
+                times.append(f"{uname} plain {fmt(t_up)}, bound "
+                             f"{user_entry['bound_ms']:.4g} ms "
+                             f"({user_entry['bound_by']})")
+            del leaves, tree
         t_p = timed(lambda: fq.flatfat_query_plain(
             add_tree, r_d, s_d, e_d, torch.add, 0.0), reps=20)
         nbytes, ops = walk_work(n, rows, starts, ends, 1)
@@ -988,16 +1154,21 @@ def check_k2(device, card: str) -> dict:
             del csr
         log(f"[kernel K2] {name}: K={K} n={n} B={len(starts)} "
             f"max_extent={int(np.max(np.asarray(ends) - np.asarray(starts)))}"
-            f"; exact on integers and max/min, rtol {RTOL_F32} on f32; "
+            f"; exact on integers and max/min, rtol {RTOL_F32} on f32; user "
+            f"combines bitwise (logaddexp within {ULP_BOUND} ulp); "
             f"device ms per call (wall ms per call): kernel "
             f"{'; '.join(times)}; plain (add) {fmt(t_p)}; sparse mv (add) "
             f"{lib_txt}, range max/min: no library call; bound {bms:.4g} "
             f"ms ({bound_by}; {nbytes} B, {ops} combines) ({card})")
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                      "bound_by": bound_by, "library_ms": lib_ms}
-        del ints, f32, tree, add_tree
+        del ints, f32, add_tree
         torch.cuda.empty_cache()
+    log(f"[kernel K2] user combines against the plain version over every "
+        f"shape: {tally.line()} ({card})")
     out["max_abs_err"] = worst_err
+    user_entry["max_abs_err"] = tally.rows[PATH_COMBINE][2]
+    out["user"] = user_entry
     return out
 
 
@@ -1038,12 +1209,38 @@ def check_k2r(device, card: str) -> dict:
     shape; timings at the rebuild lane's launch."""
     from windflow_tpu_torch.ops.cuda import flatfat_query as fq
     rng = np.random.default_rng(3)
+    tally = UserTally()
     for name, (n, starts, ends) in k2r_shapes(rng).items():
         se = pack(starts, ends, device)
         leaves = {"int": torch.from_numpy(rng.integers(0, 97, n).astype(
             np.float32)).to(device),
             "f32": torch.from_numpy(rng.random(n, dtype=np.float32)).to(
                 device)}
+        user_t = []
+        for uname, (comb, neutral, opc, trans) in user_combines().items():
+            v = torch.from_numpy(combine_values(uname, rng, n)).to(device)
+            k = fq.flatfat_build_query(v, se, comb, neutral)
+            p = fq.flatfat_build_query_plain(v, se, comb, neutral)
+            torch.cuda.synchronize()
+            k, p = k.cpu().numpy(), p.cpu().numpy()
+            tally.add(uname, *hold_user(
+                k, p, trans, f"kernel K2 rebuild {name} {uname}"), k, p)
+            if name == "rebuild":
+                t_u = timed(lambda: fq.flatfat_build_query(v, se, comb,
+                                                           neutral))
+                user_t.append(f"{uname} {fmt(t_u)}")
+                if uname == PATH_COMBINE:
+                    t_up = timed(lambda: fq.flatfat_build_query_plain(
+                        v, se, comb, neutral), reps=20)
+                    # as add's bound below, each combine opc f32 ops
+                    user_entry = user_timing(t_u, t_up, (
+                        4 * n + 12 * len(starts),
+                        (n - 1 + walk_nodes(n, None, starts, ends)[1])
+                        * opc))
+                    user_t.append(f"{uname} plain {fmt(t_up)}, bound "
+                                  f"{user_entry['bound_ms']:.4g} ms "
+                                  f"({user_entry['bound_by']})")
+            del v
         for cname, (comb, neutral, _opc) in k2_combines().items():
             for data, v in leaves.items():
                 k = fq.flatfat_build_query(v, se, comb, neutral)
@@ -1059,7 +1256,10 @@ def check_k2r(device, card: str) -> dict:
                         f"{np.nanmax(np.abs(k - p), initial=0)})")
         log(f"[kernel K2 rebuild] {name}: n={n} B={len(starts)} bitwise "
             f"equal to the plain version and the pre-PR chain for add, "
-            f"max, min, left_weighted on integer and random f32 leaves")
+            f"max, min on integer and random f32 leaves; user combines "
+            f"against the plain version: {tally.line()}"
+            + (f"; user combines' device ms per call (wall ms per call): "
+               f"{'; '.join(user_t)}" if user_t else "") + f" ({card})")
         if name != "rebuild":
             del leaves
             continue
@@ -1099,6 +1299,8 @@ def check_k2r(device, card: str) -> dict:
                "max_abs_err": 0.0}
         del leaves, v, csr
         torch.cuda.empty_cache()
+    user_entry["max_abs_err"] = tally.rows[PATH_COMBINE][2]
+    out["user"] = user_entry
     return out
 
 
@@ -1254,8 +1456,33 @@ def check_fused(device, card: str) -> dict:
     rng = np.random.default_rng(2)
     out = {}
     worst_err = 0.0
+    tally = UserTally()
+    pending = []
     for name, (K, n, runs, wins) in fused_shapes(rng).items():
         V = int(np.sum(runs[2]))
+        # the user combines, each through its own generated library
+        for uname, (comb, neutral, opc, trans) in user_combines().items():
+            vals = combine_values(uname, rng, V)
+            buf, sizes = pack_step(n, K, *runs, vals, *wins, pinned=True)
+            inputs = step_inputs(buf.to(device), sizes)
+            fk = forest_of(torch.from_numpy(
+                combine_values(uname, rng, (K, n))).to(device), comb)
+            fp = fk.clone()
+            k = fq.flatfat_update_query(fk, inputs, comb, neutral)
+            p = fq.flatfat_update_query_plain(fp, inputs, comb, neutral)
+            torch.cuda.synchronize()
+            tag = f"kernel K2 fused {name} {uname}"
+            k, p = k.cpu().numpy(), p.cpu().numpy()
+            tally.add(uname, *hold_user(k, p, trans, tag), k, p)
+            hold_user(fk.cpu().numpy(), fp.cpu().numpy(), trans,
+                      tag + " forest")
+            if not name.startswith("edges"):
+                # timed once every step wall is taken (the profiler
+                # stays off until then); the forest is updated in place
+                # by every call: the same step again
+                pending.append((name, uname, fk, inputs, comb, neutral,
+                                fused_work(n, runs, wins, sizes, opc)))
+            del fp
         data = {}
         for integer in (True, False):
             vals = (rng.integers(0, 97, V) if integer
@@ -1299,7 +1526,9 @@ def check_fused(device, card: str) -> dict:
                 del fk, fp
         if name.startswith("edges"):
             log(f"[kernel K2 fused] {name}: K={K} n={n} exact on integers "
-                f"and max/min, rtol {RTOL_F32} on f32, forests equal")
+                f"and max/min, rtol {RTOL_F32} on f32, forests equal; user "
+                f"combines bitwise (logaddexp within {ULP_BOUND} ulp), "
+                f"forests too")
             continue
         # timings: add on integer data, the forest updated in place by
         # every call (the same step again: idempotent).  First one whole
@@ -1352,7 +1581,30 @@ def check_fused(device, card: str) -> dict:
         f"leaf, one window): device ms per call (wall ms per call) "
         f"{fmt(t_floor)}; the resident step is "
         f"{out['resident']['ms'] / floor_ms:.2f}x it ({card})")
+    log(f"[kernel K2 fused] user combines against the plain version over "
+        f"every shape: {tally.line()} ({card})")
+    user_t = collections.defaultdict(list)
+    for name, uname, fk, inputs, comb, neutral, work in pending:
+        t_u = timed(lambda: fq.flatfat_update_query(fk, inputs, comb,
+                                                    neutral))
+        user_t[name].append(f"{uname} {fmt(t_u)}")
+        if name == "resident" and uname == PATH_COMBINE:
+            t_up = timed(lambda: fq.flatfat_update_query_plain(
+                fk, inputs, comb, neutral), reps=10)
+            user_entry = user_timing(t_u, t_up, work)
+            user_t[name].append(f"{uname} plain {fmt(t_up)}, bound "
+                                f"{user_entry['bound_ms']:.4g} ms "
+                                f"({user_entry['bound_by']}; {work[0]} B, "
+                                f"{work[1]} f32 ops)")
+    del pending
+    torch.cuda.empty_cache()
+    for name, rows in user_t.items():
+        log(f"[kernel K2 fused] {name}: user combines' device ms per call "
+            f"(wall ms per call), beside add's {fmt_ms(out[name]['ms'])}: "
+            f"{'; '.join(rows)} ({card})")
     out["max_abs_err"] = worst_err
+    user_entry["max_abs_err"] = tally.rows[PATH_COMBINE][2]
+    out["user"] = user_entry
     return out
 
 
@@ -1516,6 +1768,7 @@ def reset_counts() -> None:
     fq.reset_launch_count()
     fq.reset_fused_launch_count()
     fq.reset_build_query_launch_count()
+    fq.reset_user_launch_counts()
     window_sum.reset_launch_count()
 
 
@@ -1596,6 +1849,169 @@ def main15(card: str) -> dict:
         f"launch rebuild/resident = {ratio:.1f}x")
     return {"flatfat_build_query": lanes["rebuild"]["launches"],
             "flatfat_update_query": lanes["resident"]["launches"]}
+
+
+def oracle15_lse(n_events: int, slide: int, keys: int = KEYS15):
+    """(keys, ids, values) of every window of the config-15 law under
+    log-sum-exp, float64: 96 + log of window differences of float64
+    prefix sums of exp(v - 96), v = (id*8 + k) % 97.  Every full window
+    holds a 96, so its sum is >= 1 and the difference loses nothing; a
+    partial tail window (fewer than 4096 ids, flushed at EOS) is summed
+    directly."""
+    M = n_events // keys
+    n_win = (M - 1) // slide + 1
+    w = np.arange(n_win)
+    out_k, out_i, out_v = [], [], []
+    for k in range(keys):
+        x = np.exp((np.arange(M) * keys + k) % VMOD - 96.0)
+        c = np.concatenate([[0.0], np.cumsum(x)])
+        ends = np.minimum(w * slide + WIN15, M)
+        sums = c[ends] - c[w * slide]
+        for i in np.nonzero(ends - w * slide < WIN15)[0]:
+            sums[i] = x[w[i] * slide:ends[i]].sum()
+        out_k.append(np.full(n_win, k))
+        out_i.append(w)
+        out_v.append(96.0 + np.log(sums))
+    return np.concatenate(out_k), np.concatenate(out_i), \
+        np.concatenate(out_v)
+
+
+def hold_to_oracle_rtol(got, want, tag: str, rtol: float) -> None:
+    """Keys and ids exactly, values within ``rtol``."""
+    keys, ids, vals = got[:3]
+    if len(keys) != len(want[0]) or not (
+            np.array_equal(keys, want[0]) and np.array_equal(ids, want[1])):
+        raise AssertionError(f"[{tag}] {len(keys)} windows vs oracle "
+                             f"{len(want[0])}: keys or ids differ")
+    rel = np.abs(vals - want[2]) / np.abs(want[2])
+    if not np.all(rel <= rtol):
+        raise AssertionError(f"[{tag}] {int((rel > rtol).sum())} values "
+                             f"outside rtol {rtol} (worst {rel.max():.3g})")
+
+
+def user_ffat_op(lane: str):
+    """Config 15's FFAT lane under the path's user combine, built as a
+    user builds it: WinSeqFFATTPUBuilder(lift, (torch.logaddexp, -inf))
+    -- with_rebuild(True) (the rebuild lane, K2r; batch, buffer and
+    in-flight depth as the torch.add cell) or the CB default (the
+    resident lane, K2f)."""
+    import windflow_tpu_torch as wf
+    comb, neutral = user_combines()[PATH_COMBINE][:2]
+    b = wf.WinSeqFFATTPUBuilder(lambda t: t.value, (comb, neutral)) \
+        .with_cb_windows(WIN15, SLIDE15)
+    if lane == "rebuild":
+        b = b.with_rebuild(True).with_batch(BATCH15) \
+            .with_max_buffer(MAX_BUFFER).with_inflight(INFLIGHT)
+    return b.build()
+
+
+def check_user_launches(tag: str, logics, counts: dict, users: dict,
+                        entry: str) -> int:
+    """The path went through the user combine's generated kernel: its
+    launches of ``entry`` equal the batches (steps) of its engines, and
+    every launch of ``entry`` is one (no builtin FlatFAT launch), and no
+    other kernel ran."""
+    launches = check_launches(tag, logics, counts, entry)
+    if users[entry] != launches or any(
+            n for e, n in users.items() if e != entry):
+        raise AssertionError(f"[{tag}] user-combine launches {users}: "
+                             f"expected {launches} of {entry} and no other")
+    return launches
+
+
+def main15_user(card: str) -> dict:
+    """Config 15's rebuild and resident FFAT cells at full size under
+    the user combine torch.logaddexp (neutral -inf), through
+    WinSeqFFATTPUBuilder: each window's (key, id) exactly and its value
+    within rtol 1e-5 of the float64 closed form, the two lanes within the
+    same tolerance of each other, every FlatFAT launch one of the
+    generated library's -- equal to the batches (K2r) or steps (K2f).
+    Returns each kernel's user launches."""
+    from windflow_tpu_torch.operators.tpu.ffat_resident import \
+        WinSeqFFATResidentLogic
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+
+    want = oracle15_lse(N15, SLIDE15)
+    got, out = {}, {}
+    for lane, cls, entry in (
+            ("rebuild", None, "flatfat_build_query"),
+            ("resident", WinSeqFFATResidentLogic, "flatfat_update_query")):
+        tag = f"main15 {lane} {PATH_COMBINE}"
+        reset_counts()
+        g, sink, secs = run15(lambda: user_ffat_op(lane), N15, SLIDE15)
+        counts, users = read_counts(), fq.user_launch_counts()
+        logic = find_logic(g, cls)
+        if logic.device is None or logic.device.type != DEVICE15:
+            raise AssertionError(f"[{tag}] device {logic.device}")
+        out[entry] = check_user_launches(tag, logic, counts, users, entry)
+        got[lane] = sorted_windows(sink, tag)
+        hold_to_oracle_rtol(got[lane], want, tag, RTOL_F32)
+        p50, p99 = (float(np.percentile(got[lane][3], q)) * 1e3
+                    for q in (50, 99))
+        READINGS15[f"{lane} {PATH_COMBINE}"].append((N15 / secs, p50, p99))
+        log(f"[main15 {PATH_COMBINE}] {lane} lane "
+            f"(WinSeqFFATTPUBuilder, {type(logic).__name__}): {N15} events "
+            f"in {secs:.3f} s = {N15 / secs:.1f} tuples/s; "
+            f"{len(got[lane][0])} windows, keys and ids exact, values "
+            f"within rtol {RTOL_F32} of the float64 closed form; window "
+            f"latency p50 {p50:.3f} ms, p99 {p99:.3f} ms; {out[entry]} "
+            f"{entry} launches of the generated library = "
+            f"{logic.launched_batches} batches, builtin FlatFAT launches 0 "
+            f"({card})")
+    a, b = got["rebuild"][2], got["resident"][2]
+    if not np.allclose(a, b, rtol=RTOL_F32, atol=0):
+        raise AssertionError(f"[main15 {PATH_COMBINE}] lanes differ "
+                             f"beyond rtol {RTOL_F32}")
+    log(f"[main15 {PATH_COMBINE}] rebuild and resident lanes within rtol "
+        f"{RTOL_F32} of each other (bitwise equal: "
+        f"{bool(np.array_equal(a, b))})")
+    return out
+
+
+# KeyFFATTPUBuilder at parallelism 2 as two replicas: a cut of config
+# 15's stream (1/32 of its events: the two replicas ran 1M events at
+# 89k tuples/s on the H100, 11 s), so the cell adds seconds to the script
+N15_KEYFFAT = N15 // 32
+
+
+def key_ffat_user(card: str) -> int:
+    """KeyFFATTPUBuilder(lift, (torch.logaddexp, -inf)) at parallelism 2
+    with coalesce=False: two replicas, each its own engine and stream,
+    sharing one build of the generated library; held to the closed form
+    as main15_user; every launch the generated build+query kernel's.
+    Returns its launches."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    comb, neutral = user_combines()[PATH_COMBINE][:2]
+    tag = f"key_ffat {PATH_COMBINE}"
+
+    def make():
+        return wf.KeyFFATTPUBuilder(lambda t: t.value, (comb, neutral)) \
+            .with_parallelism(2).with_coalesce(False) \
+            .with_cb_windows(WIN15, SLIDE15).with_batch(BATCH15) \
+            .with_max_buffer(MAX_BUFFER).build()
+
+    reset_counts()
+    g, sink, secs = run15(make, N15_KEYFFAT, SLIDE15)
+    counts, users = read_counts(), fq.user_launch_counts()
+    logics = device_logics(g)
+    if len(logics) != 2:
+        raise AssertionError(f"[{tag}] {len(logics)} engines, not 2")
+    libs = {lg.engine._ffat_combine.lib._handle for lg in logics}
+    if len(libs) != 1:
+        raise AssertionError(f"[{tag}] replicas load {len(libs)} libraries")
+    launches = check_user_launches(tag, logics, counts, users,
+                                   "flatfat_build_query")
+    got = sorted_windows(sink, tag)
+    hold_to_oracle_rtol(got, oracle15_lse(N15_KEYFFAT, SLIDE15), tag,
+                        RTOL_F32)
+    log(f"[{tag}] KeyFFATTPUBuilder parallelism 2, coalesce=False, "
+        f"{N15_KEYFFAT} events (config 15's stream cut 32x): {secs:.3f} s = "
+        f"{N15_KEYFFAT / secs:.1f} tuples/s; {len(got[0])} windows held as "
+        f"[main15 {PATH_COMBINE}]; two replicas, one library; {launches} "
+        f"generated build+query launches = batches of both replicas "
+        f"({card})")
+    return launches
 
 
 def resident_pane(card: str) -> int:
@@ -1701,6 +2117,51 @@ def drive_flatfat(card: str) -> int:
     return counts["flatfat_query"]
 
 
+def drive_flatfat_user(card: str) -> int:
+    """FlatFATTorch under the path's user combine (torch.logaddexp,
+    neutral -inf), as drive_flatfat: the same build, windows, update and
+    windows again, each window within rtol 1e-5 of a float64
+    log-sum-exp; two launches of the generated query kernel and nothing
+    else.  Returns them."""
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    from windflow_tpu_torch.ops.flatfat_torch import FlatFATTorch
+    comb, neutral = user_combines()[PATH_COMBINE][:2]
+    rng = np.random.default_rng(5)
+    leaves = (rng.random(T_PAD15) * 20).astype(np.float32)
+    starts, ends = k2_shapes(rng)["rebuild"][3:]
+    ft = FlatFATTorch(comb, neutral, T_PAD15, device=DEVICE15)
+
+    def lse(v):
+        c = np.concatenate([[0.0], np.cumsum(np.exp(v.astype(np.float64)
+                                                    - 20.0))])
+        return 20.0 + np.log(c[ends] - c[starts])
+
+    reset_counts()
+    ft.build(leaves)
+    got = [ft.query_ranges(starts, ends)]
+    want = [lse(leaves)]
+    pos = rng.choice(T_PAD15, 1024, replace=False)
+    leaves[pos] = (rng.random(1024) * 20).astype(np.float32)
+    ft.update(pos, leaves[pos])
+    got.append(ft.query_ranges(starts, ends))
+    want.append(lse(leaves))
+    torch.cuda.synchronize()
+    counts, users = read_counts(), fq.user_launch_counts()
+    if counts["flatfat_query"] != 2 or sum(counts.values()) != 2 \
+            or users["flatfat_query"] != 2:
+        raise AssertionError(f"[flatfat {PATH_COMBINE}] launches {counts}, "
+                             f"user {users}: expected two generated query "
+                             f"kernel launches and nothing else")
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=RTOL_F32, atol=0,
+                                   err_msg=f"[flatfat {PATH_COMBINE}]")
+    log(f"[flatfat {PATH_COMBINE}] FlatFATTorch(torch.logaddexp, -inf): "
+        f"the same steps, every window within rtol {RTOL_F32} of the "
+        f"float64 log-sum-exp; {users['flatfat_query']} launches of the "
+        f"generated query kernel, other kernels 0 ({card})")
+    return users["flatfat_query"]
+
+
 def kernel_entry(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1761,13 +2222,15 @@ def main() -> int:
         profile_farm(cell, N34, card)
     log(f"[smoke] farms done at {time.perf_counter() - t_start:.1f} s")
 
-    # config 15's four cells twice back to back; each path driven with
-    # every launch count set to 0 just before it and read just after
+    # config 15's four cells and its two FFAT cells under the user
+    # combine, twice back to back; each path driven with every launch
+    # count set to 0 just before it and read just after
     for rnd in (1, 2):
         counts = main15(card)
         counts["flatfat_update_query"] += resident_pane(card)
+        user = main15_user(card)
         if rnd == 1:
-            launches15 = counts
+            launches15, user15 = counts, user
         log(f"[smoke] config 15 round {rnd} done at "
             f"{time.perf_counter() - t_start:.1f} s")
     for cell, rows in READINGS15.items():
@@ -1775,7 +2238,9 @@ def main() -> int:
             f"{' / '.join(f'{r[0]:.1f}' for r in rows)}; p50 ms "
             f"{' / '.join(f'{r[1]:.3f}' for r in rows)}; p99 ms "
             f"{' / '.join(f'{r[2]:.3f}' for r in rows)} ({card})")
+    user15["flatfat_build_query"] += key_ffat_user(card)
     launches15["flatfat_query"] = drive_flatfat(card)
+    user15["flatfat_query"] = drive_flatfat_user(card)
     profile15(card, "rebuild", N15)
     profile15(card, "resident", N15)
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
@@ -1798,7 +2263,14 @@ def main() -> int:
         kernel_entry("flatfat_build_query", src,
                      "windflow_tpu/ops/pallas/flatfat_query.py:91",
                      launches15["flatfat_build_query"], k2r["max_abs_err"],
-                     k2r)]}))
+                     k2r)] + [
+        # the same kernels compiled with the user combine of the path
+        kernel_entry(f"{entry} (user combine torch.{PATH_COMBINE})", src,
+                     "windflow_tpu/ops/pallas/flatfat_query.py:91",
+                     user15[entry], t["user"]["max_abs_err"], t["user"])
+        for entry, t in (("flatfat_query", k2),
+                         ("flatfat_update_query", k2f),
+                         ("flatfat_build_query", k2r))]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -18,8 +18,13 @@ kernel's extent switch, on the CPU.
 Tolerances: exact on integer-valued data and for max/min (every partial
 sum below 2^24); ``rtol=1e-5`` for add on random f32 against the
 reference (both combine the same pairs in the same order, so it is
-exact in practice).  The emulation must be bitwise: the kernel's claim
-is that it combines exactly the pairs ``build_tree`` combines.
+exact in practice).  The user combines no kernel builds in
+(``tests/torch_graphs.py``) go through the same tests: the arithmetic
+ones exact against the reference, ``logaddexp`` within ``rtol=1e-5``
+(jnp's and torch's exp/log1p forms may part by an ulp a combine).  The
+emulation must be bitwise (bit patterns, NaNs included) for every
+combine: the kernel's claim is that it combines exactly the pairs
+``build_tree`` combines.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -31,14 +36,21 @@ from windflow_tpu.ops.window_compute import (_ffat_pallas_program,
 from windflow_tpu_torch.ops.cuda import flatfat_query as fq
 from windflow_tpu_torch.ops.cuda import window_sum as ws
 
+from torch_graphs import (PACKAGES, USER_EXACT, USER_RTOL, left_weighted,
+                          user_combines, user_values)
+
 RTOL = 1e-5
 
+_REF_USER, _PORT_USER = (user_combines(p) for p in PACKAGES)
 # name -> (reference combine, port combine, neutral)
 COMBINES = {"add": (jnp.add, torch.add, 0.0),
             "max": (jnp.maximum, torch.maximum, -np.inf),
             "min": (jnp.minimum, torch.minimum, np.inf),
-            "left_weighted": (lambda a, b: a * 0.5 + b, fq._left_weighted,
-                              0.0)}
+            "left_weighted": (left_weighted, left_weighted, 0.0)}
+# the user combines the kernels compile from their torch ops
+USER = ("mul", "logaddexp", "where_max")
+COMBINES.update({name: (_REF_USER[name][0], _PORT_USER[name][0],
+                        _PORT_USER[name][1]) for name in USER})
 
 # the kernel's constants (flatfat_query.cu)
 TILE_LEVELS, TOP_MAX = 10, 2048
@@ -57,9 +69,16 @@ def _extents(rng, n, B):
     return np.stack([starts, ends]).astype(np.int32)
 
 
-def _leaves(rng, n, integer):
+def _leaves(rng, n, integer, name=None):
+    if name in USER:
+        return user_values(name, rng, n)
     return (rng.integers(0, 97, n) if integer
             else rng.normal(size=n)).astype(np.float32)
+
+
+def _bits(t):
+    """A float32 tensor's bit patterns: equal bits, NaNs included."""
+    return t.contiguous().view(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -68,12 +87,13 @@ def _leaves(rng, n, integer):
 
 @pytest.mark.parametrize("program", ["xla", "pallas"])
 @pytest.mark.parametrize("integer", [True, False], ids=["int", "f32"])
-@pytest.mark.parametrize("name", ["add", "max", "min"])
+@pytest.mark.parametrize("name", ["add", "max", "min", "left_weighted"]
+                         + list(USER))
 def test_plain_matches_reference_programs(name, integer, program):
     ref_c, port_c, neutral = COMBINES[name]
     rng = np.random.default_rng(60 + list(COMBINES).index(name))
     n, B = 2048, 64
-    leaves = _leaves(rng, n, integer)
+    leaves = _leaves(rng, n, integer, name)
     se = _extents(rng, n, B)
     if program == "xla":
         run = _ffat_program(ref_c, neutral, n)
@@ -84,7 +104,10 @@ def test_plain_matches_reference_programs(name, integer, program):
                                        torch.from_numpy(se), port_c,
                                        neutral).numpy()
     assert got.shape == (B,)
-    if integer or name != "add":
+    if name == "logaddexp":
+        np.testing.assert_allclose(got, want, rtol=USER_RTOL, atol=0)
+    elif integer or name != "add":
+        assert USER_EXACT.get(name, True)
         np.testing.assert_array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-6)
@@ -200,18 +223,18 @@ def test_kernel_tiling_equals_build_tree_bitwise(name, n):
     rounds: 4096 tile roots > 2048)."""
     _ref_c, comb, neutral = COMBINES[name]
     rng = np.random.default_rng(n.bit_length())
-    leaves = torch.from_numpy(_leaves(rng, n, integer=False))
+    leaves = torch.from_numpy(_leaves(rng, n, False, name))
     tree = fq.build_tree(leaves, comb, neutral)
     nodes, top, m = _emulate_build(leaves, comb)
     assert m == (4 if n == 1 << 22 else n // TILE)
     # scratch holds the nodes at and below the tile roots, the top tree
     # the rest
-    assert torch.equal(nodes[m:], tree[m:n])
-    assert torch.equal(top[1:], tree[1:2 * m])
+    assert torch.equal(_bits(nodes[m:]), _bits(tree[m:n]))
+    assert torch.equal(_bits(top[1:]), _bits(tree[1:2 * m]))
     se = torch.from_numpy(_extents(rng, n, 200))
     got = _emulate_walk(leaves, nodes, top, m, se, comb, neutral)
     want = fq.flatfat_build_query_plain(leaves, se, comb, neutral)
-    assert torch.equal(got, want)
+    assert torch.equal(_bits(got), _bits(want))
 
 
 # ---------------------------------------------------------------------------

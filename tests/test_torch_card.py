@@ -5,7 +5,11 @@ the FFAT rebuild lane against their plain versions, the engines,
 the headline graph, the resident lanes and the device farms (KeyFarmTPU
 coalesced and not, PaneFarmTPU fused at LEVEL2, a custom window
 function) on CUDA against the same on the CPU, one kernel launch per
-launched batch, and the refusal of combines the kernels do not compile.
+launched batch.  The three FlatFAT kernels run every combine: the
+builtins and user combines compiled from their torch ops into a library
+of their own (a product, ``logaddexp``, a NaN-skipping max written with
+``where``, and ``left_weighted``), counted apart; a combine that cannot
+be lowered raises ValueError when it is bound to the card.
 
 This file imports neither jax nor the reference package, so it runs
 where the card is:
@@ -13,11 +17,15 @@ where the card is:
     python -m pytest -m cuda tests/test_torch_card.py
 
 Every test is marked ``cuda`` and skips without a card.  Tolerances:
-exact for max/min and for add on integer-valued data; ``rtol=1e-5`` for
-the non-commutative ``left_weighted`` test combine and for sums of
-random f32 data (the kernel and the float64 sum add in other orders).
-The build+query kernel is exact for every combine and any data: it
-combines the very pairs the plain version combines.
+exact for max/min, for add on integer-valued data and for the arithmetic
+user combines (one correctly rounded intrinsic an op, in the plain
+version's order); ``rtol=1e-5`` for the non-commutative
+``left_weighted`` in the query kernels, for sums of random f32 data (the
+kernel and the float64 sum add in other orders) and for ``logaddexp``
+(the kernel's expf/log1pf against torch's own, over a fold of up to
+~2 log2(n) + 1 combines).  The build+query kernel is exact for every
+other combine and any data: it combines the very pairs the plain
+version combines.
 """
 import numpy as np
 import pytest
@@ -40,13 +48,36 @@ from windflow_tpu_torch.operators.tpu.farms_tpu import (KeyFarmTPU,
                                                         PaneFarmTPU)
 from windflow_tpu_torch.runtime.node import ChainedLogic, FusedLogic
 
+from torch_graphs import (PORT, USER_EXACT, USER_RTOL, left_weighted,
+                          user_combines, user_values)
+
 pytestmark = pytest.mark.cuda
 
 # name -> (combine, neutral, exact)
 COMBINES = {"add": (torch.add, 0.0, True),
             "max": (torch.maximum, -np.inf, True),
             "min": (torch.minimum, np.inf, True),
-            "left_weighted": (fq._left_weighted, 0.0, False)}
+            "left_weighted": (left_weighted, 0.0, False)}
+# the user combines no kernel builds in: compiled from their torch ops
+USER = ("mul", "logaddexp", "where_max")
+COMBINES.update({name: (c, neutral, USER_EXACT[name])
+                 for name, (c, neutral) in user_combines(PORT).items()
+                 if name in USER})
+
+
+def _vals(name, rng, size):
+    """Integer-valued leaves, or a user combine's own law (near 1 for
+    the product, NaNs among them for the NaN-skipping max)."""
+    if name in USER:
+        return user_values(name, rng, size)
+    return rng.integers(0, 100, size).astype(np.float32)
+
+
+def _check(got, want, exact):
+    if exact:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=USER_RTOL, atol=1e-6)
 
 
 @pytest.fixture(autouse=True)
@@ -68,8 +99,7 @@ def test_kernel_matches_plain(name):
     rng = np.random.default_rng(30)
     K, n, B = 5, 256, 300
     forest = torch.stack([build_tree(torch.from_numpy(
-        rng.integers(0, 100, n).astype(np.float32)), comb, neutral)
-        for _ in range(K)]).cuda()
+        _vals(name, rng, n)), comb, neutral) for _ in range(K)]).cuda()
     rows = _i32(rng.integers(0, K, B)).cuda()
     starts = rng.integers(0, n, B)
     ends = np.minimum(starts + rng.integers(0, n, B), n)
@@ -77,26 +107,41 @@ def test_kernel_matches_plain(name):
     starts[3], ends[3] = 0, n
     s, e = _i32(starts).cuda(), _i32(ends).cuda()
     before = fq.launch_count()
+    users = fq.user_launch_counts()["flatfat_query"]
     got = fq.flatfat_query(forest, rows, s, e, comb, neutral).cpu().numpy()
     torch.cuda.synchronize()
     assert fq.launch_count() == before + 1
+    assert fq.user_launch_counts()["flatfat_query"] == \
+        users + (fq.builtin_op(comb) is None)
     want = fq.flatfat_query_plain(forest, rows, s, e, comb,
                                   neutral).cpu().numpy()
-    if exact:
-        np.testing.assert_array_equal(got, want)
-    else:
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    _check(got, want, exact)
 
 
 def test_non_kernel_combine_raises_naming_the_roadmap_item():
-    tree = torch.zeros(16, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
-        fq.flatfat_query(tree, None, _i32([0]).cuda(), _i32([4]).cuda(),
-                         lambda a, b: a + b, 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
-        WindowComputeEngine(("ffat", torch.mul, 1.0), device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
-        WinSeqFFATResidentLogic(lambda t: t.value, torch.mul, 1.0, 64, 16,
+    """A combine no kernel builds in resolves on the card into its own
+    library (the query kernel, the ffat engine and the resident logic
+    all take it); one that cannot be lowered raises ValueError where it
+    is bound to the card, before any launch."""
+    tree = build_tree(torch.arange(16, dtype=torch.float32).cuda(),
+                      lambda a, b: a + b, 0.0)
+    got = fq.flatfat_query(tree, None, _i32([0]).cuda(), _i32([4]).cuda(),
+                           lambda a, b: a + b, 0.0)
+    assert got.cpu().numpy().tolist() == [6.0]
+    k = fq.resolve_combine(torch.mul)
+    assert k.user and k.code == fq.USER_OP
+    assert WindowComputeEngine(("ffat", torch.mul, 1.0),
+                               device="cuda")._ffat_combine.lib is k.lib
+    WinSeqFFATResidentLogic(lambda t: t.value, torch.mul, 1.0, 64, 16,
+                            device="cuda")
+
+    def branchy(a, b):
+        return a if a > b else b
+
+    with pytest.raises(ValueError, match="control flow"):
+        WindowComputeEngine(("ffat", branchy, 0.0), device="cuda")
+    with pytest.raises(ValueError, match="control flow"):
+        WinSeqFFATResidentLogic(lambda t: t.value, branchy, 0.0, 64, 16,
                                 device="cuda")
 
 
@@ -112,15 +157,23 @@ def _run_logic(lg, n, chunk=500, n_keys=3):
     return {(r.key, r.id): (r.value, r.ts) for r in out}
 
 
-@pytest.mark.parametrize("lane", ["pane", "ffat_resident", "ffat_rebuild"])
+@pytest.mark.parametrize("lane", ["pane", "ffat_resident", "ffat_rebuild",
+                                  "ffat_resident_user", "ffat_rebuild_user"])
 def test_lane_on_the_card_matches_the_cpu_and_launches_per_batch(lane):
     """Each lane of the kernel on CUDA against the same lane on the CPU,
-    with one K2 launch per launched batch."""
+    with one K2 launch per launched batch; the FFAT lanes also under a
+    user combine (torch.logaddexp, neutral -inf: every launch one of its
+    generated library, values within rtol 1e-5 of the CPU's)."""
+    user = lane.endswith("_user")
+    comb, neutral = ((torch.logaddexp, -np.inf) if user else
+                     (torch.add, 0.0) if lane.startswith("ffat_resident")
+                     else (torch.maximum, -np.inf))
+
     def make(device):
-        if lane == "ffat_resident":
-            return WinSeqFFATResidentLogic(lambda t: t.value, torch.add, 0.0,
+        if lane.startswith("ffat_resident"):
+            return WinSeqFFATResidentLogic(lambda t: t.value, comb, neutral,
                                            512, 16, device=device)
-        kind = "sum" if lane == "pane" else ("ffat", torch.maximum, -np.inf)
+        kind = "sum" if lane == "pane" else ("ffat", comb, neutral)
         return WinSeqTPULogic(kind, 256, 32, wf.WinType.CB, batch_len=16,
                               resident=True if lane == "pane" else None,
                               value_of=lambda t: t.value, device=device)
@@ -130,15 +183,28 @@ def test_lane_on_the_card_matches_the_cpu_and_launches_per_batch(lane):
     fq.reset_launch_count()
     fq.reset_fused_launch_count()
     fq.reset_build_query_launch_count()
+    fq.reset_user_launch_counts()
     got = _run_logic(lg, 6000)
-    assert want and got == want
+    assert want and sorted(got) == sorted(want)
+    if user:
+        keys = sorted(want)
+        np.testing.assert_allclose([got[k][0] for k in keys],
+                                   [want[k][0] for k in keys],
+                                   rtol=USER_RTOL, atol=0)
+        assert [got[k][1] for k in keys] == [want[k][1] for k in keys]
+    else:
+        assert got == want
     # the resident lanes run only the fused update+query kernel, the
     # rebuild lane only the fused build+query kernel
     counts = {"update": fq.fused_launch_count(),
               "build": fq.build_query_launch_count(),
               "query": fq.launch_count()}
-    mine = "build" if lane == "ffat_rebuild" else "update"
-    assert counts.pop(mine) == lg.launched_batches > 0
+    mine = "build" if lane.startswith("ffat_rebuild") else "update"
+    assert counts[mine] == lg.launched_batches > 0
+    entry = {"build": "flatfat_build_query",
+             "update": "flatfat_update_query"}[mine]
+    assert fq.user_launch_counts()[entry] == (counts[mine] if user else 0)
+    counts.pop(mine)
     assert counts == {k: 0 for k in counts}
 
 
@@ -188,9 +254,8 @@ def test_fused_kernel_matches_plain(case, name):
     K, n, (rows, starts, lens), (q_rows, q_starts, q_ends) = \
         _fused_case(case, rng)
     forest = torch.stack([build_tree(torch.from_numpy(
-        rng.integers(0, 100, n).astype(np.float32)), comb, neutral)
-        for _ in range(K)]).cuda()
-    values = rng.integers(0, 100, int(np.sum(lens))).astype(np.float32)
+        _vals(name, rng, n)), comb, neutral) for _ in range(K)]).cuda()
+    values = _vals(name, rng, int(np.sum(lens)))
     buf, sizes = pack_step(n, K, rows, starts, lens, values, q_rows,
                            q_starts, q_ends, pinned=True)
     inputs = step_inputs(buf.cuda(), sizes)
@@ -202,23 +267,25 @@ def test_fused_kernel_matches_plain(case, name):
     want = fq.flatfat_update_query_plain(want_forest, inputs, comb, neutral)
     got, want = got.cpu().numpy(), want.cpu().numpy()
     assert got.shape == (len(q_rows),)
-    if exact:
-        np.testing.assert_array_equal(got, want)
-        np.testing.assert_array_equal(forest.cpu().numpy(),
-                                      want_forest.cpu().numpy())
-    else:
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(forest.cpu().numpy(),
-                                   want_forest.cpu().numpy(), rtol=1e-5,
-                                   atol=1e-6)
+    _check(got, want, exact)
+    _check(forest.cpu().numpy(), want_forest.cpu().numpy(), exact)
 
 
 def test_fused_non_kernel_combine_raises_naming_the_roadmap_item():
+    """A combine no kernel builds in runs the fused kernel through its
+    own library, counted as a user launch; one that cannot be lowered
+    raises ValueError before any launch."""
     buf, sizes = pack_step(8, 1, [0], [0], [1], [1.0], [0], [0], [1])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
+    users = fq.user_launch_counts()["flatfat_update_query"]
+    got = fq.flatfat_update_query(torch.zeros((1, 16), device="cuda"),
+                                  step_inputs(buf.cuda(), sizes),
+                                  lambda a, b: a + b, 0.0)
+    assert got.cpu().numpy().tolist() == [1.0]
+    assert fq.user_launch_counts()["flatfat_update_query"] == users + 1
+    with pytest.raises(ValueError, match="the op"):
         fq.flatfat_update_query(torch.zeros((1, 16), device="cuda"),
                                 step_inputs(buf.cuda(), sizes),
-                                lambda a, b: a + b, 0.0)
+                                lambda a, b: torch.sin(a) + b, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -256,21 +323,30 @@ def test_build_query_kernel_matches_plain(case, name):
     rng = np.random.default_rng(50)
     n, se = _build_query_case(case, rng)
     se = _i32(se).cuda()
-    for leaves in (rng.integers(0, 97, n), rng.normal(size=n)):
+    datas = ((user_values(name, rng, n), user_values(name, rng, n))
+             if name in USER else (rng.integers(0, 97, n),
+                                   rng.normal(size=n)))
+    for leaves in datas:
         v = torch.from_numpy(leaves.astype(np.float32)).cuda()
         before = fq.build_query_launch_count()
         got = fq.flatfat_build_query(v, se, comb, neutral)
         torch.cuda.synchronize()
         assert fq.build_query_launch_count() == before + 1
         want = fq.flatfat_build_query_plain(v, se, comb, neutral)
-        np.testing.assert_array_equal(got.cpu().numpy(),
-                                      want.cpu().numpy())
+        _check(got.cpu().numpy(), want.cpu().numpy(),
+               USER_EXACT.get(name, True))
 
 
 def test_build_query_non_kernel_combine_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
+    """A combine no kernel builds in runs the build+query kernel through
+    its own library; one that cannot be lowered raises ValueError."""
+    got = fq.flatfat_build_query(torch.ones(2048, device="cuda"),
+                                 _i32([[0], [4]]).cuda(), lambda a, b: a + b,
+                                 0.0)
+    assert got.cpu().numpy().tolist() == [4.0]
+    with pytest.raises(ValueError, match="result"):
         fq.flatfat_build_query(torch.zeros(2048, device="cuda"),
-                               _i32([[0], [4]]).cuda(), lambda a, b: a + b,
+                               _i32([[0], [4]]).cuda(), lambda a, b: a > b,
                                0.0)
 
 
@@ -281,7 +357,8 @@ def test_cuda_ffat_engine_launches_one_build_query_per_batch():
     ends = starts + rng.integers(0, 4097, B)
     cols = {"value": rng.integers(0, 97, T).astype(np.float64)}
     gwids = np.arange(B, dtype=np.int64)
-    for comb, neutral in ((torch.add, 0.0), (torch.maximum, -np.inf)):
+    for comb, neutral in ((torch.add, 0.0), (torch.maximum, -np.inf),
+                          (left_weighted, 0.0)):
         eng = WindowComputeEngine(("ffat", comb, neutral), device="cuda")
         before = (fq.build_query_launch_count(), fq.launch_count())
         with eng.launch_context():

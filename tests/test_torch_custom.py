@@ -99,13 +99,18 @@ def test_python_branch_on_data_fails_under_vmap():
 
 @pytest.mark.parametrize("combine", [lambda a, b: a * b])
 def test_user_ffat_combine_on_the_card_raises_naming_a7c(combine):
-    """A user FFAT combine has no compiled form in the FlatFAT kernels:
-    on the card it raises, naming ROADMAP.md A7c (checked where the
-    engine checks it, without a card)."""
-    from windflow_tpu_torch.ops.cuda.flatfat_query import require_kernel_op
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
-        require_kernel_op(combine)
-    assert require_kernel_op(torch.add) is not None
+    """A user FFAT combine is no builtin of the FlatFAT kernels: it is
+    lowered from its torch ops into a library of its own (checked here
+    without a card: the lowering, not the build).  What cannot be
+    lowered raises ValueError, before anything is built."""
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    from windflow_tpu_torch.ops.cuda.combine_lower import lower_combine
+    assert fq.builtin_op(combine) is None
+    assert lower_combine(combine) == \
+        "const float t0 = __fmul_rn(a, b); return t0;"
+    assert fq.builtin_op(torch.add) == 0
+    with pytest.raises(ValueError, match="the op"):
+        fq.resolve_combine(lambda a, b: torch.sin(a) + b)
 
 
 # ---------------------------------------------------------------------------

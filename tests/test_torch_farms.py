@@ -17,8 +17,9 @@ import threading
 import numpy as np
 import pytest
 
-from torch_graphs import (PACKAGES, PORT, assert_same, both, by_key, mod,
-                          oracle, ordered_source, run_graph)
+from torch_graphs import (PACKAGES, PORT, USER_EXACT, USER_RTOL,
+                          assert_same, both, by_key, mod, oracle,
+                          ordered_source, run_graph, user_combines)
 
 CB, TB = "CB", "TB"
 
@@ -277,6 +278,71 @@ def test_key_ffat_matches_reference(par, win_type):
 
     got, _ = both(make, n_keys=5)
     assert by_key(got) == {k: oracle(48, 12, 4) for k in range(5)}
+
+
+def _value(t):
+    """The device FFAT builders' lift: tuple -> float."""
+    return t.value
+
+
+def _lse_oracle(per_key_n, win, slide):
+    """gwid -> log(sum(exp(id))) over ids [g*slide, g*slide + win)
+    (value = id), in float64."""
+    out = {}
+    g = 0
+    while g * slide < per_key_n:
+        vals = np.arange(g * slide, min(g * slide + win, per_key_n),
+                         dtype=np.float64)
+        out[g] = float(vals.max() + np.log(np.exp(vals - vals.max()).sum()))
+        g += 1
+    return out
+
+
+@pytest.mark.parametrize("name", ["logaddexp", "left_weighted"])
+@pytest.mark.parametrize("builder", ["winseq_rebuild", "winseq_resident",
+                                     "key_replicas", "key_coalesced"])
+def test_ffat_tpu_builders_take_a_user_combine(builder, name):
+    """A user FFAT combine (one no kernel builds in: the card compiles it
+    from its torch ops) through the public builders of both packages:
+    WinSeqFFATTPUBuilder on the rebuild lane and on the CB default, the
+    resident lane; KeyFFATTPUBuilder at parallelism 2, as two replicas
+    and coalesced.  Keys and ids exact; left_weighted (not associative:
+    the value is the tree's fold) exact between the packages; logaddexp
+    within rtol 1e-5 of each other (jnp's and torch's forms may part by
+    an ulp a combine) and of a float64 oracle."""
+    win, slide = 12, 4
+
+    def make(wf):
+        pkg = wf.__name__
+        combine = user_combines(pkg)[name]
+        if builder.startswith("winseq"):
+            b = wf.WinSeqFFATTPUBuilder(_value, combine)
+            if builder == "winseq_rebuild":
+                b = b.with_rebuild(True)
+        else:
+            b = wf.KeyFFATTPUBuilder(_value, combine).with_parallelism(2) \
+                .with_coalesce(builder == "key_coalesced")
+        # size-triggered launches only: a rebuild lane folds each window
+        # where the launch's flat buffer puts it, and a non-associative
+        # combine (left_weighted) rounds by that place, so both packages
+        # must cut the same batches however loaded the machine is
+        op = b.with_cb_windows(win, slide).with_max_batch_delay(1e9).build()
+        want = ("WinSeqFFATResident" if builder == "winseq_resident"
+                else "WinSeqFFATTPU" if builder == "winseq_rebuild"
+                else "KeyFFATTPU")
+        assert type(op).__name__ == want
+        return op
+
+    got, _ = both(make, n_keys=5,
+                  rtol=0.0 if USER_EXACT[name] else USER_RTOL)
+    if name != "logaddexp":
+        return
+    want = _lse_oracle(48, win, slide)
+    for k, rows in by_key(got).items():
+        assert sorted(rows) == sorted(want)
+        np.testing.assert_allclose([rows[g] for g in sorted(want)],
+                                   [want[g] for g in sorted(want)],
+                                   rtol=USER_RTOL)
 
 
 def test_wf_cb_default_mode_rejected():

@@ -16,6 +16,13 @@ too for ``left_weighted`` (0.5 a is exact in f32, so both sides round
 each step alike) and for add on random f32, where both sides combine
 the same pairs in the same order -- the tests still state ``rtol=1e-5``
 for those two, the bound the port promises.
+
+The user combines no kernel builds in (``tests/torch_graphs.py``:
+a product, ``logaddexp``, a NaN-skipping max written with ``where``, and
+``left_weighted``, which the kernels compile from its torch ops like any
+other) run through the same tests: the arithmetic ones exactly,
+``logaddexp`` within ``rtol=1e-5`` (jnp's and torch's exp/log1p forms
+may part by an ulp a combine).
 """
 import numpy as np
 import pytest
@@ -32,20 +39,32 @@ from windflow_tpu_torch.ops.flatfat_torch import (BatchedFlatFAT,
                                                   FlatFATTorch, build_tree)
 from windflow_tpu_torch.ops.window_compute import WindowComputeEngine
 
+from torch_graphs import (PACKAGES, USER_EXACT, left_weighted,
+                          user_combines, user_values)
+
 RTOL = 1e-5
 
-
-def _ref_left_weighted(a, b):
-    return a * 0.5 + b
-
-
+_REF_USER, _PORT_USER = (user_combines(p) for p in PACKAGES)
 # name -> (reference combine, port combine, neutral, exact)
 COMBINES = {
     "add": (jnp.add, torch.add, 0.0, True),
     "max": (jnp.maximum, torch.maximum, -np.inf, True),
     "min": (jnp.minimum, torch.minimum, np.inf, True),
-    "left_weighted": (_ref_left_weighted, fq._left_weighted, 0.0, False),
+    "left_weighted": (left_weighted, left_weighted, 0.0, False),
 }
+# the user combines the kernels compile from their torch ops
+USER = ("mul", "logaddexp", "where_max")
+COMBINES.update({name: (_REF_USER[name][0], _PORT_USER[name][0],
+                        _PORT_USER[name][1], USER_EXACT[name])
+                 for name in USER})
+
+
+def _values(name, rng, shape, integer):
+    """Integer-valued or normal leaves; a user combine's own law."""
+    if name in USER:
+        return user_values(name, rng, shape)
+    return (rng.integers(0, 100, shape) if integer
+            else rng.normal(size=shape)).astype(np.float32)
 
 
 def _check(got, want, exact):
@@ -71,8 +90,7 @@ def test_plain_query_matches_pallas_and_xla(name, integer):
     ref_c, port_c, neutral, exact = COMBINES[name]
     rng = np.random.default_rng(list(COMBINES).index(name))
     n, B = 256, 64
-    leaves = (rng.integers(0, 100, n) if integer
-              else rng.normal(size=n)).astype(np.float32)
+    leaves = _values(name, rng, n, integer)
     f = FlatFATJax(ref_c, neutral, n)
     f.build(leaves)
     tree = np.array(f.tree)
@@ -90,7 +108,7 @@ def test_plain_query_matches_pallas_and_xla(name, integer):
 def test_build_tree_matches_reference(name):
     ref_c, port_c, neutral, exact = COMBINES[name]
     rng = np.random.default_rng(7)
-    leaves = rng.integers(0, 100, 128).astype(np.float32)
+    leaves = _values(name, rng, 128, True)
     f = FlatFATJax(ref_c, neutral, 128)
     f.build(leaves)
     got = build_tree(torch.from_numpy(leaves), port_c, neutral).numpy()
@@ -152,11 +170,20 @@ def test_wrapper_runs_plain_version_on_cpu_tensors():
 
 
 def test_kernel_combines():
+    """The builtins keep the shared library's op codes; every other
+    torch combine is lowered into a library of its own (the body that
+    library compiles in), and what cannot be lowered raises."""
+    from windflow_tpu_torch.ops.cuda.combine_lower import lower_combine
     for c in (torch.add, torch.maximum, torch.minimum, "sum", "count",
-              "max", "min", fq._left_weighted):
-        assert fq.kernel_op(c) is not None
-    for c in (jnp.add, lambda a, b: a + b, np.add, torch.mul):
-        assert fq.kernel_op(c) is None
+              "max", "min"):
+        assert fq.builtin_op(c) is not None
+    for c in (left_weighted, lambda a, b: a + b, torch.mul,
+              torch.logaddexp, _PORT_USER["where_max"][0]):
+        assert fq.builtin_op(c) is None
+        assert lower_combine(c).startswith("const ")
+    for c in (jnp.add, np.add):
+        with pytest.raises(ValueError):
+            lower_combine(c)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "not_pow2", "extents_dtype",
@@ -198,7 +225,8 @@ def test_single_tree_update_matches_reference():
                                       a.query_ranges(s, e))
 
 
-@pytest.mark.parametrize("name", ["add", "max", "left_weighted"])
+@pytest.mark.parametrize("name", ["add", "max", "left_weighted"] +
+                         list(USER))
 def test_forest_steps_match_reference(name):
     """The port's forest equals the reference's after every update,
     fused update+query and run-descriptor launch, ring wrap included
@@ -214,7 +242,8 @@ def test_forest_steps_match_reference(name):
         key = int(rng.integers(0, K))
         cnt = int(rng.integers(1, 16))
         ids = np.arange(nxt[key], nxt[key] + cnt)
-        vals = rng.integers(0, 50, cnt).astype(np.float32)
+        vals = (user_values(name, rng, cnt) if name in USER
+                else rng.integers(0, 50, cnt).astype(np.float32))
         nxt[key] += cnt
         qk = np.arange(K)
         qe = nxt.copy()
@@ -238,16 +267,16 @@ def test_forest_steps_match_reference(name):
 
 
 @pytest.mark.parametrize("pallas", ["1", "0"])
-@pytest.mark.parametrize("name", ["add", "max", "min"])
+@pytest.mark.parametrize("name", ["add", "max", "min"] + list(USER))
 def test_engine_ffat_kind_matches_reference(name, pallas, monkeypatch):
     """The ffat kind of the port's engine against the reference engine
     on its Pallas query (WINDFLOW_PALLAS_FFAT=1) and on its XLA query
     (=0)."""
-    ref_c, port_c, neutral, _exact = COMBINES[name]
+    ref_c, port_c, neutral, exact = COMBINES[name]
     monkeypatch.setenv("WINDFLOW_PALLAS_FFAT", pallas)
     rng = np.random.default_rng(4)
     T, B = 500, 40
-    vals = rng.integers(0, 97, T).astype(np.float64)
+    vals = _values(name, rng, T, True).astype(np.float64)
     starts = rng.integers(0, T - 1, B)
     ends = np.minimum(starts + rng.integers(0, 80, B), T)
     gwids = np.arange(B, dtype=np.int64)
@@ -256,18 +285,19 @@ def test_engine_ffat_kind_matches_reference(name, pallas, monkeypatch):
     got = WindowComputeEngine(("ffat", port_c, neutral), device="cpu") \
         .compute({"value": vals}, starts, ends, gwids).block()
     assert got.shape == (B,)
-    np.testing.assert_array_equal(got, want)
+    _check(got, want, exact)
 
 
 def test_ffat_kind_with_a_non_kernel_combine_runs_on_the_cpu():
-    """A combine the kernel does not compile (here the non-commutative
-    left_weighted) still runs on the CPU, in the reference's order."""
+    """A user combine (here the non-commutative left_weighted, which no
+    kernel builds in) runs on the CPU through the plain version, in the
+    reference's order."""
     vals = np.arange(1.0, 41.0)
     starts, ends = np.array([0, 4, 7, 20]), np.array([3, 11, 40, 33])
     gwids = np.arange(4)
-    want = RefEngine(("ffat", _ref_left_weighted, 0.0)).compute(
+    want = RefEngine(("ffat", left_weighted, 0.0)).compute(
         {"value": vals}, starts, ends, gwids).block()
-    got = WindowComputeEngine(("ffat", fq._left_weighted, 0.0),
+    got = WindowComputeEngine(("ffat", left_weighted, 0.0),
                               device="cpu").compute(
         {"value": vals}, starts, ends, gwids).block()
     np.testing.assert_allclose(got, want, rtol=RTOL)

@@ -13,8 +13,13 @@ forests must be equal, and so must the results: exactly for max/min and
 for add on integer-valued data (every partial sum below 2^24), and
 within ``rtol=1e-5`` on random f32 and for the non-commutative
 ``left_weighted`` (in practice exact: both sides combine the same pairs
-in the same order).  The kernel itself is held against the plain version
-on the card by tests/test_torch_card.py and chip_smoke.py.
+in the same order).  The user combines no kernel builds in
+(``tests/torch_graphs.py``: a product, ``logaddexp``, a NaN-skipping max
+written with ``where``) run through the same steps: the arithmetic ones
+exactly, ``logaddexp`` within ``rtol=1e-5`` (jnp's and torch's exp/log1p
+forms may part by an ulp a combine).  The kernel itself is held against
+the plain version on the card by tests/test_torch_card.py and
+chip_smoke.py.
 """
 import numpy as np
 import pytest
@@ -26,20 +31,23 @@ from windflow_tpu_torch.ops.cuda import flatfat_query as fq
 from windflow_tpu_torch.ops.flatfat_torch import (BatchedFlatFAT,
                                                   pack_step, step_inputs)
 
+from torch_graphs import (PACKAGES, USER_EXACT, left_weighted,
+                          user_combines, user_values)
+
 RTOL = 1e-5
 
-
-def _ref_left_weighted(a, b):
-    return a * 0.5 + b
-
-
+_REF_USER, _PORT_USER = (user_combines(p) for p in PACKAGES)
 # name -> (reference combine, port combine, neutral)
 COMBINES = {
     "add": (jnp.add, torch.add, 0.0),
     "max": (jnp.maximum, torch.maximum, -np.inf),
     "min": (jnp.minimum, torch.minimum, np.inf),
-    "left_weighted": (_ref_left_weighted, fq._left_weighted, 0.0),
+    "left_weighted": (left_weighted, left_weighted, 0.0),
 }
+# the user combines the kernels compile from their torch ops
+USER = ("mul", "logaddexp", "where_max")
+COMBINES.update({name: (_REF_USER[name][0], _PORT_USER[name][0],
+                        _PORT_USER[name][1]) for name in USER})
 
 
 def _check(got, want, exact):
@@ -85,7 +93,8 @@ def test_packed_plain_matches_reference_runs(n, name, integer):
     with several runs per row, ring wrap, rows with windows but no run
     and empty steps."""
     ref_c, port_c, neutral = COMBINES[name]
-    exact = name in ("max", "min") or (name == "add" and integer)
+    exact = name in ("max", "min") or (name == "add" and integer) \
+        or USER_EXACT.get(name, False)
     rng = np.random.default_rng(n + len(name) + integer)
     K = 5
     a = RefForest(ref_c, neutral, K, n)
@@ -94,8 +103,9 @@ def test_packed_plain_matches_reference_runs(n, name, integer):
     for step in range(12):
         rows, starts, lens = _runs(rng, K, n, nxt)
         total = int(np.sum(lens))
-        vals = (rng.integers(0, 50, total) if integer
-                else rng.normal(size=total)).astype(np.float32)
+        vals = (user_values(name, rng, total) if name in USER
+                else (rng.integers(0, 50, total) if integer
+                      else rng.normal(size=total)).astype(np.float32))
         q_rows, q_s, q_e = _windows(rng, K, n, nxt)
         if step == 5:  # an empty step
             rows, starts, lens, vals = [], [], [], vals[:0]
@@ -130,7 +140,8 @@ def test_position_steps_match_reference(name):
         for i, k in enumerate(keys):  # arrival order per key
             ids[i] = nxt[k]
             nxt[k] += 1
-        vals = rng.integers(0, 50, len(keys)).astype(np.float32)
+        vals = (user_values(name, rng, len(keys)) if name in USER
+                else rng.integers(0, 50, len(keys)).astype(np.float32))
         q_rows, q_s, q_e = _windows(rng, K, n, nxt)
         if step % 3 == 2:
             a.update(keys, ids, vals)
@@ -139,8 +150,9 @@ def test_position_steps_match_reference(name):
         else:
             r1 = a.update_query(keys, ids, vals, q_rows, q_s, q_e)
             r2 = b.update_query(keys, ids, vals, q_rows, q_s, q_e)
-        _check(b.tree_numpy(), np.asarray(a.tree), name != "left_weighted")
-        _check(r2, r1, name != "left_weighted")
+        exact = USER_EXACT.get(name, True) and name != "left_weighted"
+        _check(b.tree_numpy(), np.asarray(a.tree), exact)
+        _check(r2, r1, exact)
     assert nxt.max() > n
 
 

@@ -194,8 +194,9 @@ def test_graph_defaults_to_cuda_and_raises_without_a_card():
 def test_resident_true_raises_naming_the_roadmap_item():
     """resident=True is ported.  A custom window function (ported too)
     is not a shape the resident lane serves: resident=True rejects it
-    as the reference does; a user FFAT combine on the card names its
-    ROADMAP item."""
+    as the reference does.  A user FFAT combine lowers for the card's
+    kernels; one that branches in Python on its operands cannot, and
+    raises ValueError (at bind, before a build)."""
     logic = _op("windflow_tpu_torch", resident=True,
                 device="cpu").stages()[0].replicas[0]
     assert logic._resident is not None and logic._native is None
@@ -205,6 +206,9 @@ def test_resident_true_raises_naming_the_roadmap_item():
         with pytest.raises(ValueError, match="eligible engine"):
             WinSeqTPU(lambda g, c, m: 0.0, WIN, SLIDE, wf.WinType.CB,
                       resident=True).stages()
-    from windflow_tpu_torch.ops.cuda.flatfat_query import require_kernel_op
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
-        require_kernel_op(lambda a, b: a * b)
+    from windflow_tpu_torch.ops.cuda.combine_lower import lower_combine
+    from windflow_tpu_torch.ops.cuda.flatfat_query import resolve_combine
+    assert lower_combine(lambda a, b: a * b) == \
+        "const float t0 = __fmul_rn(a, b); return t0;"
+    with pytest.raises(ValueError, match="control flow"):
+        resolve_combine(lambda a, b: a if a > b else b)

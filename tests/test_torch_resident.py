@@ -36,6 +36,28 @@ N_KEYS = 3
 # the reference's combine and the port's, by name
 ADD = {"windflow_tpu": jnp.add, "windflow_tpu_torch": torch.add}
 MAX = {"windflow_tpu": jnp.maximum, "windflow_tpu_torch": torch.maximum}
+# a user combine no kernel builds in (the card compiles it from its
+# torch ops): held within rtol 1e-5, as jnp.logaddexp and
+# torch.logaddexp may part by an ulp a combine
+LAE = {"windflow_tpu": jnp.logaddexp, "windflow_tpu_torch": torch.logaddexp}
+# name -> (combine by package, neutral)
+FFAT_COMBINES = {"add": (ADD, 0.0), "logaddexp": (LAE, -np.inf)}
+LAE_RTOL = 1e-5
+
+
+def _same_windows(got, want, name):
+    """Equal windows (keys, ids, and ts where carried); values exactly
+    for add, within LAE_RTOL for logaddexp."""
+    assert sorted(got) == sorted(want)
+    if name == "add":
+        assert got == want
+        return
+    g = np.array([np.ravel(got[k])[0] for k in sorted(want)], np.float64)
+    w = np.array([np.ravel(want[k])[0] for k in sorted(want)], np.float64)
+    np.testing.assert_allclose(g, w, rtol=LAE_RTOL, atol=0)
+    if isinstance(next(iter(want.values())), tuple):  # (value, ts)
+        assert [got[k][1] for k in sorted(want)] == \
+            [want[k][1] for k in sorted(want)]
 
 
 def _mod(pkg, path):
@@ -238,11 +260,11 @@ def _counted(pkg, n, sb, n_keys=N_KEYS, pace_s=0.0):
 # the resident FFAT forest
 # ---------------------------------------------------------------------------
 
-def _resident(pkg, win=512, slide=16, tb=False, combine=ADD):
+def _resident(pkg, win=512, slide=16, tb=False, combine=ADD, neutral=0.0):
     mod = _mod(pkg, "operators.tpu.ffat_resident")
     wt = importlib.import_module(pkg).WinType
     return mod.WinSeqFFATResidentLogic(
-        lambda t: t.value, combine[pkg], 0.0, win, slide,
+        lambda t: t.value, combine[pkg], neutral, win, slide,
         win_type=wt.TB if tb else wt.CB, **_dev(pkg))
 
 
@@ -338,36 +360,46 @@ class TestResidentFFAT:
             rep.eos_flush(out.append)
         assert {(r.key, r.id): r.value for r in out} == ref
 
-    def test_reference_snapshot_continues_in_port(self):
+    @pytest.mark.parametrize("name", list(FFAT_COMBINES))
+    def test_reference_snapshot_continues_in_port(self, name):
         """A reference resident forest checkpointed mid-stream resumes in
         the port (``convert.from_reference_state``) and emits the same
-        remaining windows as the uninterrupted reference run."""
+        remaining windows as the uninterrupted reference run -- under
+        add, and under a user combine (jnp.logaddexp in the reference,
+        torch.logaddexp in the port)."""
         from windflow_tpu_torch.convert import from_reference_state
+        combine, neutral = FFAT_COMBINES[name]
         n, half = 9000, 4500
-        full = _run_logic("windflow_tpu", _resident("windflow_tpu", 256, 32),
-                          n)
-        ref, out = _resident("windflow_tpu", 256, 32), []
+
+        def make(pkg):
+            return _resident(pkg, 256, 32, combine=combine, neutral=neutral)
+
+        full = _run_logic("windflow_tpu", make("windflow_tpu"), n)
+        ref, out = make("windflow_tpu"), []
         for c in range(0, half, 500):
             ref.svc(_batch("windflow_tpu", c, c + 500), 0, out.append)
         snap = pickle.loads(pickle.dumps(ref.state_dict()))
-        port = _resident("windflow_tpu_torch", 256, 32)
+        port = make("windflow_tpu_torch")
         port.load_state(from_reference_state(snap))
         np.testing.assert_array_equal(port.forest.tree_numpy(), snap["tree"])
         for c in range(half, n, 500):
             port.svc(_batch("windflow_tpu_torch", c, c + 500), 0,
                      out.append)
         port.eos_flush(out.append)
-        assert _flat(out) == full
+        _same_windows(_flat(out), full, name)
 
-    def test_operator_graph_matches_reference(self):
+    @pytest.mark.parametrize("name", list(FFAT_COMBINES))
+    def test_operator_graph_matches_reference(self, name):
+        combine, neutral = FFAT_COMBINES[name]
         got = {}
         for pkg in PACKAGES:
             op = _mod(pkg, "operators.tpu.ffat_resident").WinSeqFFATResident(
-                lambda t: t.value, ADD[pkg], 0.0, 256, 16, **_dev(pkg))
+                lambda t: t.value, combine[pkg], neutral, 256, 16,
+                **_dev(pkg))
             got[pkg], g = _graph(pkg, op, 24_000)
             entry = g.placements[0]
             assert entry["resident"] and entry["placement"] == "device"
-        assert got["windflow_tpu"] == got["windflow_tpu_torch"]
+        _same_windows(got["windflow_tpu_torch"], got["windflow_tpu"], name)
 
 
 def _records(pkg, lg, recs, out):
@@ -500,24 +532,31 @@ def _graph(pkg, op, n_events, n_keys=8, sb=4096, cfg=None):
     return out, g
 
 
-def _oracle15(n_events, n_keys, win, slide):
+def _oracle15(n_events, n_keys, win, slide, name="add"):
     """Every window of the stream law (key = e % keys, id = e // keys,
-    value = e % 97), CB partial tails at EOS included."""
+    value = e % 97), CB partial tails at EOS included: the sum, or for
+    logaddexp log(sum(exp(v))) as 96 + log of float64 prefix sums of
+    exp(v - 96)."""
     out = {}
     per = n_events // n_keys
     for k in range(n_keys):
         v = (np.arange(per) * n_keys + k) % 97
+        if name == "logaddexp":
+            v = np.exp(v - 96.0)
         c = np.concatenate([[0], np.cumsum(v)])
         w = 0
         while w * slide < per:
-            out[(k, w)] = float(c[min(w * slide + win, per)] - c[w * slide])
+            s = c[min(w * slide + win, per)] - c[w * slide]
+            out[(k, w)] = float(s if name == "add" else 96.0 + np.log(s))
             w += 1
     return out
 
 
+@pytest.mark.parametrize("name", list(FFAT_COMBINES))
 @pytest.mark.parametrize("op_name", ["win_seq_tpu", "win_seqffat_tpu",
                                      "key_ffat_tpu"])
-def test_ffat_rebuild_lane_matches_reference_and_oracle(op_name):
+def test_ffat_rebuild_lane_matches_reference_and_oracle(op_name, name):
+    combine, neutral = FFAT_COMBINES[name]
     win, slide, n = 512, 16, 40_960
     got = {}
     for pkg in PACKAGES:
@@ -526,20 +565,21 @@ def test_ffat_rebuild_lane_matches_reference_and_oracle(op_name):
               "inflight_depth": 8}
         if op_name == "win_seq_tpu":
             op = _mod(pkg, "operators.tpu.win_seq_tpu").WinSeqTPU(
-                ("ffat", ADD[pkg], 0.0), win, slide, wt, **kw)
+                ("ffat", combine[pkg], neutral), win, slide, wt, **kw)
         else:
             farms = _mod(pkg, "operators.tpu.farms_tpu")
             cls = (farms.WinSeqFFATTPU if op_name == "win_seqffat_tpu"
                    else farms.KeyFFATTPU)
-            op = cls(lambda t: t.value, (ADD[pkg], 0.0), win, slide, wt,
-                     **kw)
+            op = cls(lambda t: t.value, (combine[pkg], neutral), win, slide,
+                     wt, **kw)
         got[pkg], g = _graph(pkg, op, n)
         if pkg == "windflow_tpu_torch":
             entry = g.placements[0]
             assert entry["placement"] == "device" \
                 and entry["device"] == "cpu"
-    assert got["windflow_tpu_torch"] == got["windflow_tpu"] \
-        == _oracle15(n, 8, win, slide)
+    want = _oracle15(n, 8, win, slide, name)
+    _same_windows(got["windflow_tpu_torch"], got["windflow_tpu"], name)
+    _same_windows(got["windflow_tpu_torch"], want, name)
 
 
 def test_unported_farms_raise_naming_the_roadmap_item():

@@ -92,14 +92,24 @@ def test_cuda_is_the_default_and_raises_without_a_card():
 
 
 @pytest.mark.parametrize("kind", [lambda a, b: a * b])
-def test_unported_kinds_raise_naming_the_roadmap_item(kind):
-    """Custom window functions are ported (tests/test_torch_custom.py);
-    a user FFAT combine is not, on the card: binding such an ffat kind
-    to a CUDA device raises through this check, naming ROADMAP.md A7c."""
-    from windflow_tpu_torch.ops.cuda.flatfat_query import require_kernel_op
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
-        require_kernel_op(kind)
-    WindowComputeEngine(("ffat", kind, 1.0), device="cpu")  # CPU: runs
+def test_unported_kinds_raise_naming_the_roadmap_item(kind, monkeypatch):
+    """Custom window functions and user FFAT combines are ported: such an
+    ffat kind runs on the CPU, and its combine lowers for the card's
+    kernels.  Binding an ffat kind whose combine cannot be lowered to a
+    CUDA device raises ValueError at bind (the device faked here, so
+    the bind takes the card's branch without one)."""
+    from windflow_tpu_torch.ops import window_compute
+    from windflow_tpu_torch.ops.cuda.combine_lower import lower_combine
+    assert "__fmul_rn(a, b)" in lower_combine(kind)
+    cols, starts, ends, gwids = _launch(100, 10, 8, seed=4)
+    got = WindowComputeEngine(("ffat", kind, 1.0), device="cpu").compute(
+        cols, starts, ends, gwids).block()  # CPU: runs
+    assert np.isfinite(got).all()
+    monkeypatch.setattr(window_compute, "resolve_device", torch.device)
+    eng = WindowComputeEngine(("ffat", lambda a, b: a if a > b else b, 1.0))
+    with pytest.raises(ValueError, match="control flow"):
+        eng.bind("cuda")
+    assert eng.device is None
 
 
 def test_ffat_kind_works_on_the_cpu():

@@ -122,3 +122,56 @@ def both(make_op, n_keys=3, per_key=48, mode="DEFAULT", rtol=0.0,
     got, g = run_graph(PORT, make_op, n_keys, per_key, mode, config_kw)
     assert_same(got, want, rtol)
     return got, g
+
+
+# ---------------------------------------------------------------------------
+# user FFAT combines: compiled by no kernel, lowered into each one
+# ---------------------------------------------------------------------------
+
+def left_weighted(a, b):
+    """The reference tests' non-commutative combine (0.5 a is exact, so
+    every side rounds it alike): it shows that a fold keeps oldest ->
+    newest order.  The same function serves jnp and torch arrays."""
+    return a * 0.5 + b
+
+
+def user_combines(pkg):
+    """name -> (combine, neutral) of the user FFAT combines in package
+    ``pkg``'s array library (jnp for the reference, torch for the port):
+    ``left_weighted``, a product, ``logaddexp`` and a NaN-skipping max
+    written with ``where``."""
+    if pkg == PORT:
+        import torch as xp
+        mul = xp.mul
+    else:
+        import jax.numpy as xp
+        mul = xp.multiply
+
+    def where_max(a, b):
+        return xp.where(xp.isnan(a) | (b > a), b, a)
+
+    return {"left_weighted": (left_weighted, 0.0), "mul": (mul, 1.0),
+            "logaddexp": (xp.logaddexp, -np.inf),
+            "where_max": (where_max, -np.inf)}
+
+
+# the arithmetic ones are exact (both sides round every op alike in the
+# same order); logaddexp is held within rtol 1e-5: jnp.logaddexp and
+# torch.logaddexp take other exp/log1p forms and may part by an ulp a
+# combine, over a fold of up to ~2 log2(n) + 1 combines
+USER_EXACT = {"left_weighted": True, "mul": True, "logaddexp": False,
+              "where_max": True}
+USER_RTOL = 1e-5
+
+
+def user_values(name, rng, shape):
+    """f32 leaves for a user combine: near 1 for the product (no
+    overflow over a whole tree), with a few NaNs for the NaN-skipping
+    max, normal otherwise."""
+    if name == "mul":
+        return rng.uniform(0.9, 1.1, shape).astype(np.float32)
+    v = rng.normal(size=shape).astype(np.float32)
+    if name == "where_max" and v.size:
+        flat = v.reshape(-1)
+        flat[rng.integers(0, flat.size, max(1, flat.size // 16))] = np.nan
+    return v

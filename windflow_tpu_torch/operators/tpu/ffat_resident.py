@@ -10,8 +10,11 @@ of the reference (win_seqffat_gpu.hpp:150 ``rebuild`` flag;
 UpdateTreeLevel_Kernel, flatfat_gpu.hpp:68-82).  Every launch writes
 the new leaves, recomputes their root paths and answers its due windows
 in one launch of the fused FlatFAT kernel (ops/cuda/flatfat_query.cu,
-``wf_flatfat_update_query``), so ``combine`` is a binary torch function:
-``torch.add``, ``torch.maximum`` or ``torch.minimum`` on the card.
+``wf_flatfat_update_query``), so ``combine`` is a binary torch function
+that the kernel compiles in: ``torch.add``, ``torch.maximum``,
+``torch.minimum``, or any combine of the torch ops
+``ops/cuda/combine_lower.py`` lowers, built when the forest binds the
+card.
 
 ``device=`` names the torch device (None: the graph's
 ``RuntimeConfig.device``, bound by the planner, else the card on first
@@ -38,7 +41,7 @@ import torch
 
 from ...core.basic import OrderingMode, Pattern, RoutingMode, WinType
 from ...core.tuples import BasicRecord, TupleBatch
-from ...ops.cuda.flatfat_query import require_kernel_op
+from ...ops.cuda.flatfat_query import resolve_combine
 from ...ops.device import resolve_device
 from ...ops.flatfat_torch import BatchedFlatFAT
 from ...runtime.emitters import StandardEmitter
@@ -115,8 +118,8 @@ class WinSeqFFATResidentLogic(NodeLogic):
         and absent).  A forest that already holds state (a restored
         snapshot) moves there with its contents."""
         dev = resolve_device(device)
-        if dev.type == "cuda":
-            require_kernel_op(self.combine)
+        if dev.type == "cuda":  # a user combine is built here, or raises
+            resolve_combine(self.combine)
         if dev == self.device:
             return dev
         old = self._forest

@@ -25,10 +25,14 @@
 // writes NaN, so no input makes the kernel read outside the forest.
 //
 // The combine is a compile-time functor: a Python callable cannot run
-// in a CUDA kernel.  Instantiated for add, max and min (NaN-propagating,
-// as torch.maximum / torch.minimum), and for the reference tests'
-// non-commutative left_weighted(a, b) = 0.5 a + b, reached only through
-// its private op code to show on the card that the walk keeps order.
+// in a CUDA kernel.  Built as it stands, this file instantiates every
+// kernel for add, max and min (NaN-propagating, as torch.maximum /
+// torch.minimum), op codes 0-2.  A user combine is lowered from its
+// torch callable to C++ (combine_lower.py) and compiled in as UserOp:
+// a generated file defines WF_USER_COMBINE_BODY (the body of
+// `float op(float a, float b)`) and includes this one, which then
+// instantiates the kernels for UserOp alone, op code 3, in a library of
+// that combine's own -- as the Pallas kernel traces the JAX combine in.
 //
 // Bound: memory latency.  Per window the walk reads at most 2 (levels+1)
 // scattered nodes (one 4-byte load per 32-byte sector) and does as many
@@ -128,12 +132,36 @@ struct MinOp {
   }
 };
 
-// 0.5 * a is exact, so the fused and the unfused form round alike
-struct LeftWeightedOp {
+#ifdef WF_USER_COMBINE_BODY
+// the user combine: one __f*_rn intrinsic per arithmetic op, so nvcc
+// contracts nothing and the kernels round as eager torch does
+struct UserOp {
   __device__ __forceinline__ float operator()(float a, float b) const {
-    return __fadd_rn(__fmul_rn(a, 0.5f), b);
+    WF_USER_COMBINE_BODY
   }
 };
+#endif
+
+// fn(Op{}) for the functor of op code `op`; -1 for a code this build
+// does not instantiate
+template <typename Fn>
+int with_op(int64_t op, Fn&& fn) {
+  switch (op) {
+#ifdef WF_USER_COMBINE_BODY
+    case 3:
+      return fn(UserOp{});
+#else
+    case 0:
+      return fn(AddOp{});
+    case 1:
+      return fn(MaxOp{});
+    case 2:
+      return fn(MinOp{});
+#endif
+    default:
+      return -1;
+  }
+}
 
 template <typename Op>
 __global__ void __launch_bounds__(kThreads)
@@ -508,9 +536,10 @@ int launch_build_query(const float* leaves, int n, int levels,
 
 }  // namespace
 
-// op: 0 add, 1 max, 2 min, 3 left_weighted.  `rows` may be null (one
-// tree).  Launches on `stream`; returns the cudaError_t of the launch
-// (0 = ok), or -1 for an unknown op code.
+// op: 0 add, 1 max, 2 min (this file as it stands), 3 the user combine
+// (built with WF_USER_COMBINE_BODY).  `rows` may be null (one tree).
+// Launches on `stream`; returns the cudaError_t of the launch (0 = ok),
+// or -1 for an op code this build does not hold.
 extern "C" int wf_flatfat_query(const float* tree, int64_t n_leaves,
                                 int64_t levels, int64_t n_rows,
                                 const int32_t* rows, const int32_t* starts,
@@ -519,22 +548,10 @@ extern "C" int wf_flatfat_query(const float* tree, int64_t n_leaves,
                                 cudaStream_t stream) {
   if (n_windows <= 0) return 0;
   const int lv = static_cast<int>(levels);
-  switch (op) {
-    case 0:
-      return launch<AddOp>(tree, n_leaves, lv, n_rows, rows, starts, ends,
-                           out, n_windows, neutral, stream);
-    case 1:
-      return launch<MaxOp>(tree, n_leaves, lv, n_rows, rows, starts, ends,
-                           out, n_windows, neutral, stream);
-    case 2:
-      return launch<MinOp>(tree, n_leaves, lv, n_rows, rows, starts, ends,
-                           out, n_windows, neutral, stream);
-    case 3:
-      return launch<LeftWeightedOp>(tree, n_leaves, lv, n_rows, rows, starts,
-                                    ends, out, n_windows, neutral, stream);
-    default:
-      return -1;
-  }
+  return with_op(op, [&](auto o) {
+    return launch<decltype(o)>(tree, n_leaves, lv, n_rows, rows, starts,
+                               ends, out, n_windows, neutral, stream);
+  });
 }
 
 // The resident lanes' step: new leaves, their root paths, then every
@@ -542,7 +559,8 @@ extern "C" int wf_flatfat_query(const float* tree, int64_t n_leaves,
 // `runs` and `queries` are laid out as flatfat_update_query_kernel reads
 // them.  op codes as wf_flatfat_query.  Launches
 // on `stream`; returns the cudaError_t of the launch (0 = ok), -1 for an
-// unknown op code, -2 for sizes the kernel does not take.
+// op code this build does not hold, -2 for sizes the kernel does not
+// take.
 extern "C" int wf_flatfat_update_query(
     float* forest, int64_t n_leaves, int64_t levels, int64_t n_rows,
     const int32_t* groups, int64_t n_groups, const int32_t* runs,
@@ -557,23 +575,11 @@ extern "C" int wf_flatfat_update_query(
   const int n = static_cast<int>(n_leaves), lv = static_cast<int>(levels);
   const int g = static_cast<int>(n_groups), r = static_cast<int>(n_runs);
   const int q = static_cast<int>(n_queries), v = static_cast<int>(n_values);
-  switch (op) {
-    case 0:
-      return launch_fused<AddOp>(forest, n, lv, n_rows, groups, g, runs, r,
-                                 queries, q, values, v, out, neutral, stream);
-    case 1:
-      return launch_fused<MaxOp>(forest, n, lv, n_rows, groups, g, runs, r,
-                                 queries, q, values, v, out, neutral, stream);
-    case 2:
-      return launch_fused<MinOp>(forest, n, lv, n_rows, groups, g, runs, r,
-                                 queries, q, values, v, out, neutral, stream);
-    case 3:
-      return launch_fused<LeftWeightedOp>(forest, n, lv, n_rows, groups, g,
-                                          runs, r, queries, q, values, v, out,
-                                          neutral, stream);
-    default:
-      return -1;
-  }
+  return with_op(op, [&](auto o) {
+    return launch_fused<decltype(o)>(forest, n, lv, n_rows, groups, g, runs,
+                                     r, queries, q, values, v, out, neutral,
+                                     stream);
+  });
 }
 
 // The rebuild lane's launch: the tree over `leaves` [n] (n a power of
@@ -582,8 +588,8 @@ extern "C" int wf_flatfat_update_query(
 // answered into `out` [B], in one cooperative launch.  op codes as
 // wf_flatfat_query.  Launches on `stream`; returns the cudaError_t of
 // the launch (0 = ok; cudaErrorCooperativeLaunchTooLarge when the card
-// cannot hold the grid), -1 for an unknown op code, -2 for sizes the
-// kernel does not take.
+// cannot hold the grid), -1 for an op code this build does not hold, -2
+// for sizes the kernel does not take.
 extern "C" int wf_flatfat_build_query(const float* leaves, int64_t n_leaves,
                                       const int32_t* se, int64_t n_windows,
                                       float* nodes, float* out, float neutral,
@@ -596,20 +602,8 @@ extern "C" int wf_flatfat_build_query(const float* leaves, int64_t n_leaves,
   const int n = static_cast<int>(n_leaves);
   const int lv = 31 - __builtin_clz(static_cast<unsigned>(n));
   const int b = static_cast<int>(n_windows);
-  switch (op) {
-    case 0:
-      return launch_build_query<AddOp>(leaves, n, lv, se, b, nodes, out,
-                                       neutral, stream);
-    case 1:
-      return launch_build_query<MaxOp>(leaves, n, lv, se, b, nodes, out,
-                                       neutral, stream);
-    case 2:
-      return launch_build_query<MinOp>(leaves, n, lv, se, b, nodes, out,
-                                       neutral, stream);
-    case 3:
-      return launch_build_query<LeftWeightedOp>(leaves, n, lv, se, b, nodes,
-                                                out, neutral, stream);
-    default:
-      return -1;
-  }
+  return with_op(op, [&](auto o) {
+    return launch_build_query<decltype(o)>(leaves, n, lv, se, b, nodes, out,
+                                           neutral, stream);
+  });
 }

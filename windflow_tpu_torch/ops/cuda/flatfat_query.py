@@ -13,11 +13,16 @@ keeps oldest -> newest order; ``combine`` and ``neutral`` form a monoid.
 * On a CUDA tensor it launches ``flatfat_query.cu`` (one thread per
   window; built with nvcc for ``sm_90a`` into ``windflow_tpu_torch/
   _build/`` on first use and bound through ctypes) on the current
-  stream.  The kernel's combine is compiled in: ``torch.add``,
+  stream.  The kernel's combine is compiled in.  ``torch.add``,
   ``torch.maximum`` and ``torch.minimum`` (and the builtin names
-  ``sum``/``count``/``max``/``min``) launch it; any other combine raises
-  :func:`~windflow_tpu_torch._unported.unported` on the card.  A build
-  or launch failure raises: there is no fallback.
+  ``sum``/``count``/``max``/``min``) are in the library built from the
+  source as it stands; any other combine is lowered from its torch ops
+  to C++ (:mod:`.combine_lower`) and compiled into a library of its own,
+  ``_build/libwf_flatfat_query_<key>.so``, keyed by the lowered text.
+  :func:`resolve_combine` does both and returns a :class:`KernelCombine`
+  that every entry takes in place of the combine; it raises
+  ``ValueError`` for a combine that cannot be lowered.  A build or
+  launch failure raises: there is no fallback.
 * On a CPU tensor it runs :func:`flatfat_query_plain`, the torch form of
   the reference's ``_query_body`` (windflow_tpu/ops/flatfat_jax.py:149),
   for any torch combine.
@@ -36,7 +41,7 @@ post-update rows, returning f32 ``[Q]``.  ``inputs`` is a
 it).  It replaces the reference's fused program
 ``_batched_programs.update_runs_and_query`` (windflow_tpu/ops/
 flatfat_jax.py:188-207) and its Pallas query.  The same rules hold: the
-kernel on a CUDA tensor (or ``unported``), :func:`flatfat_update_query_plain`
+kernel on a CUDA tensor, :func:`flatfat_update_query_plain`
 on a CPU tensor, its own count in ``fused_launch_count()``.
 
 ``flatfat_build_query(leaves, se, combine, neutral)`` is the FFAT
@@ -50,6 +55,10 @@ int32 extents ``se [2, B]`` and returns f32 ``[B]``, 0 for a window with
 :func:`flatfat_build_query_plain` (:func:`build_tree`, the plain query,
 the reference's ``where``) on a CPU tensor, its own count in
 ``build_query_launch_count()``.
+
+Each count covers every combine; :func:`user_launch_counts` counts the
+launches of user-combine libraries apart, per entry, so a run can show
+that it went through a generated kernel.
 """
 from __future__ import annotations
 
@@ -57,66 +66,95 @@ import ctypes
 import os
 import subprocess
 import threading
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from ..._unported import unported
-from ...runtime.build import build_shared, nvcc_command
+from ...runtime.build import BUILD_DIR, build_shared, nvcc_command
+from .combine_lower import combine_key, lower_combine
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     "flatfat_query.cu")
 _LIB_NAME = "libwf_flatfat_query.so"
 
 _lib = None
-_lib_lock = threading.Lock()
+_builtin_lock = threading.Lock()
+_lib_lock = threading.Lock()  # the user-library tables
 _launches = 0
 _fused_launches = 0
 _build_query_launches = 0
 _count_lock = threading.Lock()
+# entry -> launches of user-combine libraries
+_ENTRIES = ("flatfat_query", "flatfat_update_query", "flatfat_build_query")
+_user_launches = dict.fromkeys(_ENTRIES, 0)
 
-def _left_weighted(a, b):
-    """The reference tests' non-commutative combine ``0.5 a + b``
-    (tests/test_tpu_operators.py, tests/test_resident.py).  The kernel
-    carries it under a private op code so a check on the card can show
-    that the walk keeps oldest -> newest order; it is no user combine."""
-    return a * 0.5 + b
-
-
-# combine -> the kernel's op code (flatfat_query.cu)
-_KERNEL_OPS = {torch.add: 0, torch.maximum: 1, torch.minimum: 2,
-               _left_weighted: 3,
-               "sum": 0, "count": 0, "max": 1, "min": 2}
+# combine -> the op code of the library built from flatfat_query.cu as
+# it stands; a user combine's library holds op code USER_OP only
+_BUILTIN_OPS = {torch.add: 0, torch.maximum: 1, torch.minimum: 2,
+                "sum": 0, "count": 0, "max": 1, "min": 2}
+USER_OP = 3
 _BUILTIN_FNS = {"sum": torch.add, "count": torch.add, "max": torch.maximum,
                 "min": torch.minimum}
 
+# lowered-body key -> its library; combine -> its KernelCombine
+_user_libs: Dict[str, ctypes.CDLL] = {}
+_user_lib_locks: Dict[str, threading.Lock] = {}
+_resolved: Dict[Any, "KernelCombine"] = {}
 
-def kernel_op(combine: Any) -> Optional[int]:
-    """The kernel's op code for ``combine``, or None when the kernel has
-    no compiled form of it."""
+
+class KernelCombine(NamedTuple):
+    """A combine resolved for the card: its torch function (what the
+    plain versions run), the library that holds its kernels and its op
+    code there; ``user`` marks a generated library."""
+    fn: Callable
+    lib: ctypes.CDLL
+    code: int
+    user: bool
+
+
+def builtin_op(combine: Any) -> Optional[int]:
+    """The op code of a builtin combine (compiled into the library
+    built from the source as it stands), or None."""
     try:
-        return _KERNEL_OPS.get(combine)
+        return _BUILTIN_OPS.get(combine)
     except TypeError:  # unhashable callable
         return None
 
 
-def require_kernel_op(combine: Any) -> int:
-    """The kernel's op code for ``combine``; raises ``unported`` when
-    the kernel has no compiled form of it (a combine that cannot run on
-    the card)."""
-    op = kernel_op(combine)
-    if op is None:
-        name = getattr(combine, "__qualname__", None) or repr(combine)
-        raise unported(f"the FFAT combine {name} on the card (the query "
-                       f"kernel compiles torch.add, torch.maximum and "
-                       f"torch.minimum)", "custom")
-    return op
+def resolve_combine(combine: Any) -> KernelCombine:
+    """``combine`` resolved for the kernels: a builtin to the shared
+    library's op code, any other torch callable lowered to C++ and
+    compiled into its own library (built on first use, shared by equal
+    combines).  Raises ``ValueError`` for a combine that cannot be
+    lowered.  Bind-time work: the engines resolve once and launch with
+    the result."""
+    if isinstance(combine, KernelCombine):
+        return combine
+    try:
+        hit = _resolved.get(combine)
+    except TypeError:  # unhashable: resolved every time
+        hit = None
+    if hit is not None:
+        return hit
+    code = builtin_op(combine)
+    if code is not None:
+        k = KernelCombine(torch_combine(combine), load_kernel(), code, False)
+    else:
+        k = KernelCombine(combine, load_user_kernel(lower_combine(combine)),
+                          USER_OP, True)
+    try:
+        _resolved[combine] = k
+    except TypeError:
+        pass
+    return k
 
 
 def torch_combine(combine: Any) -> Callable:
     """``combine`` as a binary torch function (builtin names resolved)."""
     if isinstance(combine, str):
         return _BUILTIN_FNS[combine]
+    if isinstance(combine, KernelCombine):
+        return combine.fn
     return combine
 
 
@@ -303,33 +341,92 @@ def flatfat_build_query_plain(leaves: torch.Tensor, se: torch.Tensor,
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
+def _bind(path: str) -> ctypes.CDLL:
+    """Load one library of flatfat_query.cu and type its three entries
+    (its own handle, symbols local: every library exports the same
+    names)."""
+    lib = ctypes.CDLL(path)
+    i64, ptr = ctypes.c_int64, ctypes.c_void_p
+    lib.wf_flatfat_query.restype = ctypes.c_int
+    lib.wf_flatfat_query.argtypes = [
+        ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, i64,
+        ptr]
+    lib.wf_flatfat_update_query.restype = ctypes.c_int
+    lib.wf_flatfat_update_query.argtypes = [
+        ptr, i64, i64, i64, ptr, i64, ptr, i64, ptr, i64, ptr, i64,
+        ptr, ctypes.c_float, i64, ptr]
+    lib.wf_flatfat_build_query.restype = ctypes.c_int
+    lib.wf_flatfat_build_query.argtypes = [
+        ptr, i64, ptr, i64, ptr, ptr, ctypes.c_float, i64, ptr]
+    return lib
+
+
+def _build(name: str, cmd, srcs) -> str:
+    try:
+        return build_shared(name, cmd, srcs)
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(
+            f"flatfat_query kernel build failed ({name}):\n{e.stderr}") \
+            from e
+
+
 def load_kernel() -> ctypes.CDLL:
-    """Build (once per source change) and bind the CUDA kernel."""
+    """Build (once per source change) and bind the library of the
+    builtin combines."""
     global _lib
+    with _builtin_lock:  # not _lib_lock: user builds go on meanwhile
+        if _lib is None:
+            _lib = _bind(_build(_LIB_NAME, nvcc_command(_SRC), [_SRC]))
+        return _lib
+
+
+def user_source(body: str) -> str:
+    """The generated source of a user combine's library: its lowered
+    body as ``WF_USER_COMBINE_BODY``, then flatfat_query.cu."""
+    return ("// Generated by windflow_tpu_torch/ops/cuda/flatfat_query.py: "
+            "the FlatFAT\n// kernels under one user FFAT combine "
+            "(combine_lower.py).\n"
+            f"#define WF_USER_COMBINE_BODY {body}\n"
+            '#include "flatfat_query.cu"\n')
+
+
+def load_user_kernel(body: str) -> ctypes.CDLL:
+    """Build (once per lowered body and source change) and bind the
+    library of one user combine: ``_build/libwf_flatfat_query_<key>.so``,
+    compiled from a generated file that defines the body and includes
+    flatfat_query.cu.  Threads and processes that ask for the same body
+    at once build it once (a lock per key here, ``build_shared``'s file
+    lock across processes)."""
+    key = combine_key(body)
     with _lib_lock:
-        if _lib is not None:
-            return _lib
+        lib = _user_libs.get(key)
+        if lib is not None:
+            return lib
+        lock = _user_lib_locks.setdefault(key, threading.Lock())
+    with lock:
+        lib = _user_libs.get(key)
+        if lib is not None:
+            return lib
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        gen = os.path.join(BUILD_DIR, f"wf_flatfat_query_{key}.cu")
+        text = user_source(body)
         try:
-            path = build_shared(_LIB_NAME, nvcc_command(_SRC), [_SRC])
-        except subprocess.CalledProcessError as e:
-            raise RuntimeError(
-                f"flatfat_query kernel build failed:\n{e.stderr}") from e
-        lib = ctypes.CDLL(path)
-        lib.wf_flatfat_query.restype = ctypes.c_int
-        lib.wf_flatfat_query.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_float, ctypes.c_int64, ctypes.c_void_p]
-        i64, ptr = ctypes.c_int64, ctypes.c_void_p
-        lib.wf_flatfat_update_query.restype = ctypes.c_int
-        lib.wf_flatfat_update_query.argtypes = [
-            ptr, i64, i64, i64, ptr, i64, ptr, i64, ptr, i64, ptr, i64,
-            ptr, ctypes.c_float, i64, ptr]
-        lib.wf_flatfat_build_query.restype = ctypes.c_int
-        lib.wf_flatfat_build_query.argtypes = [
-            ptr, i64, ptr, i64, ptr, ptr, ctypes.c_float, i64, ptr]
-        _lib = lib
+            with open(gen) as f:
+                same = f.read() == text
+        except OSError:
+            same = False
+        # rewritten only when it differs: its mtime is one of the
+        # library's sources, so a needless write would force a rebuild
+        if not same:
+            tmp = f"{gen}.{os.getpid()}.{threading.get_ident()}.tmp"
+            with open(tmp, "w") as f:
+                f.write(text)
+            os.replace(tmp, gen)
+        cmd = nvcc_command(gen, include_dirs=[os.path.dirname(_SRC)])
+        lib = _bind(_build(f"libwf_flatfat_query_{key}.so", cmd,
+                           [_SRC, gen]))
+        with _lib_lock:
+            _user_libs[key] = lib
         return lib
 
 
@@ -363,6 +460,33 @@ def reset_build_query_launch_count() -> None:
         _build_query_launches = 0
 
 
+def user_launch_counts() -> Dict[str, int]:
+    """Launches of user-combine libraries, per entry (``flatfat_query``,
+    ``flatfat_update_query``, ``flatfat_build_query``); each is also in
+    that entry's own count."""
+    with _count_lock:
+        return dict(_user_launches)
+
+
+def reset_user_launch_counts() -> None:
+    with _count_lock:
+        for e in _ENTRIES:
+            _user_launches[e] = 0
+
+
+def _counted(entry: str, k: KernelCombine) -> None:
+    global _launches, _fused_launches, _build_query_launches
+    with _count_lock:
+        if entry == "flatfat_query":
+            _launches += 1
+        elif entry == "flatfat_update_query":
+            _fused_launches += 1
+        else:
+            _build_query_launches += 1
+        if k.user:
+            _user_launches[entry] += 1
+
+
 def _check(tree: torch.Tensor, rows: Optional[torch.Tensor],
            starts: torch.Tensor, ends: torch.Tensor) -> None:
     if tree.dtype != torch.float32 or tree.dim() not in (1, 2):
@@ -386,16 +510,16 @@ def flatfat_query(tree: torch.Tensor, rows: Optional[torch.Tensor],
                   starts: torch.Tensor, ends: torch.Tensor, combine: Any,
                   neutral: float) -> torch.Tensor:
     """The per-window fold as f32 [B]: the CUDA kernel for a CUDA tensor
-    (compiled combines only), the plain version for a CPU tensor."""
-    global _launches
+    (``combine`` resolved by :func:`resolve_combine`, or a
+    :class:`KernelCombine` it returned), the plain version for a CPU
+    tensor."""
     _check(tree, rows, starts, ends)
     if tree.device.type == "cpu":
         return flatfat_query_plain(tree, rows, starts, ends, combine,
                                    neutral)
     if tree.device.type != "cuda":
         raise ValueError(f"unsupported device {tree.device}")
-    op = require_kernel_op(combine)
-    lib = load_kernel()
+    k = resolve_combine(combine)
     n_windows = starts.shape[0]
     out = torch.empty(n_windows, dtype=torch.float32, device=tree.device)
     if n_windows == 0:
@@ -404,16 +528,15 @@ def flatfat_query(tree: torch.Tensor, rows: Optional[torch.Tensor],
     n_rows = tree.numel() // two_n
     with torch.cuda.device(tree.device):
         stream = torch.cuda.current_stream(tree.device).cuda_stream
-        rc = lib.wf_flatfat_query(
+        rc = k.lib.wf_flatfat_query(
             tree.data_ptr(), two_n // 2, _levels(two_n // 2), n_rows,
             rows.data_ptr() if rows is not None else None,
             starts.data_ptr(), ends.data_ptr(), out.data_ptr(), n_windows,
-            float(neutral), op, stream)
+            float(neutral), k.code, stream)
     if rc != 0:
         raise RuntimeError(f"flatfat_query kernel launch failed: "
                            f"cudaError {rc}")
-    with _count_lock:
-        _launches += 1
+    _counted("flatfat_query", k)
     return out
 
 
@@ -440,16 +563,14 @@ def _check_fused(forest: torch.Tensor, inputs: FusedInputs) -> None:
 def flatfat_update_query(forest: torch.Tensor, inputs: FusedInputs,
                          combine: Any, neutral: float) -> torch.Tensor:
     """One resident-lane step as f32 [Q]: the fused CUDA kernel for a
-    CUDA forest (compiled combines only), the plain version for a CPU
-    one.  Updates ``forest`` in place."""
-    global _fused_launches
+    CUDA forest (``combine`` resolved as :func:`flatfat_query` takes it),
+    the plain version for a CPU one.  Updates ``forest`` in place."""
     _check_fused(forest, inputs)
     if forest.device.type == "cpu":
         return flatfat_update_query_plain(forest, inputs, combine, neutral)
     if forest.device.type != "cuda":
         raise ValueError(f"unsupported device {forest.device}")
-    op = require_kernel_op(combine)
-    lib = load_kernel()
+    k = resolve_combine(combine)
     Q = inputs.queries.shape[1]
     out = torch.empty(Q, dtype=torch.float32, device=forest.device)
     G = inputs.n_groups
@@ -458,18 +579,17 @@ def flatfat_update_query(forest: torch.Tensor, inputs: FusedInputs,
     two_n = forest.shape[-1]
     with torch.cuda.device(forest.device):
         stream = torch.cuda.current_stream(forest.device).cuda_stream
-        rc = lib.wf_flatfat_update_query(
+        rc = k.lib.wf_flatfat_update_query(
             forest.data_ptr(), two_n // 2, _levels(two_n // 2),
             forest.shape[0], inputs.groups.data_ptr(), G,
             inputs.runs.data_ptr(), inputs.runs.shape[1],
             inputs.queries.data_ptr(), Q, inputs.values.data_ptr(),
-            inputs.values.shape[0], out.data_ptr(), float(neutral), op,
+            inputs.values.shape[0], out.data_ptr(), float(neutral), k.code,
             stream)
     if rc != 0:
         raise RuntimeError(f"flatfat_update_query kernel launch failed: "
                            f"cudaError {rc}")
-    with _count_lock:
-        _fused_launches += 1
+    _counted("flatfat_update_query", k)
     return out
 
 
@@ -499,16 +619,15 @@ def flatfat_build_query(leaves: torch.Tensor, se: torch.Tensor,
                         combine: Any, neutral: float) -> torch.Tensor:
     """The tree over ``leaves`` and the fold of every window of ``se``
     as f32 [B] (0 where ``end <= start``): one launch of the fused CUDA
-    kernel for a CUDA tensor (compiled combines only), the plain version
-    for a CPU tensor."""
-    global _build_query_launches
+    kernel for a CUDA tensor (``combine`` resolved as
+    :func:`flatfat_query` takes it), the plain version for a CPU
+    tensor."""
     _check_build_query(leaves, se)
     if leaves.device.type == "cpu":
         return flatfat_build_query_plain(leaves, se, combine, neutral)
     if leaves.device.type != "cuda":
         raise ValueError(f"unsupported device {leaves.device}")
-    op = require_kernel_op(combine)
-    lib = load_kernel()
+    k = resolve_combine(combine)
     n_windows = se.shape[1]
     out = torch.empty(n_windows, dtype=torch.float32, device=leaves.device)
     if n_windows == 0:
@@ -519,12 +638,11 @@ def flatfat_build_query(leaves: torch.Tensor, se: torch.Tensor,
         # flight, each allocated on the stream it runs on
         nodes = torch.empty(n, dtype=torch.float32, device=leaves.device)
         stream = torch.cuda.current_stream(leaves.device).cuda_stream
-        rc = lib.wf_flatfat_build_query(
+        rc = k.lib.wf_flatfat_build_query(
             leaves.data_ptr(), n, se.data_ptr(), n_windows,
-            nodes.data_ptr(), out.data_ptr(), float(neutral), op, stream)
+            nodes.data_ptr(), out.data_ptr(), float(neutral), k.code, stream)
     if rc != 0:
         raise RuntimeError(f"flatfat_build_query kernel launch failed: "
                            f"cudaError {rc}")
-    with _count_lock:
-        _build_query_launches += 1
+    _counted("flatfat_build_query", k)
     return out

@@ -38,7 +38,7 @@ import torch
 
 from .cuda.flatfat_query import (FusedInputs, _levels, build_tree,
                                  flatfat_query, flatfat_update_query,
-                                 torch_combine)
+                                 resolve_combine, torch_combine)
 from .device import resolve_device, stream_context
 
 
@@ -169,6 +169,14 @@ class _OnDevice:
     def _ctx(self):
         return stream_context(self.device, self._stream)
 
+    def _kernel_combine(self, combine: Any) -> Any:
+        """The combine as the kernels take it: on the card resolved now
+        (a user combine lowered and built, or ``ValueError``), so no
+        launch builds or raises; on the CPU as given."""
+        if self.device.type == "cuda":
+            return resolve_combine(combine)
+        return combine
+
     def _put(self, host: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(host))
         if self.device.type == "cpu":
@@ -198,7 +206,7 @@ class BatchedFlatFAT(_OnDevice):
         self.n = _pow2_at_least(n_leaves, 2)
         self.n_keys = n_keys
         self.neutral = float(neutral)
-        self.combine = combine
+        self.combine = self._kernel_combine(combine)
         # leaves start as neutral; internal nodes of a neutral-filled
         # tree are neutral (monoid identity), so no build pass is needed
         with self._ctx():
@@ -301,7 +309,9 @@ class FlatFATTorch(_OnDevice):
     """Stateful single-tree wrapper (the twin of ``FlatFATJax``).
 
     ``combine`` must form a monoid with identity ``neutral``; it need
-    not be commutative -- fold order is preserved oldest->newest."""
+    not be commutative -- fold order is preserved oldest->newest.  On
+    the card it is resolved at construction (:class:`BatchedFlatFAT`
+    alike): a combine the kernels cannot compile raises there."""
 
     def __init__(self, combine: Callable, neutral: float, n_leaves: int,
                  device: Union[str, torch.device] = "cuda",
@@ -309,7 +319,7 @@ class FlatFATTorch(_OnDevice):
         super().__init__(device, stream)
         self.n = _pow2_at_least(n_leaves, 2)
         self.neutral = float(neutral)
-        self.combine = combine
+        self.combine = self._kernel_combine(combine)
         self.build(np.empty(0, np.float32))
 
     def build(self, leaves: np.ndarray) -> None:

@@ -39,7 +39,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from .cuda.flatfat_query import flatfat_build_query, require_kernel_op
+from .cuda.flatfat_query import flatfat_build_query, resolve_combine
 from .cuda.window_sum import next_pow2, window_sums
 from .device import resolve_device, stream_context
 from .flatfat_torch import BatchedFlatFAT
@@ -330,8 +330,10 @@ class WindowComputeEngine:
     or ``("ffat", combine, neutral)``: a FlatFAT tree over the flat
     buffer answers every window (the Win_SeqFFAT_GPU pipeline), with
     ``combine`` a binary torch function forming a monoid with
-    ``neutral``; on the card it must be one the FlatFAT query kernel
-    compiles (``torch.add``, ``torch.maximum``, ``torch.minimum``).
+    ``neutral``; on the card it is compiled into the FlatFAT kernels
+    (``torch.add``, ``torch.maximum`` and ``torch.minimum`` built in, any
+    other lowered from its torch ops when the engine binds the card:
+    ``ops/cuda/combine_lower.py``).
     ``device`` is the torch device the engine launches on; ``None``
     leaves the engine unbound until :meth:`bind` (the planner binds it
     to ``RuntimeConfig.device`` at graph start) and binds it to the CUDA
@@ -353,6 +355,8 @@ class WindowComputeEngine:
         self.value_col = value_col
         self.device: Optional[torch.device] = None
         self._stream = None
+        # the ffat combine as the kernels take it (resolved at bind)
+        self._ffat_combine = kind[1] if self.is_ffat else None
         if device is not None:
             self.bind(device)
         # one in-flight dispatch per ENGINE (farm replicas overlap
@@ -364,10 +368,13 @@ class WindowComputeEngine:
 
     def bind(self, device: Union[str, torch.device]) -> torch.device:
         """Fix the engine's device (raises when CUDA is asked for and
-        absent, and for an ffat combine the card has no kernel for)."""
+        absent).  On the card an ffat combine is resolved here: a user
+        combine is lowered and its kernels built now, off the launch
+        path, and one that cannot be lowered raises ``ValueError``."""
         dev = resolve_device(device)
-        if self.is_ffat and dev.type == "cuda":
-            require_kernel_op(self.kind[1])
+        if self.is_ffat:
+            self._ffat_combine = (resolve_combine(self.kind[1])
+                                  if dev.type == "cuda" else self.kind[1])
         self.device = dev
         self._stream = None
         return self.device
@@ -425,9 +432,9 @@ class WindowComputeEngine:
             # the twin of the reference's _ffat_program: the tree over the
             # flat buffer (padded with the neutral) and every window, in
             # one launch of the fused build+query kernel
-            _, comb, neutral = kind
+            neutral = kind[2]
             out = flatfat_build_query(put(cols[self.value_col], neutral),
-                                      se_dev, comb, neutral)
+                                      se_dev, self._ffat_combine, neutral)
         elif callable(kind):
             gw = np.zeros(B_pad, np.int64)
             gw[:B] = gwids

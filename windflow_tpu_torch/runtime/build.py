@@ -44,9 +44,10 @@ def _is_fresh(lib: str, srcs: Sequence[str], stamp: str,
         return False
 
 
-def nvcc_command(src: str) -> List[str]:
+def nvcc_command(src: str, include_dirs: Sequence[str] = ()) -> List[str]:
     """The nvcc command line that builds one ``.cu`` file with a plain C
-    interface into a shared library for Hopper (``sm_90a``)."""
+    interface into a shared library for Hopper (``sm_90a``), searching
+    ``include_dirs`` for its quoted includes."""
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     nvcc = os.path.join(home, "bin", "nvcc")
     if not os.path.exists(nvcc):
@@ -54,7 +55,8 @@ def nvcc_command(src: str) -> List[str]:
         if nvcc is None:
             raise RuntimeError("nvcc not found (set CUDA_HOME)")
     return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", OUT, src]
+            "-O3", "-shared", "-Xcompiler", "-fPIC"] \
+        + [f"-I{d}" for d in include_dirs] + ["-o", OUT, src]
 
 
 def build_shared(name: str, cmd: Sequence[str], srcs: Sequence[str],
