@@ -148,10 +148,36 @@ every phase passed):
 9. profile15 -- both FFAT lanes once more at the full 8M events under
    torch.profiler: device busy and idle share and the top device ops;
    the rebuild lane's only kernel must be the fused build+query kernel.
+10. models -- bench configs 5 and 6 through the port's own builders
+   (windflow_tpu_torch.models), at the bench's size, every window equal
+   to a numpy oracle exactly (bincounts of the re-timestamped pools;
+   Q7's maxima as float32 of the float64 max), each cell's kernel
+   counts set to 0 just before and read just after: count windows sum
+   per-pane counts with the window-sum kernel, once a batch, as the
+   reference does; max is the torch sparse-table program (no hand
+   kernel); the host lane launches nothing.
+   main5 -- Yahoo (bench.py:553-567): warm-up at 2M, then 16M events,
+   1,000 ads, 100 campaigns, TB window = slide = 2^20, source batch
+   2^20, device batch 4096, with the device step on and off (bitwise
+   equal); tuples/s, p50/p99 window latency, and vs_baseline against
+   the native record-plane twin (bench.py:615-647).
+   main6 q5 / q7 -- NEXMark Q5 (KeyFarmTPU("count"), window 2^18,
+   slide 2^17) and Q7 (Q1's map, WinSeqTPU("max"), tumbling 2^13) on
+   16M bids of 1,000 auctions, source batch 2^20, device batch 16,384,
+   8 in flight (bench.py:579-610, :2446-2460): warm-up at 2M, LEVEL0
+   and LEVEL2 (fused_delta), the native twin; Q5 also with
+   placement="host" and "auto", printing the planner's decision.
+   step models -- Q5, Q7 and Yahoo at 2M: device step on and off
+   bitwise equal, at most 2 launches per ingest chunk.
+   sparse_table -- the max kind's torch program at Q7's mean launch
+   (padded shape and sizes from the engine's launch_shapes): device
+   time, the bound of its sweeps and of the function, and
+   torch.segment_reduce over the same windows.
+   profile -- each model once more at 16M under torch.profiler.
 
 Then one JSON line describing each kernel (the window-sum kernel's
-launches: the headline's and phase 5b's; the three FlatFAT kernels
-twice: builtin, and compiled with torch.logaddexp, each with the
+launches: the headline's, phase 5b's and the models'; the three FlatFAT
+kernels twice: builtin, and compiled with torch.logaddexp, each with the
 launches of its own paths), the card line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -540,11 +566,15 @@ def oracle(n_events: int, power: int = 1):
 class LatencySink:
     """bench.py's window-latency sink: birth = emit stamp of the source
     chunk (``chunk`` events) carrying the window's closing tuple,
-    emission = arrival.  Takes result batches and result records."""
+    emission = arrival.  Takes result batches and result records.
+    ``closing(ids, keys)`` is the event index of each window's closing
+    tuple (default: the headline's law, ts = e // N_KEYS)."""
 
-    def __init__(self, stamps, chunk=SOURCE_BATCH):
+    def __init__(self, stamps, chunk=SOURCE_BATCH, closing=None):
         self.stamps = stamps
         self.chunk = chunk
+        self.closing = closing or (
+            lambda ids, keys: (ids * SLIDE + (WIN - 1)) * N_KEYS + keys)
         self.lock = threading.Lock()
         self.keys, self.ids, self.vals, self.lats = [], [], [], []
 
@@ -557,13 +587,13 @@ class LatencySink:
             vals = np.array([item.value], np.float64)
         else:
             keys, ids = np.asarray(item.key).copy(), np.asarray(item.id).copy()
-            vals = np.asarray(item["value"]).copy()
+            vals = np.asarray(item["value"], np.float64).copy()
         with self.lock:
             self.keys.append(keys)
             self.ids.append(ids)
             self.vals.append(vals)
-            closing = (ids * SLIDE + (WIN - 1)) * N_KEYS + keys
-            chunk = np.minimum(closing // self.chunk, len(self.stamps) - 1)
+            chunk = np.minimum(self.closing(ids, keys) // self.chunk,
+                               len(self.stamps) - 1)
             self.lats.extend((now - np.asarray(self.stamps)[chunk]).tolist())
 
 
@@ -646,21 +676,23 @@ def check_main(g, sink, n_events: int) -> int:
     logic = find_logic(g)
     if logic._native is None:
         raise AssertionError("[main] the native lane was not active")
-    return check_windows(sink, oracle(n_events), "main")
+    return len(check_windows(sink, oracle(n_events), "main")[0])
 
 
-def check_windows(sink, want, tag: str, rtol: float = 0.0) -> int:
+def check_windows(sink, want, tag: str, rtol: float = 0.0):
     """Every window the sink received, held against ``want`` (keys, ids,
-    values: exact, or within ``rtol`` of the float64 values); per key,
-    ids arrive in order."""
+    values sorted by key then id: exact, or within ``rtol`` of the
+    float64 values); per key, ids arrive in order and once.  Returns the
+    sink's windows sorted as ``want``."""
     keys = np.concatenate(sink.keys)
     ids = np.concatenate(sink.ids)
     vals = np.concatenate(sink.vals)
     # per key, windows are emitted in id order
-    for k in range(N_KEYS):
-        kid = ids[keys == k]
-        if len(kid) > 1 and not np.all(np.diff(kid) > 0):
-            raise AssertionError(f"[{tag}] key {k}: ids out of order")
+    by_key = np.argsort(keys, kind="stable")
+    k, i = keys[by_key], ids[by_key]
+    same = k[1:] == k[:-1]
+    if not np.all(i[1:][same] > i[:-1][same]):
+        raise AssertionError(f"[{tag}] a key's ids arrived out of order")
     ok, oi, ov = want
     if len(keys) != len(ok):
         raise AssertionError(f"[{tag}] {len(keys)} windows, oracle "
@@ -673,7 +705,7 @@ def check_windows(sink, want, tag: str, rtol: float = 0.0) -> int:
         bad = np.nonzero(vals[order] != ov)[0]
         raise AssertionError(f"[{tag}] windows differ from the oracle "
                              f"({len(bad)} values differ)")
-    return len(keys)
+    return keys[order], ids[order], vals[order]
 
 
 def profile_main(card: str) -> None:
@@ -784,8 +816,8 @@ def run_farm(cell: str, n_events: int, card: str, device="cuda"):
     kernel = (None if custom else
               "flatfat_update_query" if resident else "window_sum")
     launches = check_launches(cell, logics, counts, kernel)
-    windows = check_windows(sink, oracle(n_events, 2 if custom else 1),
-                            cell, RTOL_SQUARES if custom else 0.0)
+    windows = len(check_windows(sink, oracle(n_events, 2 if custom else 1),
+                                cell, RTOL_SQUARES if custom else 0.0)[0])
     p50, p99 = (float(np.percentile(sink.lats, q)) * 1e3 for q in (50, 99))
     batches = sum(lg.launched_batches for lg in logics)
     log(f"[{cell}] {n_events} events in {secs:.3f} s = "
@@ -2162,6 +2194,405 @@ def drive_flatfat_user(card: str) -> int:
     return users["flatfat_query"]
 
 
+# ---------------------------------------------------------------------------
+# 10. the application models: bench configs 5 and 6
+# ---------------------------------------------------------------------------
+
+# bench.py config 5 (run_yahoo, bench.py:553-567, run at :2440) and
+# config 6 (run_nexmark, :579-610, run at :2446-2460), at the bench's size
+N_MODEL = 16_000_000
+N_MODEL_WARM = 2_000_000      # bench.py:2453's per-query warm-up
+N_STEP_MODELS = 2_000_000
+YAHOO_WIN = 1 << 20
+YAHOO_ADS, YAHOO_CAMPAIGNS = 1000, 100
+NEX_BATCH = 4 * DEVICE_BATCH  # bench.py:597
+N_AUCTIONS = 1000
+Q5_WIN, Q5_SLIDE = 1 << 18, 1 << 17
+Q7_WIN = 1 << 13
+# query -> (window, slide) of its one window stage
+MODEL_WINDOWS = {"yahoo": (YAHOO_WIN, YAHOO_WIN), "q5": (Q5_WIN, Q5_SLIDE),
+                 "q7": (Q7_WIN, Q7_WIN)}
+# the models' device (the CPU only to rehearse the phases without a card)
+MODELS_DEVICE = "cuda"
+
+
+def stamp_source(g, stamps: list) -> None:
+    """Record when each batch leaves the graph's one batch source (the
+    head of a chain where the model chains its stages to it)."""
+    from windflow_tpu_torch.operators.batch_ops import BatchSourceLogic
+    from windflow_tpu_torch.runtime.node import ChainedLogic
+    heads = [n.logic for n in g._all_nodes()]
+    while any(isinstance(h, ChainedLogic) for h in heads):
+        heads = [h.a if isinstance(h, ChainedLogic) else h for h in heads]
+    (logic,) = [h for h in heads if isinstance(h, BatchSourceLogic)]
+    fn = logic.user_fn
+
+    def stamped():
+        batch = fn()
+        if batch is not None:
+            stamps.append(time.perf_counter())
+        return batch
+
+    logic.user_fn = stamped
+
+
+def run_model(query: str, n: int, opt_level=None, device_step: bool = True,
+              placement: str = "device"):
+    """One model through the port's own builder, as bench.py runs it:
+    Yahoo (build_pipeline), Q5 (build_q5_hot_items) or Q7
+    (build_q7_highest_bid).  Returns (graph, sink, seconds)."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.models import nexmark, yahoo
+    cfg = wf.RuntimeConfig(device=MODELS_DEVICE, device_step=device_step)
+    if opt_level is not None:
+        cfg.opt_level = opt_level
+    g = wf.PipeGraph(f"chip_smoke_{query}", wf.Mode.DEFAULT, config=cfg)
+    stamps: list = []
+    win, slide = MODEL_WINDOWS[query]
+    # the models' timestamps are the event index
+    sink = LatencySink(stamps,
+                       closing=lambda ids, _keys: ids * slide + win - 1)
+    if query == "yahoo":
+        yahoo.build_pipeline(g, n, n_ads=YAHOO_ADS,
+                             n_campaigns=YAHOO_CAMPAIGNS, win_len=YAHOO_WIN,
+                             slide_len=YAHOO_WIN, batch_size=SOURCE_BATCH,
+                             device_batch=DEVICE_BATCH, sink=sink,
+                             placement=placement)
+    elif query == "q5":
+        nexmark.build_q5_hot_items(g, n, Q5_WIN, Q5_SLIDE, sink,
+                                   n_auctions=N_AUCTIONS,
+                                   batch_size=SOURCE_BATCH,
+                                   device_batch=NEX_BATCH,
+                                   inflight_depth=INFLIGHT,
+                                   placement=placement)
+    else:
+        nexmark.build_q7_highest_bid(g, n, Q7_WIN, sink,
+                                     n_auctions=N_AUCTIONS,
+                                     batch_size=SOURCE_BATCH,
+                                     device_batch=NEX_BATCH,
+                                     inflight_depth=INFLIGHT,
+                                     placement=placement)
+    stamp_source(g, stamps)
+    t0 = time.perf_counter()
+    g.run()
+    return g, sink, time.perf_counter() - t0
+
+
+def pool_column(col: np.ndarray, n: int) -> np.ndarray:
+    """A pool column as the models' sources emit it: the pool's first
+    min(batch, n - i) entries at every batch start i."""
+    return np.concatenate([col[:min(SOURCE_BATCH, n - i)]
+                           for i in range(0, n, SOURCE_BATCH)])
+
+
+def count_windows(keys: np.ndarray, ts: np.ndarray, win: int, slide: int):
+    """(keys, ids, counts) of TB windows, sorted by key then id: pane
+    counts bincount(key * P + ts // slide), summed over win // slide
+    panes, for every window of a key up to its last timestamp."""
+    r = win // slide
+    assert r * slide == win
+    n_keys, P = int(keys.max()) + 1, int(ts.max()) // slide + 1
+    panes = np.bincount(keys * P + ts // slide,
+                        minlength=n_keys * P).reshape(n_keys, P)
+    c = np.concatenate([np.zeros((n_keys, 1), np.int64),
+                        np.cumsum(panes, axis=1)], axis=1)
+    w = np.arange(P)
+    wins = c[:, np.minimum(w + r, P)] - c[:, w]
+    seen = panes > 0
+    last = P - 1 - np.argmax(seen[:, ::-1], axis=1)
+    mask = (w[None, :] <= last[:, None]) & seen.any(axis=1)[:, None]
+    k, i = np.nonzero(mask)
+    return k, i, wins[mask].astype(np.float64)
+
+
+def model_oracle(query: str, n: int):
+    """numpy oracle of a model's windows, (keys, ids, values) sorted by
+    key then id: Yahoo's view counts per (campaign, window) and Q5's bid
+    counts per (auction, window) exactly; Q7's per-window max as float32
+    of the float64 max (rounding to f32 is monotone, so the max of the
+    rounded prices is the rounding of the max)."""
+    from windflow_tpu_torch.models import nexmark, yahoo
+    ts = np.arange(n, dtype=np.int64)
+    if query == "yahoo":
+        pool = yahoo.synth_events(SOURCE_BATCH, YAHOO_ADS, seed=0)
+        campaign = yahoo.make_campaign_map(YAHOO_ADS, YAHOO_CAMPAIGNS)
+        view = pool_column(pool["event_type"], n) == yahoo.VIEW
+        return count_windows(campaign[pool_column(pool["ad_id"], n)][view],
+                             ts[view], YAHOO_WIN, YAHOO_WIN)
+    pool = nexmark.synth_bids(SOURCE_BATCH, N_AUCTIONS)
+    if query == "q5":
+        return count_windows(pool_column(pool["auction"], n), ts, Q5_WIN,
+                             Q5_SLIDE)
+    prices = pool_column(pool["price"], n) * nexmark.DOL_TO_EUR
+    starts = np.arange(0, n, Q7_WIN)
+    best = np.maximum.reduceat(prices, starts).astype(np.float32)
+    return (np.zeros(len(starts), np.int64), np.arange(len(starts)),
+            best.astype(np.float64))
+
+
+def bitwise(a, b, tag: str) -> None:
+    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"[{tag}] results differ")
+
+
+def step_info(g) -> tuple:
+    """(ingest chunks, launches) summed over the graph's device-step
+    nodes, and how many there are."""
+    from windflow_tpu_torch.graph.device_step import DeviceStepLogic
+    steps = [n.logic for n in g._all_nodes()
+             if isinstance(n.logic, DeviceStepLogic)]
+    return (sum(s.chunks_in for s in steps),
+            sum(s.chunk_launches for s in steps), len(steps))
+
+
+def model_cell(tag: str, query: str, n: int, card: str, want=None, **kw):
+    """One model cell on the card, every kernel count set to 0 just
+    before and read just after: the windows held to the oracle, the
+    device engines on CUDA (device placement) and their kernel launches.
+    Count windows sum their per-pane counts, as the reference's do
+    (windflow_tpu/operators/tpu/win_seq_tpu.py:1029-1033): the
+    window-sum kernel, once a batch; max folds through its torch program
+    and launches no hand kernel; the host lane launches nothing.
+    Returns (graph, sorted rows, tuples/s, p50 ms, p99 ms, window-sum
+    launches, None on the host lane)."""
+    reset_counts()
+    g, sink, secs = run_model(query, n, **kw)
+    counts = read_counts()
+    on_device = [lg for lg in device_logics(g)
+                 if lg.resolved_placement != "host"]
+    if kw.get("placement", "device") == "device" and (
+            not on_device or any(lg.device is None
+                                 or lg.device.type != MODELS_DEVICE
+                                 for lg in on_device)):
+        raise AssertionError(f"[{tag}] device engines "
+                             f"{[str(lg.device) for lg in on_device]}")
+    if on_device:
+        launches = check_launches(tag, on_device, counts,
+                                  None if query == "q7" else "window_sum")
+    elif any(counts.values()):
+        raise AssertionError(f"[{tag}] kernels {counts} on the host lane")
+    else:
+        launches = None
+    rows = check_windows(sink, want if want is not None
+                         else model_oracle(query, n), tag)
+    p50, p99 = (float(np.percentile(sink.lats, q)) * 1e3 for q in (50, 99))
+    return g, rows, n / secs, p50, p99, launches
+
+
+def cell_line(n: int, rate: float, p50: float, p99: float, rows) -> str:
+    return (f"{n} events at {rate:.1f} tuples/s; {len(rows[0])} windows "
+            f"equal to the numpy oracle exactly; window latency p50 "
+            f"{p50:.3f} ms, p99 {p99:.3f} ms")
+
+
+def native_baseline(query: str, n: int) -> float:
+    """The native record-plane twin of a model (bench.py:615-686, the
+    port's NativeRecordPipeline): the same stream and windows through
+    the reference-architecture C++ engine (thread-per-stage, SPSC
+    rings), the models' filter/join/map applied as feed-side numpy.
+    Returns tuples/s."""
+    from windflow_tpu_torch.models import nexmark, yahoo
+    from windflow_tpu_torch.runtime.native import NativeRecordPipeline
+    rp = NativeRecordPipeline("threaded", 1)
+    win, slide = MODEL_WINDOWS[query]
+    rp.add_window(win, slide, True, "max" if query == "q7" else "count")
+    rp.set_feed()
+    if query == "yahoo":
+        pool = yahoo.synth_events(SOURCE_BATCH, YAHOO_ADS, seed=0)
+        campaign = yahoo.make_campaign_map(YAHOO_ADS, YAHOO_CAMPAIGNS)
+    else:
+        pool = nexmark.synth_bids(SOURCE_BATCH, N_AUCTIONS, 7)
+    ones = np.ones(SOURCE_BATCH, np.float64)
+    zeros = np.zeros(SOURCE_BATCH, np.int64)
+    t0 = time.perf_counter()
+    rp.start()
+    sent = 0
+    while sent < n:
+        m = min(SOURCE_BATCH, n - sent)
+        ts = sent + pool["ts"][:m]
+        if query == "yahoo":
+            view = pool["event_type"][:m] == yahoo.VIEW
+            ts = ts[view]
+            rp.feed(campaign[pool["ad_id"][:m][view]], ts, ts,
+                    ones[:len(ts)])
+        elif query == "q5":
+            rp.feed(pool["auction"][:m], ts, ts, ones[:m])
+        else:
+            rp.feed(zeros[:m], ts, ts, pool["price"][:m] * nexmark.DOL_TO_EUR)
+        sent += m
+    rp.feed_eos()
+    rp.wait()
+    return n / (time.perf_counter() - t0)
+
+
+def kernel_note(query: str, launches) -> str:
+    return ("the host lane: no kernel launched" if launches is None else
+            "no hand kernel launched (max: a torch program)"
+            if query == "q7" else
+            f"{launches} window-sum kernel launches = the batches, other "
+            f"kernels 0")
+
+
+def main5(card: str) -> int:
+    """[main5] bench config 5, Yahoo: a warm-up at 2M events (bench.py
+    runs config 5 in a process the configs before it warmed), then 16M
+    events with the device step on (the default) and off, bitwise equal
+    and exact; the native twin.  Returns the window-sum kernel's
+    launches."""
+    k1 = model_cell("main5 warm-up", "yahoo", N_MODEL_WARM, card)[-1]
+    want = model_oracle("yahoo", N_MODEL)
+    g, rows, rate, p50, p99, n_k1 = model_cell("main5", "yahoo", N_MODEL,
+                                               card, want)
+    k1 += n_k1
+    chunks, launches, _n = step_info(g)
+    _g, rows_off, rate_off, p50_off, p99_off, k1_off = model_cell(
+        "main5 step off", "yahoo", N_MODEL, card, want, device_step=False)
+    bitwise(rows, rows_off, "main5 step on/off")
+    base = native_baseline("yahoo", N_MODEL)
+    log(f"[main5] Yahoo (config 5): {cell_line(N_MODEL, rate, p50, p99, rows)}"
+        f"; {kernel_note('yahoo', n_k1)}; device step: {chunks} chunks, "
+        f"{launches} launches; step off: {rate_off:.1f} tuples/s, p50 "
+        f"{p50_off:.3f} ms, p99 {p99_off:.3f} ms, bitwise equal, {k1_off} "
+        f"window-sum launches; native record-plane twin {base:.1f} "
+        f"tuples/s, vs_baseline {rate / base:.3f} ({card})")
+    return k1 + k1_off
+
+
+def main6(query: str, card: str):
+    """[main6 q5] / [main6 q7] bench config 6's query: warm-up at 2M,
+    LEVEL0 and LEVEL2 at 16M (fused_delta), the native twin; for Q5
+    also placement host and auto.  Returns (the window-sum kernel's
+    launches, the LEVEL2 run's window engine)."""
+    import windflow_tpu_torch as wf
+    tag = f"main6 {query}"
+    k1 = model_cell(f"{tag} warm-up", query, N_MODEL_WARM, card)[-1]
+    want = model_oracle(query, N_MODEL)
+    rates = {}
+    for level in ("LEVEL0", "LEVEL2"):
+        g, rows, rates[level], p50, p99, n_k1 = model_cell(
+            f"{tag} {level}", query, N_MODEL, card, want,
+            opt_level=getattr(wf.OptLevel, level))
+        k1 += n_k1
+        line = cell_line(N_MODEL, rates[level], p50, p99, rows)
+        log(f"[{tag}] {level}: {line}"
+            f"{' (float32 of the float64 max)' if query == 'q7' else ''}; "
+            f"{kernel_note(query, n_k1)} ({card})")
+    engine = find_logic(g)
+    base = native_baseline(query, N_MODEL)
+    log(f"[{tag}] fused_delta (LEVEL2 / LEVEL0) "
+        f"{rates['LEVEL2'] / rates['LEVEL0']:.3f}; native record-plane "
+        f"twin {base:.1f} tuples/s, vs_baseline "
+        f"{rates['LEVEL2'] / base:.3f} ({card})")
+    for placement in (("host", "auto") if query == "q5" else ()):
+        g, rows, rate, p50, p99, n_k1 = model_cell(
+            f"{tag} {placement}", query, N_MODEL, card, want,
+            placement=placement)
+        k1 += n_k1 or 0
+        lanes = [{k: p[k] for k in ("placement", "reason", "device_rate_tps",
+                                    "host_rate_tps", "rtt_floor_ms")
+                  if k in p} for p in g.placements]
+        log(f"[{tag}] placement={placement}: "
+            f"{cell_line(N_MODEL, rate, p50, p99, rows)}; the planner "
+            f"placed {json.dumps(lanes)}; {kernel_note(query, n_k1)} "
+            f"({card})")
+    return k1, engine
+
+
+def step_models(card: str) -> int:
+    """[step models] Q5, Q7 and Yahoo at 2M events: the device step on
+    and off bitwise equal (and exact), at most 2 launches per ingest
+    chunk.  Returns the window-sum kernel's launches."""
+    k1 = 0
+    for query in ("q5", "q7", "yahoo"):
+        want = model_oracle(query, N_STEP_MODELS)
+        g, rows, *_, n_on = model_cell(f"step models {query}", query,
+                                       N_STEP_MODELS, card, want)
+        _g, rows_off, *_, n_off = model_cell(
+            f"step models {query} off", query, N_STEP_MODELS, card, want,
+            device_step=False)
+        k1 += n_on + n_off
+        bitwise(rows, rows_off, f"step models {query}")
+        chunks, launches, n_steps = step_info(g)
+        if n_steps != 1 or chunks <= 0 or launches > 2 * chunks:
+            raise AssertionError(f"[step models {query}] {n_steps} step "
+                                 f"nodes, {chunks} chunks, {launches} "
+                                 f"launches")
+        log(f"[step models] {query}: {N_STEP_MODELS} events, step on and "
+            f"off bitwise equal and exact ({len(rows[0])} windows); "
+            f"{chunks} chunks, {launches} launches = "
+            f"{launches / chunks:.3f} a chunk (<= 2); step on: "
+            f"{kernel_note(query, n_on)} ({card})")
+    return k1
+
+
+def sparse_table_reading(logic, card: str) -> None:
+    """[sparse_table] the max kind's torch program at Q7's launch shape
+    (the padded shape the LEVEL2 run launched most, with the mean
+    values and windows of its launches there, the windows laid end to
+    end as the tumbling windows are): torch.profiler's device time,
+    the bound, and torch.segment_reduce over the same windows."""
+    from windflow_tpu_torch.models import nexmark
+    from windflow_tpu_torch.ops.window_compute import _sparse_table
+    (T_pad, B_pad), (n_launch, T, B) = max(
+        logic.engine.launch_shapes.items(), key=lambda kv: kv[1][0])
+    T, B = -(-T // n_launch), -(-B // n_launch)   # the mean launch
+    n_levels = max(1, int(np.log2(T_pad)) + 1)
+    prices = nexmark.synth_bids(T, N_AUCTIONS)["price"] * nexmark.DOL_TO_EUR
+    values = torch.full((T_pad,), float("-inf"), device=MODELS_DEVICE)
+    values[:T] = torch.from_numpy(prices.astype(np.float32))
+    bounds = np.linspace(0, T, B + 1).astype(np.int64)
+    se = np.zeros((2, B_pad), np.int32)
+    se[0, :B], se[1, :B] = bounds[:-1], bounds[1:]
+    se = torch.from_numpy(se).to(MODELS_DEVICE)
+    lengths = torch.from_numpy(np.diff(bounds)).to(MODELS_DEVICE)
+    t_k = timed(lambda: _sparse_table(values, se, "max", n_levels))
+    t_lib = timed(lambda: torch.segment_reduce(values[:T], "max",
+                                               lengths=lengths))
+    got = _sparse_table(values, se, "max", n_levels)[:B].cpu().numpy()
+    lib = torch.segment_reduce(values[:T], "max",
+                               lengths=lengths).cpu().numpy()
+    want = np.maximum.reduceat(prices, bounds[:-1]).astype(np.float32)
+    if not (np.array_equal(got, want) and np.array_equal(lib, want)):
+        raise AssertionError("[sparse_table] window maxima differ")
+    # the program's n_levels sweeps, each level read and written once,
+    # with the extents and the output; and the function's own bytes
+    sweeps = bound_ms(8 * n_levels * T_pad + 12 * B_pad, n_levels * T_pad)
+    func = bound_ms(4 * T + 12 * B, T)
+    log(f"[sparse_table] _sparse_table('max') at Q7's launch shape T_pad "
+        f"{T_pad}, B_pad {B_pad} ({T} values, {B} windows end to end, "
+        f"{n_levels} levels; {n_launch} of the LEVEL2 run's "
+        f"{logic.launched_batches} launches): device {fmt(t_k)} ms "
+        f"(device (wall)); bound of its sweeps {sweeps[0]:.4g} ms "
+        f"({sweeps[1]}), of the function {func[0]:.4g} ms ({func[1]}); "
+        f"torch.segment_reduce {fmt(t_lib)} ms; all three equal to the "
+        f"float32 of the float64 max ({card})")
+
+
+def profile_model(query: str, card: str) -> None:
+    """A model at 16M events once more under torch.profiler (CUDA
+    activity only): the device's busy and idle share and its top device
+    ops; every window held against the oracle again."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _g, sink, secs = run_model(query, N_MODEL)
+    check_windows(sink, model_oracle(query, N_MODEL), f"profile {query}")
+    log(f"[profile {query}] {N_MODEL} events under the profiler: "
+        f"{profile_summary(prof, secs, 6)} ({card})")
+
+
+def main_models(card: str) -> int:
+    """Bench configs 5 and 6 and the device step on the models' graphs;
+    returns the window-sum kernel's launches on their paths."""
+    k1 = main5(card)
+    k1 += main6("q5", card)[0]
+    k1_q7, q7_engine = main6("q7", card)
+    k1 += k1_q7 + step_models(card)
+    sparse_table_reading(q7_engine, card)
+    for query in ("yahoo", "q5", "q7"):
+        profile_model(query, card)
+    return k1
+
+
 def kernel_entry(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2243,6 +2674,13 @@ def main() -> int:
     user15["flatfat_query"] = drive_flatfat_user(card)
     profile15(card, "rebuild", N15)
     profile15(card, "resident", N15)
+    log(f"[smoke] config 15 done at {time.perf_counter() - t_start:.1f} s")
+
+    # bench configs 5 and 6 (the application models); each cell driven
+    # with every launch count set to 0 just before it and read just
+    # after: count windows sum pane counts with the window-sum kernel,
+    # max is a torch program
+    launches += main_models(card)
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
     src = "windflow_tpu_torch/ops/cuda/flatfat_query.cu"

@@ -5,11 +5,14 @@ the FFAT rebuild lane against their plain versions, the engines,
 the headline graph, the resident lanes and the device farms (KeyFarmTPU
 coalesced and not, PaneFarmTPU fused at LEVEL2, a custom window
 function) on CUDA against the same on the CPU, one kernel launch per
-launched batch.  The three FlatFAT kernels run every combine: the
-builtins and user combines compiled from their torch ops into a library
-of their own (a product, ``logaddexp``, a NaN-skipping max written with
-``where``, and ``left_weighted``), counted apart; a combine that cannot
-be lowered raises ValueError when it is bound to the card.
+launched batch; the application models (the Yahoo step against its CPU
+run, NEXMark Q5 and Q7 against their numpy oracles: Q5's count windows
+launch the window-sum kernel once a batch, Q7's max none).  The three
+FlatFAT kernels run every combine: the builtins and user combines
+compiled from their torch ops into a library of their own (a product,
+``logaddexp``, a NaN-skipping max written with ``where``, and
+``left_weighted``), counted apart; a combine that cannot be lowered
+raises ValueError when it is bound to the card.
 
 This file imports neither jax nor the reference package, so it runs
 where the card is:
@@ -49,7 +52,7 @@ from windflow_tpu_torch.operators.tpu.farms_tpu import (KeyFarmTPU,
 from windflow_tpu_torch.runtime.node import ChainedLogic, FusedLogic
 
 from torch_graphs import (PORT, USER_EXACT, USER_RTOL, left_weighted,
-                          user_combines, user_values)
+                          q5_oracle, q7_oracle, user_combines, user_values)
 
 pytestmark = pytest.mark.cuda
 
@@ -623,3 +626,80 @@ def test_device_farm_on_the_card_matches_the_cpu(farm):
     assert batches > 0
     assert ws.launch_count() == (0 if farm == "custom" else batches)
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# the application models (models/yahoo.py, models/nexmark.py)
+# ---------------------------------------------------------------------------
+
+def _hand_kernel_launches():
+    return (ws.launch_count(), fq.launch_count(), fq.fused_launch_count(),
+            fq.build_query_launch_count())
+
+
+@pytest.mark.parametrize("shape", [(10, 4, 256), (100, 8, 1024)])
+def test_yahoo_step_on_the_card_matches_the_cpu(shape):
+    """make_step with its default device runs on the card (numpy inputs
+    go there, CUDA tensors stay); the counts equal the CPU run's
+    exactly (whole numbers below 2^24)."""
+    from windflow_tpu_torch.models import yahoo
+    n_campaigns, n_windows, win_len = shape
+    args = yahoo.example_step_args(n_campaigns=n_campaigns,
+                                   n_windows=n_windows, win_len=win_len)
+    want = yahoo.make_step(*shape, device="cpu")(*args)
+    got = yahoo.make_step(*shape)(*args)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    got_t = yahoo.make_step(*shape, device="cpu")(
+        *(torch.as_tensor(a).cuda() for a in args))
+    assert got_t.device.type == "cuda"
+    np.testing.assert_array_equal(got_t.cpu().numpy(), want.numpy())
+
+
+def _model_table(build, kernel):
+    """Run a models graph on the card (the default RuntimeConfig);
+    returns {(key, id): value}.  Count windows sum their per-pane counts
+    with the window-sum kernel, once a batch (``kernel``); max is a
+    torch program: no hand kernel launched (``kernel=False``)."""
+    rows = {}
+
+    def sink(item):
+        if item is None:
+            return
+        if hasattr(item, "cols"):
+            rows.update(zip(zip(np.asarray(item.key).tolist(),
+                                np.asarray(item.id).tolist()),
+                            np.asarray(item["value"]).tolist()))
+        else:
+            rows[(item.key, item.id)] = item.value
+
+    g = wf.PipeGraph("model", wf.Mode.DEFAULT)
+    build(g, sink)
+    before = _hand_kernel_launches()
+    g.run()
+    after = _hand_kernel_launches()
+    logics = _device_logics(g)
+    assert logics and all(lg.device.type == "cuda" for lg in logics)
+    batches = sum(lg.launched_batches for lg in logics)
+    assert batches > 0
+    assert after == (before[0] + (batches if kernel else 0),) + before[1:]
+    return rows
+
+
+def test_q5_on_the_card_matches_the_oracle():
+    from windflow_tpu_torch.models import nexmark
+    N, NA, WINL, SL = 60_000, 40, 8192, 4096
+    got = _model_table(lambda g, sink: nexmark.build_q5_hot_items(
+        g, N, WINL, SL, sink, n_auctions=NA, batch_size=16_384,
+        device_batch=512), kernel=True)
+    assert got == q5_oracle(PORT, N, NA, WINL, SL, 16_384)
+
+
+def test_q7_on_the_card_matches_the_oracle():
+    from windflow_tpu_torch.models import nexmark
+    N, WINL = 60_000, 10_000
+    got = _model_table(lambda g, sink: nexmark.build_q7_highest_bid(
+        g, N, WINL, sink, batch_size=16_384, device_batch=256),
+        kernel=False)
+    assert {i: v for (_k, i), v in got.items()} == \
+        q7_oracle(PORT, N, WINL, 16_384)

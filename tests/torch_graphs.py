@@ -175,3 +175,57 @@ def user_values(name, rng, shape):
         flat = v.reshape(-1)
         flat[rng.integers(0, flat.size, max(1, flat.size // 16))] = np.nan
     return v
+
+
+# ---------------------------------------------------------------------------
+# numpy oracles of the application models (models/yahoo.py, nexmark.py)
+# ---------------------------------------------------------------------------
+
+def tb_counts(keys, ts, win, slide):
+    """{(key, w): count}: window w of a key covers ts [w*slide,
+    w*slide + win), for every w up to the key's last timestamp."""
+    out = {}
+    for k in np.unique(keys):
+        kts = ts[keys == k]
+        w = np.arange(int(kts.max()) // slide + 1)
+        lo = np.searchsorted(np.sort(kts), w * slide)
+        hi = np.searchsorted(np.sort(kts), w * slide + win)
+        out.update({(int(k), int(i)): float(n) for i, n in zip(w, hi - lo)})
+    return out
+
+
+def pool_concat(col, pool_n, n):
+    """A column of the models' re-timestamped pool: the first
+    min(pool_n, n - i) entries for every batch start i."""
+    return np.concatenate([col[:min(pool_n, n - i)]
+                           for i in range(0, n, pool_n)])
+
+
+def yahoo_oracle(pkg, n, n_ads, n_campaigns, win, batch):
+    """{(campaign, w): view count} of the Yahoo pipeline's tumbling
+    windows, the stream made by package ``pkg``'s generators."""
+    yahoo = mod(pkg, "models.yahoo")
+    pool = yahoo.synth_events(batch, n_ads, seed=0)
+    camp = yahoo.make_campaign_map(n_ads, n_campaigns)
+    ad = pool_concat(pool["ad_id"], batch, n)
+    view = pool_concat(pool["event_type"], batch, n) == yahoo.VIEW
+    return tb_counts(camp[ad][view], np.arange(n)[view], win, win)
+
+
+def q5_oracle(pkg, n, n_auctions, win, slide, batch):
+    """{(auction, w): bid count} of NEXMark Q5's sliding windows."""
+    pool = mod(pkg, "models.nexmark").synth_bids(batch, n_auctions)
+    return tb_counts(pool_concat(pool["auction"], batch, n),
+                     np.arange(n), win, slide)
+
+
+def q7_oracle(pkg, n, win, batch):
+    """{w: float32 of the float64 max} of NEXMark Q7's tumbling windows,
+    every window up to the last timestamp (the last one partial):
+    rounding to f32 is monotone, so the max of the rounded prices is the
+    rounding of the max."""
+    nx = mod(pkg, "models.nexmark")
+    prices = pool_concat(nx.synth_bids(batch, 1000)["price"], batch, n) \
+        * nx.DOL_TO_EUR
+    return {w: float(np.float32(prices[w * win:(w + 1) * win].max()))
+            for w in range((n - 1) // win + 1)}

@@ -7,7 +7,6 @@ partial or silent substitute.
 from __future__ import annotations
 
 ROADMAP_ITEMS = {
-    "models": "ROADMAP.md A9 (models)",
     "host_planes": "ROADMAP.md A10 (remaining host planes)",
     "mesh": "ROADMAP.md A11 (mesh plane)",
 }

@@ -1,0 +1,345 @@
+"""NEXMark-style query set: the second benchmark application family
+(the port of ``windflow_tpu/models/nexmark.py``).
+
+The reference ships its workloads as self-checking test pipelines
+(tests/mp_tests_*); the NEXMark auction queries are the streaming
+community's standard benchmark shapes, expressed here on the columnar
+plane with the device window operators:
+
+* Q1 currency conversion -- stateless BatchMap (price * rate)
+* Q2 selection           -- stateless BatchFilter (auction id set)
+* Q5 hot items           -- per-auction sliding-window bid counts,
+                            KeyFarmTPU 'count' (key_farm_gpu.hpp shape)
+* Q7 highest bid         -- global per-window maximum price,
+                            WinSeqTPU 'max' (win_seq_gpu.hpp shape)
+
+With the event-time relational plane (eventtime/; docs/EVENTTIME.md)
+the remaining relational queries complete the set, each with a numpy
+oracle (``qN_oracle``) that doubles as the eager baseline twin for the
+bench gate:
+
+* Q3 local item suggestion -- persons |><| auctions on seller
+                              (incremental full-history IntervalJoin)
+* Q4 average price per category -- auctions |><| bids per window,
+                              closing price = per-auction max, averaged
+                              per category (WindowJoin + window agg)
+* Q6 average selling price per seller -- same join, averaged per seller
+* Q8 monitor new users -- persons |><| auctions-by-seller per window
+                              (who registered AND sold in the window)
+
+The event-time plane is not ported yet (ROADMAP.md A10): the Q3, Q4,
+Q6 and Q8 graph builders raise ``NotImplementedError`` when called; their
+generators and oracles are here in full.
+
+Synthetic bid stream: (auction, bidder, price, ts), ts dense; persons
+and auctions streams carry dense event times over the same axis.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .._unported import unported
+
+
+def _eventtime():
+    return unported("eventtime (the event-time plane)", "host_planes")
+
+DOL_TO_EUR = 0.9
+
+
+def synth_bids(n_bids: int, n_auctions: int = 1000, seed: int = 7,
+               ts_start: int = 0):
+    """Columnar synthetic bid stream (NEXMark generator analogue)."""
+    rng = np.random.default_rng(seed)
+    return {
+        "auction": rng.integers(0, n_auctions, n_bids, dtype=np.int64),
+        "bidder": rng.integers(0, 10_000, n_bids, dtype=np.int64),
+        "price": rng.integers(1, 10_000, n_bids).astype(np.float64),
+        "ts": ts_start + np.arange(n_bids, dtype=np.int64),
+    }
+
+
+def bid_batches(n_bids: int, batch_size: int = 65_536,
+                n_auctions: int = 1000, seed: int = 7):
+    """BatchSource body emitting the synthetic bid stream as
+    TupleBatches keyed by auction (price in the value column)."""
+    from ..core.tuples import TupleBatch
+
+    pool = synth_bids(batch_size, n_auctions, seed)
+    state = {"sent": 0}
+
+    def source(ctx):
+        i = state["sent"]
+        if i >= n_bids:
+            return None
+        n = min(batch_size, n_bids - i)
+        ts = i + pool["ts"][:n]
+        state["sent"] = i + n
+        return TupleBatch({
+            "key": pool["auction"][:n], "id": ts, "ts": ts,
+            "value": pool["price"][:n],
+            "bidder": pool["bidder"][:n],
+        })
+
+    return source
+
+
+def q1_currency(batch):
+    """Q1: dollar -> euro conversion (BatchMap body)."""
+    return batch.with_cols(value=batch["value"] * DOL_TO_EUR)
+
+
+def make_q2_selection(auction_ids):
+    """Q2: keep only bids on the given auctions (BatchFilter body)."""
+    wanted = np.asarray(sorted(auction_ids), dtype=np.int64)
+
+    def q2(batch):
+        return np.isin(batch.key, wanted)
+
+    return q2
+
+
+def build_q5_hot_items(graph, n_bids: int, win_len: int, slide_len: int,
+                       sink, n_auctions: int = 1000,
+                       batch_size: int = 65_536, device_batch: int = 4096,
+                       parallelism: int = 1, inflight_depth: int = None,
+                       placement: str = "device"):
+    """Q5: per-auction bid counts over sliding time windows.  The
+    'hottest item' reduction is the sink's fold (max over each window
+    epoch); the windowed counts are the device-parallel part.
+    ``placement`` feeds the cost-based planner (docs/PLANNER.md):
+    'auto' lets it pick the device or host lane per measured costs."""
+    from ..core.basic import WinType
+    from ..operators.basic_ops import Sink
+    from ..operators.batch_ops import BatchSource
+    from ..operators.tpu.farms_tpu import KeyFarmTPU
+
+    from ..operators.tpu.win_seq_tpu import DEFAULT_INFLIGHT_DEPTH
+    counter = KeyFarmTPU("count", win_len, slide_len, WinType.TB,
+                         parallelism=parallelism, batch_len=device_batch,
+                         name="q5_counts", emit_batches=True,
+                         inflight_depth=(inflight_depth
+                                         or DEFAULT_INFLIGHT_DEPTH),
+                         placement=placement)
+    graph.add_source(BatchSource(
+        bid_batches(n_bids, batch_size, n_auctions))) \
+        .add(counter).add_sink(Sink(sink, name="q5_sink"))
+    return graph
+
+
+def build_q7_highest_bid(graph, n_bids: int, win_len: int, sink,
+                         n_auctions: int = 1000,
+                         batch_size: int = 65_536,
+                         device_batch: int = 4096,
+                         inflight_depth: int = None,
+                         placement: str = "device"):
+    """Q7: highest price per tumbling window across ALL bids.  Bids are
+    funneled onto one key (the reference expresses global windows the
+    same way: a single keyed substream), Q1-converted first."""
+    from ..core.tuples import TupleBatch
+    from ..operators.basic_ops import Sink
+    from ..operators.batch_ops import BatchMap, BatchSource
+    from ..operators.tpu.win_seq_tpu import WinSeqTPU
+    from ..core.basic import WinType
+
+    def to_global_key(batch):
+        return TupleBatch({
+            "key": np.zeros(len(batch), np.int64),
+            "id": batch.id, "ts": batch.ts,
+            "value": batch["value"] * DOL_TO_EUR,
+        })
+
+    from ..operators.tpu.win_seq_tpu import DEFAULT_INFLIGHT_DEPTH
+    op = WinSeqTPU("max", win_len, win_len, WinType.TB,
+                   batch_len=device_batch, name="q7_max",
+                   inflight_depth=inflight_depth or DEFAULT_INFLIGHT_DEPTH,
+                   placement=placement)
+    graph.add_source(BatchSource(
+        bid_batches(n_bids, batch_size, n_auctions))) \
+        .chain(BatchMap(to_global_key)) \
+        .add(op).add_sink(Sink(sink, name="q7_sink"))
+    return graph
+
+
+# ---------------------------------------------------------------------------
+# Relational queries on the event-time plane (eventtime/;
+# docs/EVENTTIME.md): Q3 / Q4 / Q6 / Q8
+# ---------------------------------------------------------------------------
+
+def synth_persons(n: int, n_cities: int = 10, seed: int = 11,
+                  ts_stride: int = 3):
+    """Synthetic person registrations: person ids dense (= join key for
+    Q3/Q8), a city attribute, event time ``i * ts_stride``."""
+    rng = np.random.default_rng(seed)
+    return {
+        "person": np.arange(n, dtype=np.int64),
+        "city": rng.integers(0, n_cities, n, dtype=np.int64),
+        "ts": np.arange(n, dtype=np.int64) * ts_stride,
+    }
+
+
+def synth_auctions(n: int, n_sellers: int = 100, n_categories: int = 8,
+                   seed: int = 13, ts_stride: int = 2):
+    """Synthetic auction openings: auction ids dense, a seller drawn
+    from the person id space, a category, event time ``i * ts_stride``."""
+    rng = np.random.default_rng(seed)
+    return {
+        "auction": np.arange(n, dtype=np.int64),
+        "seller": rng.integers(0, n_sellers, n, dtype=np.int64),
+        "category": rng.integers(0, n_categories, n, dtype=np.int64),
+        "ts": np.arange(n, dtype=np.int64) * ts_stride,
+    }
+
+
+def _record_source(keys, tss, values, every: int = 32,
+                   skew: float = None):
+    """Watermarked shipper-style source over parallel arrays (one
+    record per step; the event-time queries are record-plane)."""
+    raise _eventtime()
+
+
+def build_q3_local_items(graph, persons, auctions, sink,
+                         cities=(0, 1), category: int = 2,
+                         parallelism: int = 1):
+    """Q3: for persons in ``cities``, the auctions of category
+    ``category`` they sell -- an incremental full-history join
+    (persons |><| auctions on seller; unbounded IntervalJoin, so
+    neither side is ever evicted).  Sinked records: key = person id,
+    value = (city, auction id)."""
+    raise _eventtime()
+
+
+def q3_oracle(persons, auctions, cities=(0, 1), category: int = 2):
+    """Numpy oracle / eager baseline twin for Q3: the sorted multiset
+    of (person, city, auction) matches."""
+    p_keep = np.isin(persons["city"], np.asarray(cities, dtype=np.int64))
+    a_keep = auctions["category"] == category
+    by_seller = {}
+    for pid, city in zip(persons["person"][p_keep],
+                         persons["city"][p_keep]):
+        by_seller.setdefault(int(pid), []).append(int(city))
+    out = []
+    for seller, auc in zip(auctions["seller"][a_keep],
+                           auctions["auction"][a_keep]):
+        for city in by_seller.get(int(seller), ()):
+            out.append((int(seller), city, int(auc)))
+    return sorted(out)
+
+
+def _closing_price_agg(pairs):
+    """Q4/Q6 window aggregate over (auction, price) pairs: closing
+    price = max bid per auction, averaged over the auctions seen."""
+    best = {}
+    for auc, price in pairs:
+        if auc not in best or price > best[auc]:
+            best[auc] = price
+    return sum(best.values()) / len(best)
+
+
+def _build_auction_bid_join(graph, auctions, bids, win_len,
+                            out_key, parallelism):
+    """Shared Q4/Q6 front: auctions |><| bids on auction id per
+    tumbling window; the joined record carries ((re-key attr),
+    (auction, price)) so the downstream window can re-key."""
+    raise _eventtime()
+
+
+def _rekey_joined(merged, name):
+    """Re-key the joined (attr, price) record stream by attr, keeping
+    (auction-key, price) as the value for the closing-price agg."""
+    from ..operators.basic_ops import FlatMap
+    from ..core.tuples import BasicRecord
+
+    def rekey(rec, shipper):
+        attr, price = rec.value
+        shipper.push(BasicRecord(attr, rec.id, rec.ts,
+                                 (rec.key, price)))
+    merged.chain(FlatMap(rekey, name=name))
+    return merged
+
+
+def build_q4_avg_price(graph, auctions, bids, win_len, sink,
+                       parallelism: int = 1):
+    """Q4: average closing price per CATEGORY over tumbling windows.
+    auctions |><| bids on auction id per window, closing price =
+    per-auction max, averaged per category.  Sinked records:
+    key = category, ts = window start, value = average."""
+    raise _eventtime()
+
+
+def build_q6_avg_seller(graph, auctions, bids, win_len, sink,
+                        parallelism: int = 1):
+    """Q6: average selling price per SELLER over tumbling windows --
+    the Q4 join re-keyed by seller.  Sinked records: key = seller,
+    ts = window start, value = average closing price."""
+    raise _eventtime()
+
+
+def _q4q6_oracle(auctions, bids, win_len, attr):
+    """Shared Q4/Q6 oracle: {(attr, win_start): avg closing price}
+    where a (auction, bid) pair joins when both land in the window."""
+    a_wins = {}
+    for auc, at, ts in zip(auctions["auction"], auctions[attr],
+                           auctions["ts"]):
+        a_wins[(int(auc), int(ts) // win_len * win_len)] = int(at)
+    best = {}
+    for auc, price, ts in zip(bids["auction"], bids["price"],
+                              bids["ts"]):
+        w = int(ts) // win_len * win_len
+        at = a_wins.get((int(auc), w))
+        if at is None:
+            continue
+        k = (at, w, int(auc))
+        if k not in best or price > best[k]:
+            best[k] = float(price)
+    sums = {}
+    for (at, w, _auc), price in best.items():
+        s = sums.setdefault((at, w), [0.0, 0])
+        s[0] += price
+        s[1] += 1
+    return {k: v[0] / v[1] for k, v in sums.items()}
+
+
+def q4_oracle(auctions, bids, win_len):
+    return _q4q6_oracle(auctions, bids, win_len, "category")
+
+
+def q6_oracle(auctions, bids, win_len):
+    return _q4q6_oracle(auctions, bids, win_len, "seller")
+
+
+def build_q8_new_users(graph, persons, auctions, win_len, sink,
+                       parallelism: int = 1, source_of=None):
+    """Q8: monitor new users -- persons who registered AND opened an
+    auction in the same tumbling window (persons |><| auctions
+    re-keyed by seller).  Sinked records: key = person id, ts =
+    window start, value = (city, auction id).  ``source_of(keys, tss,
+    values)`` overrides the watermarked record source -- bench.py
+    injects stamped sources to measure watermark-to-result latency."""
+    raise _eventtime()
+
+
+def q8_oracle(persons, auctions, win_len):
+    """Numpy oracle / baseline twin for Q8: sorted multiset of
+    (person, win_start, city, auction)."""
+    by_pw = {}
+    for pid, city, ts in zip(persons["person"], persons["city"],
+                             persons["ts"]):
+        w = int(ts) // win_len * win_len
+        by_pw.setdefault((int(pid), w), []).append(int(city))
+    out = []
+    for seller, auc, ts in zip(auctions["seller"],
+                               auctions["auction"], auctions["ts"]):
+        w = int(ts) // win_len * win_len
+        for city in by_pw.get((int(seller), w), ()):
+            out.append((int(seller), w, city, int(auc)))
+    return sorted(out)
+
+
+# eager baseline twins for the bench gate (tools/bench_gate.py): the
+# oracles ARE the single-threaded reference implementations, exposed
+# under the twin names the bench rows cite
+q3_baseline = q3_oracle
+q4_baseline = q4_oracle
+q6_baseline = q6_oracle
+q8_baseline = q8_oracle

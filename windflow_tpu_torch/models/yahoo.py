@@ -1,0 +1,142 @@
+"""Yahoo Streaming Benchmark: the flagship application/model (the port
+of ``windflow_tpu/models/yahoo.py``).
+
+The reference's BASELINE config #5 is the "Yahoo Streaming Benchmark
+(ad-campaign windowed join+count)" style workload running on its GPU
+window operators (tests/mp_tests_gpu fixtures).  This module provides
+the same application twice:
+
+1. ``build_pipeline`` -- the full framework graph on the columnar
+   plane: BatchSource (ad events) -> BatchFilter (views only) ->
+   BatchMap (ad -> campaign join) -> KeyFarmTPU (windowed count per
+   campaign) -> sink.  Its device engine runs on the graph's
+   ``RuntimeConfig.device`` (the CUDA card by default).
+
+2. ``make_step`` -- the flagship *compiled step*: one torch function
+   computing per-campaign windowed counts for a batch of events (the
+   single-chip forward step), one ``index_add_`` into a flat
+   ``[C * W]`` accumulator on the device of its inputs.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..ops.device import resolve_device
+
+VIEW, CLICK, PURCHASE = 0, 1, 2
+
+
+def synth_events(n_events: int, n_ads: int, seed: int = 0,
+                 ts_start: int = 0):
+    """Columnar synthetic ad-event stream: (ad_id, event_type, ts)."""
+    rng = np.random.default_rng(seed)
+    return {
+        "ad_id": rng.integers(0, n_ads, n_events, dtype=np.int64),
+        "event_type": rng.integers(0, 3, n_events, dtype=np.int64),
+        "ts": ts_start + np.arange(n_events, dtype=np.int64),
+    }
+
+
+def make_campaign_map(n_ads: int, n_campaigns: int,
+                      seed: int = 1) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, n_campaigns, n_ads, dtype=np.int64)
+
+
+def build_pipeline(graph, n_events: int, n_ads: int = 1000,
+                   n_campaigns: int = 100, win_len: int = 10_000,
+                   slide_len: int = 10_000, batch_size: int = 65536,
+                   device_batch: int = 4096, sink=None,
+                   source_parallelism: int = 1, key_parallelism: int = 1,
+                   placement: str = "device"):
+    """Wire the Yahoo app into ``graph``; returns the campaign map."""
+    from ..core.basic import WinType
+    from ..core.tuples import TupleBatch
+    from ..operators.batch_ops import BatchFilter, BatchMap, BatchSource
+    from ..operators.tpu.farms_tpu import KeyFarmTPU
+
+    campaign_of_ad = make_campaign_map(n_ads, n_campaigns)
+    # pre-generated event pool, re-timestamped per batch: the metric is
+    # pipeline throughput, not host RNG throughput
+    pool = synth_events(batch_size, n_ads, seed=0)
+    ones = np.ones(batch_size, np.float64)
+    state = {}  # per-replica batch cursors (replicas share this closure)
+
+    def source(ctx):
+        # replica r emits every par-th BATCH of the global timeline:
+        # timestamps stay globally increasing with disorder bounded by
+        # ~par batches
+        ridx = ctx.get_replica_index()
+        st = state.setdefault(ridx, {"b": ridx})
+        base = st["b"] * batch_size
+        if base >= n_events:
+            return None
+        n = min(batch_size, n_events - base)
+        ts = base + pool["ts"][:n]
+        st["b"] += max(1, source_parallelism)
+        return TupleBatch({
+            "key": pool["ad_id"][:n], "id": ts, "ts": ts,
+            "value": ones[:n],
+            "event_type": pool["event_type"][:n],
+        })
+
+    def views_only(batch):
+        return batch["event_type"] == VIEW
+
+    def join_campaign(batch):
+        return batch.with_cols(key=campaign_of_ad[batch.key])
+
+    counter = KeyFarmTPU(
+        "count", win_len, slide_len, WinType.TB,
+        parallelism=key_parallelism, batch_len=device_batch,
+        name="campaign_count", emit_batches=True, placement=placement)
+    pipe = graph.add_source(BatchSource(source, source_parallelism))
+    pipe.chain(BatchFilter(views_only)) \
+        .chain(BatchMap(join_campaign)) \
+        .add(counter)
+    if sink is not None:
+        from ..operators.basic_ops import Sink
+        pipe.add_sink(Sink(sink, name="count_sink"))
+    return campaign_of_ad
+
+
+@functools.lru_cache(maxsize=None)
+def make_step(n_campaigns: int, n_windows: int, win_len: int,
+              device: str = "cuda"):
+    """Forward step: batch of events -> per-campaign windowed view
+    counts ``[n_campaigns, n_windows]`` (a new tensor; ``counts`` is
+    not written).
+
+    The step runs on the device of the tensors it is given; numpy
+    inputs go to ``device`` (the CUDA card by default, which must
+    exist).  One scatter-add over a ``[C * W]`` accumulator: static
+    shapes, no data-dependent control flow.  Counts are whole numbers
+    below 2^24, so the order of the adds cannot change them."""
+
+    def step(campaign_of_ad, ad_id, event_type, ts, counts):
+        args = (campaign_of_ad, ad_id, event_type, ts, counts)
+        dev = next((a.device for a in args if isinstance(a, torch.Tensor)),
+                   None) or resolve_device(device)
+        campaign_of_ad, ad_id, event_type, ts, counts = (
+            torch.as_tensor(a, device=dev) for a in args)
+        campaign = campaign_of_ad[ad_id]
+        win = torch.clamp(ts // win_len, 0, n_windows - 1)
+        is_view = (event_type == VIEW).to(counts.dtype)
+        flat_idx = campaign * n_windows + win
+        out = counts.reshape(-1).index_add(0, flat_idx, is_view)
+        return out.reshape(n_campaigns, n_windows)
+
+    return step
+
+
+def example_step_args(n_events: int = 4096, n_ads: int = 1000,
+                      n_campaigns: int = 100, n_windows: int = 8,
+                      win_len: int = 1024):
+    ev = synth_events(n_events, n_ads)
+    campaign_of_ad = make_campaign_map(n_ads, n_campaigns)
+    counts = np.zeros((n_campaigns, n_windows), np.float32)
+    return (campaign_of_ad, ev["ad_id"], ev["event_type"],
+            ev["ts"] % (n_windows * win_len), counts)

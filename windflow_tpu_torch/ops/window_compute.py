@@ -365,6 +365,10 @@ class WindowComputeEngine:
             self._lock = _GLOBAL_DISPATCH_LOCK
         else:
             self._lock = threading.Lock()
+        # launch shapes: (T_pad, B_pad) -> [launches, values, windows]
+        # summed over the launches at that padded shape (what a caller
+        # needs to replay this engine's mean launch at its shape)
+        self.launch_shapes: Dict[tuple, list] = {}
 
     def bind(self, device: Union[str, torch.device]) -> torch.device:
         """Fix the engine's device (raises when CUDA is asked for and
@@ -403,6 +407,8 @@ class WindowComputeEngine:
         # ~16-32 KB of transfer and keeps the buffer sizes few
         T_pad = next_pow2(max(T, 2048))
         B_pad = next_pow2(max(B, 2048))
+        shape = self.launch_shapes.setdefault((T_pad, B_pad), [0, 0, 0])
+        shape[:] = shape[0] + 1, shape[1] + T, shape[2] + B
         # starts/ends ride in ONE packed int32 array: two buffers (values
         # + extents) per launch; padding rows are (0, 0) -> 0
         se = np.zeros((2, B_pad), dtype=np.int32)
