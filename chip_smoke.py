@@ -145,9 +145,10 @@ every phase passed):
    sums, two K2 launches and nothing else; then the same under
    torch.logaddexp, within rtol 1e-5 of a float64 log-sum-exp, two
    launches of the generated K2.
-9. profile15 -- both FFAT lanes once more at the full 8M events under
-   torch.profiler: device busy and idle share and the top device ops;
-   the rebuild lane's only kernel must be the fused build+query kernel.
+9. profile15 -- both FFAT lanes once more at 2M events (a quarter of
+   config 15's) under torch.profiler: device busy and idle share and
+   the top device ops; the rebuild lane's only kernel must be the fused
+   build+query kernel.
 10. models -- bench configs 5 and 6 through the port's own builders
    (windflow_tpu_torch.models), at the bench's size, every window equal
    to a numpy oracle exactly (bincounts of the re-timestamped pools;
@@ -174,9 +175,39 @@ every phase passed):
    time, the bound of its sweeps and of the function, and
    torch.segment_reduce over the same windows.
    profile -- each model once more at 16M under torch.profiler.
+11. durable -- the durability plane (windflow_tpu_torch/durability/,
+   utils/checkpoint.py, state/) on the card, each kernel count set to
+   0 just before a path and read just after (a crash cell's: once its
+   restored attempt is loaded).
+   durable11 -- bench config 11 (``run_checkpoint_overhead``,
+   bench.py:1281-1375) at its 16M events: the template feed through
+   config 11's WinSeqTPU (batch 4096, buffer 2^21, 8 in flight), one
+   calibration run, the epoch cadence min(1 s, run/8) (at least
+   0.02 s), epochs off and on interleaved, best of 3: windows
+   identical on and off, at least one periodic commit, recovery
+   seconds (newest manifest into a fresh graph), K1 launches equal to
+   the batches in every run; overhead_frac printed, not gated; then
+   one epochs-on run under torch.profiler (idle share).
+   durable11 crash -- the same graph with a transactional sink and
+   FaultPlan.crash_at_epoch on the WinSeqTPU replica under
+   run_with_epochs; its offset-checkpointable source carries the
+   headline's integer law and begins epochs 1 and 2 itself at chunks
+   4 and 8, waiting for each commit: restored epoch 1, every window
+   once and equal to the closed form, K1 launched after the restore.
+   durable resident -- config 15's resident FFAT lane (8M events, 8
+   keys, CB 4096/16) crashed at epoch 2's cut: every window once and
+   equal to oracle15, the forest's bytes a cut, K2f launched after the
+   restore.
+   durable step -- source, BatchMap, config 11's WinSeqTPU and a
+   transactional sink lowered into one device-step node, crashed on the
+   map's 10th chunk: restored epoch 2, every window once, K1 after the
+   restore, at most 2 launches a chunk.
+   delta16, tiered17 -- bench configs 16 and 17 (bench.py:1378, :1543)
+   at their sizes with the bench's own gates (no kernel runs).
 
 Then one JSON line describing each kernel (the window-sum kernel's
-launches: the headline's, phase 5b's and the models'; the three FlatFAT
+launches: the headline's, phase 5b's, the models' and phase 11's; the
+three FlatFAT
 kernels twice: builtin, and compiled with torch.logaddexp, each with the
 launches of its own paths), the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -2004,6 +2035,8 @@ def main15_user(card: str) -> dict:
 # 15's stream (1/32 of its events: the two replicas ran 1M events at
 # 89k tuples/s on the H100, 11 s), so the cell adds seconds to the script
 N15_KEYFFAT = N15 // 32
+# [profile15]'s events
+N15_PROFILE = N15 // 4
 
 
 def key_ffat_user(card: str) -> int:
@@ -2593,6 +2626,710 @@ def main_models(card: str) -> int:
     return k1
 
 
+# ---------------------------------------------------------------------------
+# 11. the durability plane on the card: exactly-once epochs, checkpoints
+#     and tiered keyed state (bench configs 11, 16, 17; config 15's
+#     resident lane and the device step crash-restarted)
+# ---------------------------------------------------------------------------
+
+# bench.py runs config 11 at N_EVENTS // 4 (bench.py:2515)
+N11 = 16_000_000
+# bench.py:1318-1328: the epoch cadence calibrated to the run's length
+EPOCH_S11 = 1.0
+EPOCH_FLOOR_S = 0.02
+# the crash cells' sources drive their own epochs at these chunk indices
+# (each waits for its commit), so a crash at epoch 2 always restores 1
+CRASH_EPOCHS = (4, 8)
+RESIDENT_EPOCHS = (32, 64)
+COMMIT_WAIT_S = 120.0
+DURABLE_DEVICE = "cuda"
+
+
+def template_source(n_events: int):
+    """bench.py's ``_template_source`` (:93-125) at SOURCE_PARALLELISM 1:
+    key round-robin over 64, per-key dense ids, the f32 value pool of
+    ``default_rng(0)``."""
+    from windflow_tpu_torch.core.tuples import TupleBatch
+    sb = SOURCE_BATCH
+    arange = np.arange(sb, dtype=np.int64)
+    keys_t, ids_t = arange % N_KEYS, arange // N_KEYS
+    pool = np.random.default_rng(0).random(sb).astype(np.float32)
+    state = {"sent": 0}
+
+    def source(ctx):
+        i = state["sent"]
+        if i >= n_events:
+            return None
+        n = min(sb, n_events - i)
+        ids = ids_t[:n] + (i // N_KEYS)
+        state["sent"] = i + n
+        return TupleBatch({"key": keys_t[:n], "id": ids, "ts": ids,
+                           "value": pool[:n]})
+
+    return source
+
+
+def durable_source(n_events: int, chunk: int, n_keys: int,
+                   epochs_at=(), name="durable_source"):
+    """An offset-checkpointable chunk source of the headline's integer
+    law (key = e % n_keys, id = ts = e // n_keys, value = e % 97): one
+    TupleBatch of ``chunk`` events a step, its offset in ``state_dict``
+    so a restore rewinds it.  At each chunk index in ``epochs_at`` it
+    begins an epoch and emits nothing more until the coordinator has
+    committed it (or given it up): the crash cells' faults land after
+    the commit they target, whatever the timing."""
+    from windflow_tpu_torch.core.basic import Pattern, RoutingMode
+    from windflow_tpu_torch.core.tuples import TupleBatch
+    from windflow_tpu_torch.operators.base import Operator, StageSpec
+    from windflow_tpu_torch.runtime.emitters import StandardEmitter
+    from windflow_tpu_torch.runtime.node import SourceLoopLogic
+    marks = {c * chunk for c in epochs_at}
+
+    class Logic(SourceLoopLogic):
+        def __init__(self):
+            self.i = 0
+            self.began = -1
+            self.wait = None
+            super().__init__(self._step)
+
+        def _step(self, emit):
+            i = self.i
+            if i >= n_events:
+                return False
+            inj = self.epoch_injector
+            if self.wait is not None:
+                epoch, deadline = self.wait
+                coord = inj.coord
+                with coord._cond:
+                    done = coord.committed >= epoch or (
+                        epoch not in coord._pending
+                        and coord._committing != epoch)
+                if not done and time.monotonic() < deadline:
+                    time.sleep(0.0005)
+                    return True
+                if not done:
+                    raise AssertionError(f"[{name}] epoch {epoch} did not "
+                                         f"commit in {COMMIT_WAIT_S} s")
+                self.wait = None
+            elif inj is not None and i in marks and self.began != i:
+                self.began = i
+                self.wait = (inj.coord.begin_epoch(),
+                             time.monotonic() + COMMIT_WAIT_S)
+                return True
+            idx = np.arange(i, min(i + chunk, n_events), dtype=np.int64)
+            emit(TupleBatch({"key": idx % n_keys, "id": idx // n_keys,
+                             "ts": idx // n_keys,
+                             "value": (idx % VMOD).astype(np.float32)}))
+            self.i = i + len(idx)
+            return True
+
+        def state_dict(self):
+            return {"i": self.i}
+
+        def load_state(self, st):
+            self.i = st["i"]
+
+        def progress_frontier(self):
+            return self.i
+
+    class Source(Operator):
+        def __init__(self):
+            super().__init__(name, 1, RoutingMode.NONE, Pattern.SOURCE)
+
+        def stages(self):
+            return [StageSpec(self.name, [Logic()], StandardEmitter(),
+                              self.routing)]
+
+    return Source()
+
+
+class WindowSink:
+    """Every window a sink receives (result batches or records), for
+    ``check_windows`` (each window once, per key in id order, equal to
+    an oracle) or for comparing runs; a sink of the durable cells sees
+    only committed windows (transactional release)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.keys, self.ids, self.vals = [], [], []
+
+    def __call__(self, item):
+        if item is None:
+            return
+        with self.lock:
+            if hasattr(item, "get_control_fields"):
+                self.keys.append(np.array([item.key]))
+                self.ids.append(np.array([item.id]))
+                self.vals.append(np.array([item.value], np.float64))
+            else:
+                self.keys.append(np.asarray(item.key).copy())
+                self.ids.append(np.asarray(item.id).copy())
+                self.vals.append(np.asarray(item["value"],
+                                            np.float64).copy())
+
+    def sorted(self):
+        keys = np.concatenate(self.keys) if self.keys else np.empty(0)
+        ids = np.concatenate(self.ids) if self.ids else np.empty(0)
+        vals = np.concatenate(self.vals) if self.vals else np.empty(0)
+        order = np.lexsort((ids, keys))
+        return keys[order], ids[order], vals[order]
+
+
+def config11_op():
+    """bench.py:1307-1310: the headline feed's engine."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.operators.tpu.win_seq_tpu import WinSeqTPU
+    return WinSeqTPU("sum", WIN, SLIDE, wf.WinType.TB,
+                     batch_len=DEVICE_BATCH, emit_batches=True,
+                     max_buffer_elems=MAX_BUFFER, inflight_depth=INFLIGHT)
+
+
+def durable_config(path, interval_s, plan=None, **kw):
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.core import DurabilityConfig
+    return wf.RuntimeConfig(device=DURABLE_DEVICE, fault_plan=plan,
+                            durability=DurabilityConfig(
+                                epoch_interval_s=interval_s, path=path,
+                                **kw))
+
+
+def run11(durable: bool, epoch_dir: str, interval_s: float):
+    """One config-11 run (bench.py:1303-1340): the template feed through
+    WinSeqTPU into a sink, epochs on or off.  Returns the graph, its
+    sorted windows, the seconds, the kernel counts and, with epochs on,
+    the periodic commits and the recovery seconds (newest manifest into
+    a freshly built graph)."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.durability import EpochStore, restore_epoch
+    from windflow_tpu_torch.operators.basic_ops import Sink
+    from windflow_tpu_torch.operators.batch_ops import BatchSource
+
+    def build():
+        cfg = (durable_config(epoch_dir, interval_s) if durable
+               else wf.RuntimeConfig(device=DURABLE_DEVICE))
+        g = wf.PipeGraph("bench11", wf.Mode.DEFAULT, config=cfg)
+        sink = WindowSink()
+        g.add_source(BatchSource(template_source(N11), 1)) \
+            .add(config11_op()).add_sink(Sink(sink))
+        return g, sink
+
+    g, sink = build()
+    reset_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        # the bench's stateless source: epochs commit, a restart would
+        # replay it from the start (the coordinator warns)
+        warnings.simplefilter("ignore", RuntimeWarning)
+        g.run()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    commits = recovery = None
+    if durable:
+        commits = sum(1 for e in g.flight.snapshot()
+                      if e["kind"] == "epoch_commit" and not e.get("final"))
+        epoch, payload = EpochStore(epoch_dir).latest()
+        if epoch is not None:
+            g2, _s2 = build()
+            t0 = time.perf_counter()
+            restore_epoch(g2, payload)
+            recovery = time.perf_counter() - t0
+    return g, sink.sorted(), secs, counts, commits, recovery
+
+
+def durable11(card: str) -> int:
+    """[durable11]: bench config 11 at its size, as
+    ``run_checkpoint_overhead`` runs it: a calibration run, the cadence
+    set to min(1 s, run/8) (at least 0.02 s), then epochs off and on
+    interleaved, best of 3.  Gates: windows identical on and off, at
+    least one periodic commit, a recovery time; the window-sum kernel's
+    launches equal the batches in every run, no other kernel.  Returns
+    the kernel's launches."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-epochs-")
+    k1 = []
+
+    def one(durable, idx, interval):
+        g, wins, secs, counts, commits, rec = run11(
+            durable, f"{tmp}/run{idx}", interval)
+        k1.append(check_launches(
+            f"durable11 {'on' if durable else 'off'}", find_logic(g),
+            counts, "window_sum"))
+        shutil.rmtree(f"{tmp}/run{idx}", ignore_errors=True)
+        return N11 / secs, wins, commits, rec
+
+    try:
+        rate0, ref, _c, _r = one(False, 99, None)
+        interval = max(min(EPOCH_S11, N11 / rate0 / 8), EPOCH_FLOOR_S)
+        offs, ons = [], []
+        for i in range(3):
+            offs.append(one(False, 2 * i, None))
+            ons.append(one(True, 2 * i + 1, interval))
+        for rate, wins, _c, _r in offs + ons:
+            if not all(np.array_equal(a, b) for a, b in zip(wins, ref)):
+                raise AssertionError("[durable11] the windows differ "
+                                     "between runs (epochs on/off)")
+        commits = max(c for _r8, _w, c, _rs in ons)
+        if commits < 1:
+            raise AssertionError("[durable11] no periodic epoch committed")
+        recs = [rs for _r8, _w, _c, rs in ons if rs is not None]
+        if not recs:
+            raise AssertionError("[durable11] no manifest to recover from")
+        rate_off = max(r for r, _w, _c, _rs in offs)
+        rate_on = max(r for r, _w, _c, _rs in ons)
+        log(f"[durable11] {N11} events, {len(ref[0])} windows identical "
+            f"with epochs on and off (total {float(ref[2].sum()):.6f}); "
+            f"tuples/s on {rate_on:.1f} (runs "
+            f"{', '.join(f'{r:.1f}' for r, *_x in ons)}), off "
+            f"{rate_off:.1f} (runs "
+            f"{', '.join(f'{r:.1f}' for r, *_x in offs)}); overhead_frac "
+            f"{1.0 - rate_on / rate_off:.4f} (best of 3; not gated); "
+            f"epoch interval {interval:.4f} s; periodic commits "
+            f"{', '.join(str(c) for _r8, _w, c, _rs in ons)}; recovery "
+            f"{', '.join(f'{r:.6f}' for r in recs)} s; window_sum "
+            f"launches = batches in all 7 runs ({', '.join(map(str, k1))}; "
+            f"calibration, then off/on pairs), other kernels 0 ({card})")
+        # the idle share: one more epochs-on run under the profiler
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            g, wins, secs, counts, commits, _rec = run11(
+                True, f"{tmp}/profiled", interval)
+        k1.append(check_launches("durable11 profiled", find_logic(g),
+                                 counts, "window_sum"))
+        log(f"[durable11 profile] epochs on, {commits} periodic commits, "
+            f"{k1[-1]} window_sum launches: "
+            f"{profile_summary(prof, secs, 6)} ({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return sum(k1)
+
+
+def crash_run(tag: str, make_graph, fault, engine_cls, kernel: str):
+    """``run_with_epochs`` over ``make_graph(path, plan)``: attempt 0
+    carries ``fault``, attempt 1 none.  Every kernel count is set to 0
+    once the restore has loaded attempt 1 (``on_restore``, before it
+    runs), so the counts read after the run are the restored attempt's:
+    ``kernel``'s must equal the batches its engine launched in that
+    attempt, above 0, the others 0.  Returns the final graph and that
+    count."""
+    import shutil
+    import tempfile
+    from windflow_tpu_torch.durability import run_with_epochs
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-crash-")
+    attempts = []
+    restored = {}
+
+    def factory(attempt):
+        attempts.append(attempt)
+        return make_graph(tmp, fault if attempt == 0 else None)
+
+    def on_restore(g, epoch, payload):
+        # a restored engine carries its snapshot's launch counter
+        restored["base"] = find_logic(g, engine_cls).launched_batches
+        reset_counts()
+
+    try:
+        g = run_with_epochs(factory, max_restarts=1, on_restore=on_restore)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = read_counts()
+    if attempts != [0, 1] or "base" not in restored:
+        raise AssertionError(f"[{tag}] attempts {attempts}: the fault did "
+                             f"not fire once, or nothing was restored")
+    logic = find_logic(g, engine_cls)
+    if logic.device is None or logic.device.type != DURABLE_DEVICE:
+        raise AssertionError(f"[{tag}] engine device {logic.device}")
+    launched = logic.launched_batches - restored["base"]
+    if launched <= 0 or counts[kernel] != launched or any(
+            n for name, n in counts.items() if name != kernel):
+        raise AssertionError(f"[{tag}] after the restore: {launched} "
+                             f"batches, kernel counts {counts}")
+    return g, launched
+
+
+def durable11_crash(card: str) -> int:
+    """[durable11 crash]: config 11's graph with an exactly-once sink
+    and ``FaultPlan.crash_at_epoch`` on the WinSeqTPU replica, under
+    ``run_with_epochs``; the source is offset-checkpointable and carries
+    the headline's integer law, so every window is held to the closed
+    form.  Returns the window-sum kernel's launches after the restore."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.resilience import FaultPlan
+
+    sink = WindowSink()
+
+    def make_graph(path, plan):
+        g = wf.PipeGraph("bench11_crash", wf.Mode.DEFAULT,
+                         config=durable_config(path, 3600.0, plan))
+        g.add_source(durable_source(N11, SOURCE_BATCH, N_KEYS,
+                                    CRASH_EPOCHS)) \
+            .add(config11_op()) \
+            .add_sink(wf.SinkBuilder(sink).with_exactly_once().build())
+        return g
+
+    t0 = time.perf_counter()
+    g, k1 = crash_run("durable11 crash", make_graph,
+                      FaultPlan(seed=11).crash_at_epoch("win_seq_tpu", 2),
+                      None, "window_sum")
+    secs = time.perf_counter() - t0
+    if g._epoch_restored != 1:
+        raise AssertionError(f"[durable11 crash] restored epoch "
+                             f"{g._epoch_restored}, not 1")
+    n_win = len(check_windows(sink, oracle(N11), "durable11 crash")[0])
+    log(f"[durable11 crash] crash at epoch 2's cut on win_seq_tpu, "
+        f"restored epoch {g._epoch_restored}, then "
+        f"{g.durability.commits} commits; {n_win} windows exactly once, "
+        f"equal to the closed form; {k1} window_sum launches after the "
+        f"restore = batches, other kernels 0; both attempts "
+        f"{secs:.3f} s ({card})")
+    return k1
+
+
+def durable_resident(card: str) -> int:
+    """[durable resident]: config 15's resident FFAT lane at its size
+    (8M events, 8 keys, CB 4096/16, the fused update+query kernel a
+    step) with an exactly-once sink and a crash at epoch 2's cut on the
+    engine.  Every window once, equal to ``oracle15``; the forest's
+    bytes a cut (the D2H copy each snapshot takes, and its pickled
+    state in the manifest) printed; the fused kernel launched after the
+    restore.  Returns those launches."""
+    import pickle
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.durability import EpochStore
+    from windflow_tpu_torch.operators.tpu.ffat_resident import \
+        WinSeqFFATResidentLogic
+    from windflow_tpu_torch.resilience import FaultPlan
+
+    sink = WindowSink()
+    cut = {}
+
+    def make_graph(path, plan):
+        g = wf.PipeGraph("resident_crash", wf.Mode.DEFAULT,
+                         config=durable_config(path, 3600.0, plan))
+        g.add_source(durable_source(N15, SOURCE15, KEYS15,
+                                    RESIDENT_EPOCHS)) \
+            .add(ffat_lane("resident")) \
+            .add_sink(wf.SinkBuilder(sink).with_exactly_once().build())
+        if plan is None:
+            # the restored attempt: the manifest it restores from holds
+            # the forest's state as one epoch cut captured it
+            epoch, payload = EpochStore(path).latest()
+            blob = next(v for k, v in payload["states"].items()
+                        if "win_seqffat_resident" in k)
+            cut.update(epoch=epoch, state=len(blob),
+                       tree=pickle.loads(blob)["tree"].nbytes)
+        return g
+
+    t0 = time.perf_counter()
+    g, k2f = crash_run(
+        "durable resident", make_graph,
+        FaultPlan(seed=15).crash_at_epoch("win_seqffat_resident", 2),
+        WinSeqFFATResidentLogic, "flatfat_update_query")
+    secs = time.perf_counter() - t0
+    if g._epoch_restored != 1:
+        raise AssertionError(f"[durable resident] restored epoch "
+                             f"{g._epoch_restored}, not 1")
+    n_win = len(check_windows(sink, oracle15(N15, SLIDE15),
+                              "durable resident")[0])
+    logic = find_logic(g, WinSeqFFATResidentLogic)
+    log(f"[durable resident] {N15} events, crash at epoch 2's cut, "
+        f"restored epoch {g._epoch_restored}; {n_win} windows exactly "
+        f"once, equal to oracle15; the forest a cut: {cut['tree']} bytes "
+        f"copied off the card, {cut['state']} bytes pickled in epoch "
+        f"{cut['epoch']}'s manifest (Device_state_bytes_resident "
+        f"{logic.device_resident_bytes()}); {k2f} flatfat_update_query "
+        f"launches after the restore = steps, other kernels 0; both "
+        f"attempts {secs:.3f} s ({card})")
+    return k2f
+
+
+def durable_step(card: str) -> int:
+    """[durable step]: the device step's fused segment -- the
+    checkpointable source, a BatchMap, config 11's WinSeqTPU and a
+    transactional sink in one node -- crashed on the map's clock inside
+    the segment (tests/test_durability.py:569 at config 11's width).
+    Every window once, equal to the closed form; the window-sum kernel
+    launched after the restore; at most 2 launches a chunk.  Returns
+    the kernel's launches after the restore."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.graph.device_step import DeviceStepLogic
+    from windflow_tpu_torch.operators.batch_ops import BatchMap
+    from windflow_tpu_torch.resilience import FaultPlan
+
+    sink = WindowSink()
+
+    def make_graph(path, plan):
+        g = wf.PipeGraph("step_crash", wf.Mode.DEFAULT,
+                         config=durable_config(path, 3600.0, plan))
+        g.add_source(durable_source(N11, SOURCE_BATCH, N_KEYS,
+                                    CRASH_EPOCHS)) \
+            .add(BatchMap(lambda b: b)) \
+            .add(config11_op()) \
+            .add_sink(wf.SinkBuilder(sink).with_exactly_once().build())
+        return g
+
+    t0 = time.perf_counter()
+    g, k1 = crash_run("durable step", make_graph,
+                      FaultPlan(seed=19).crash_replica("batch_map",
+                                                       at_tuple=10),
+                      None, "window_sum")
+    secs = time.perf_counter() - t0
+    if g._epoch_restored != 2:
+        raise AssertionError(f"[durable step] restored epoch "
+                             f"{g._epoch_restored}, not 2")
+    steps = [n.logic for n in g._all_nodes()
+             if isinstance(n.logic, DeviceStepLogic)]
+    if len(steps) != 1 or len(steps[0].segments) != 4:
+        raise AssertionError(f"[durable step] nodes "
+                             f"{[n.name for n in g._all_nodes()]}: not "
+                             f"one step node of 4 segments")
+    step = steps[0]
+    if step.chunk_launches > 2 * step.chunks_in:
+        raise AssertionError(f"[durable step] {step.chunk_launches} "
+                             f"launches for {step.chunks_in} chunks")
+    n_win = len(check_windows(sink, oracle(N11), "durable step")[0])
+    log(f"[durable step] one step node ({g._all_nodes()[0].name}); crash "
+        f"on batch_map's 10th chunk, restored epoch {g._epoch_restored}; "
+        f"{n_win} windows exactly once, equal to the closed form; "
+        f"{step.chunk_launches} launches for {step.chunks_in} chunks "
+        f"after the restore; {k1} window_sum launches = batches, other "
+        f"kernels 0; both attempts {secs:.3f} s ({card})")
+    return k1
+
+
+def delta16(card: str) -> None:
+    """[delta16]: bench config 16 (``run_delta_snapshot_overhead``,
+    bench.py:1378-1540) with its own gates: per-epoch commit bytes at
+    least 10x smaller under delta at 1 % churn, identical sink effects,
+    bitwise-equal restored keyed state.  No kernel runs."""
+    import shutil
+    import tempfile
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.core import BasicRecord
+    from windflow_tpu_torch.core.basic import Pattern, RoutingMode
+    from windflow_tpu_torch.durability import EpochStore, restore_epoch
+    from windflow_tpu_torch.graph.fuse import iter_logics
+    from windflow_tpu_torch.operators.base import Operator, StageSpec
+    from windflow_tpu_torch.runtime.emitters import StandardEmitter
+    from windflow_tpu_torch.runtime.node import SourceLoopLogic
+
+    n_keys, dirty_frac, dirty_rounds, interval_s = 10_000, 0.01, 400, 0.06
+    n_dirty = max(1, int(n_keys * dirty_frac))
+    n_events = n_keys + dirty_rounds * n_dirty
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-delta-")
+
+    class SrcLogic(SourceLoopLogic):
+        def __init__(self):
+            self.i = 0
+            super().__init__(self._step)
+
+        def _step(self, emit):
+            i = self.i
+            if i >= n_events:
+                return False
+            if i >= n_keys and i % 64 == 0:
+                time.sleep(0.0015)
+            k = i if i < n_keys else (i - n_keys) % n_dirty
+            emit(BasicRecord(k, i, i, float(i % 97)))
+            self.i = i + 1
+            return True
+
+        def state_dict(self):
+            return {"i": self.i}
+
+        def load_state(self, st):
+            self.i = st["i"]
+
+        def progress_frontier(self):
+            return self.i
+
+    class Src(Operator):
+        def __init__(self):
+            super().__init__("delta_bench_source", 1, RoutingMode.NONE,
+                             Pattern.SOURCE)
+
+        def stages(self):
+            return [StageSpec(self.name, [SrcLogic()], StandardEmitter(),
+                              self.routing)]
+
+    def build(delta, epoch_dir):
+        effects = {"n": 0, "sum": 0.0}
+
+        def acc(t, a):
+            a.value += t.value
+
+        def sink(r):
+            if r is not None:
+                effects["n"] += 1
+                effects["sum"] += r.value
+
+        g = wf.PipeGraph("bench16", wf.Mode.DEFAULT, config=durable_config(
+            epoch_dir, interval_s, delta=delta, delta_chain_max=64))
+        g.add_source(Src()) \
+            .add(wf.MapBuilder(lambda t: None).with_key_by().build()) \
+            .add(wf.AccumulatorBuilder(acc)
+                 .with_initial_value(BasicRecord(value=0.0))
+                 .with_parallelism(2).build()) \
+            .add_sink(wf.SinkBuilder(sink).build())
+        return g, effects
+
+    def keyed_of(g):
+        out = {}
+        for name, lg in iter_logics(g):
+            if "accumulator" in name:
+                for k, v in lg.keyed_state_dict().items():
+                    if k in out:
+                        raise AssertionError(f"[delta16] key {k} twice")
+                    out[k] = v.value
+        return out
+
+    def lane(delta):
+        epoch_dir = f"{tmp}/{'delta' if delta else 'full'}"
+        g, effects = build(delta, epoch_dir)
+        t0 = time.perf_counter()
+        g.run()
+        dt = time.perf_counter() - t0
+        per = [e["bytes"] for e in g.flight.snapshot()
+               if e["kind"] == "checkpoint_epoch" and not e.get("final")]
+        epoch, payload = EpochStore(epoch_dir).latest()
+        if epoch is None:
+            raise AssertionError("[delta16] no manifest committed")
+        g2, _e2 = build(delta, f"{tmp}/scratch")
+        t0 = time.perf_counter()
+        restore_epoch(g2, payload)
+        return (n_events / dt, dict(effects), per, keyed_of(g2),
+                time.perf_counter() - t0)
+
+    try:
+        rate_d, eff_d, bytes_d, state_d, rec_d = lane(True)
+        rate_f, eff_f, bytes_f, state_f, rec_f = lane(False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if eff_d != eff_f:
+        raise AssertionError(f"[delta16] effects {eff_d} vs {eff_f}")
+    if state_d != state_f or len(state_d) != n_keys:
+        raise AssertionError("[delta16] restored keyed state differs")
+    if len(bytes_d) < 3 or len(bytes_f) < 3:
+        raise AssertionError(f"[delta16] {len(bytes_d)}/{len(bytes_f)} "
+                             f"periodic commits: the cadence never engaged")
+    med_d, med_f = float(np.median(bytes_d)), float(np.median(bytes_f))
+    if med_f / med_d < 10:
+        raise AssertionError(f"[delta16] delta commits only "
+                             f"{med_f / med_d:.1f}x smaller")
+    log(f"[delta16] {n_events} events, {n_keys} keys, 1 % churn: "
+        f"median commit bytes delta {med_d:.1f} (base {bytes_d[0]}) vs "
+        f"full {med_f:.1f} = {med_f / med_d:.1f}x smaller; epochs "
+        f"{len(bytes_d)} / {len(bytes_f)}; effects and restored state "
+        f"identical; tuples/s delta {rate_d:.1f}, full {rate_f:.1f}; "
+        f"recovery delta {rec_d:.6f} s, full {rec_f:.6f} s ({card})")
+
+
+def tiered17(card: str) -> None:
+    """[tiered17]: bench config 17 (``run_tiered_spill``,
+    bench.py:1543-1640) with its own gates: identical effects and keyed
+    state all-hot and tiered (budget a tenth of the all-hot footprint),
+    spills and promotions above 0, no sheds.  No kernel runs."""
+    import pickle
+    import shutil
+    import tempfile
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.core import BasicRecord
+    from windflow_tpu_torch.graph.fuse import iter_logics
+
+    n_keys, hot_frac, hot_rounds = 4_000, 0.02, 200
+    n_hot = max(1, int(n_keys * hot_frac))
+    n_events = n_keys + hot_rounds * n_hot
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tiered-")
+
+    def build(budget):
+        effects = {"n": 0, "sum": 0.0}
+        state = {"i": 0}
+
+        def src(shipper, ctx=None):
+            i = state["i"]
+            if i >= n_events:
+                return False
+            k = i if i < n_keys else (i - n_keys) % n_hot
+            shipper.push(BasicRecord(k, i, i, float(i % 97)))
+            state["i"] = i + 1
+            return True
+
+        def acc(t, a):
+            a.value += t.value
+
+        def sink(r):
+            if r is not None:
+                effects["n"] += 1
+                effects["sum"] += r.value
+
+        g = wf.PipeGraph("bench17", wf.Mode.DEFAULT, config=wf.RuntimeConfig(
+            device=DURABLE_DEVICE, state_budget_bytes=budget,
+            log_dir=f"{tmp}/log"))
+        g.add_source(wf.SourceBuilder(src).build()) \
+            .add(wf.AccumulatorBuilder(acc)
+                 .with_initial_value(BasicRecord(value=0.0))
+                 .with_parallelism(2).build()) \
+            .add_sink(wf.SinkBuilder(sink).build())
+        return g, effects
+
+    def keyed_of(g):
+        out = {}
+        for name, lg in iter_logics(g):
+            if "accumulator" in name:
+                for k, v in lg.keyed_state_dict().items():
+                    if k in out:
+                        raise AssertionError(f"[tiered17] key {k} twice")
+                    out[k] = v.value
+        return out
+
+    def lane(budget):
+        g, effects = build(budget)
+        t0 = time.perf_counter()
+        g.run()
+        return g, n_events / (time.perf_counter() - t0), dict(effects), \
+            keyed_of(g)
+
+    try:
+        _g, rate_hot, eff_hot, state_hot = lane(None)
+        footprint = sum(len(pickle.dumps(v, pickle.HIGHEST_PROTOCOL)) + 96
+                        for v in state_hot.values())
+        budget = max(8_192, footprint // 10)
+        g_t, rate_t, eff_t, state_t = lane(budget)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if eff_t != eff_hot:
+        raise AssertionError(f"[tiered17] effects {eff_t} vs {eff_hot}")
+    if state_t != state_hot or len(state_t) != n_keys:
+        raise AssertionError("[tiered17] keyed state differs")
+    stores = list((g_t.tiered_state.stores or {}).values())
+    spills = sum(s.spilled_keys for s in stores)
+    promotions = sum(s.promotions for s in stores)
+    sheds = sum(s.sheds for s in stores)
+    if not stores or spills <= 0 or promotions <= 0 or sheds:
+        raise AssertionError(f"[tiered17] stores {len(stores)}, spills "
+                             f"{spills}, promotions {promotions}, sheds "
+                             f"{sheds}")
+    log(f"[tiered17] {n_events} events, {n_keys} keys: budget {budget} "
+        f"bytes (all-hot footprint {footprint}); resident "
+        f"{sum(s.mem_bytes() for s in stores)} bytes; spilled keys "
+        f"{spills} ({sum(s.spill.bytes_written for s in stores)} bytes), "
+        f"promotions {promotions}, sheds 0; effects and keyed state "
+        f"identical; tuples/s tiered {rate_t:.1f}, all-hot "
+        f"{rate_hot:.1f} ({card})")
+
+
+def main_durable(card: str) -> tuple:
+    """The durability plane's cells; returns the window-sum kernel's and
+    the fused update+query kernel's launches on their paths."""
+    k1 = durable11(card)
+    k1 += durable11_crash(card)
+    k2f = durable_resident(card)
+    k1 += durable_step(card)
+    delta16(card)
+    tiered17(card)
+    return k1, k2f
+
+
 def kernel_entry(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2672,8 +3409,10 @@ def main() -> int:
     user15["flatfat_build_query"] += key_ffat_user(card)
     launches15["flatfat_query"] = drive_flatfat(card)
     user15["flatfat_query"] = drive_flatfat_user(card)
-    profile15(card, "rebuild", N15)
-    profile15(card, "resident", N15)
+    # the profiled reruns at a quarter of config 15's events: room in
+    # the script's time for the durability cells (phase 11)
+    profile15(card, "rebuild", N15_PROFILE)
+    profile15(card, "resident", N15_PROFILE)
     log(f"[smoke] config 15 done at {time.perf_counter() - t_start:.1f} s")
 
     # bench configs 5 and 6 (the application models); each cell driven
@@ -2681,6 +3420,15 @@ def main() -> int:
     # after: count windows sum pane counts with the window-sum kernel,
     # max is a torch program
     launches += main_models(card)
+    log(f"[smoke] models done at {time.perf_counter() - t_start:.1f} s")
+
+    # the durability plane: config 11 with epochs on and off, the crash
+    # cells (config 11, config 15's resident lane, the device step) and
+    # configs 16 and 17; each kernel count set to 0 just before a path
+    # and read just after (a crash cell's: its restored attempt)
+    k1_durable, k2f_durable = main_durable(card)
+    launches += k1_durable
+    launches15["flatfat_update_query"] += k2f_durable
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
     src = "windflow_tpu_torch/ops/cuda/flatfat_query.cu"

@@ -703,3 +703,57 @@ def test_q7_on_the_card_matches_the_oracle():
         kernel=False)
     assert {i: v for (_k, i), v in got.items()} == \
         q7_oracle(PORT, N, WINL, 16_384)
+
+
+def test_resident_lane_crash_restart_on_the_card(tmp_path):
+    """The resident FFAT lane under the durability plane on the card:
+    epochs snapshot the forest off the device, a crash on the engine
+    restores it onto a fresh forest before the first fused launch of
+    the new attempt, and every window reaches the sink once, equal to
+    the closed form (integer values: exact)."""
+    from windflow_tpu_torch.core import DurabilityConfig
+    from windflow_tpu_torch.durability import run_with_epochs
+    from windflow_tpu_torch.resilience import FaultPlan
+    from torch_graphs import NO_CADENCE_S, dur_val, gated_source
+    n, n_keys, win, slide = 20_000, 4, 96, 16
+    wins, counts = {}, {}
+    logics = []
+
+    def sink(r):
+        if r is not None:
+            wins[(r.key, r.id)] = r.value
+            counts[(r.key, r.id)] = counts.get((r.key, r.id), 0) + 1
+
+    def factory(attempt):
+        cfg = wf.RuntimeConfig(
+            durability=DurabilityConfig(epoch_interval_s=NO_CADENCE_S,
+                                        path=str(tmp_path / "epochs")),
+            fault_plan=(FaultPlan(seed=9).crash_replica(
+                "win_seqffat_tpu", at_tuple=12_000) if attempt == 0
+                else None))
+        g = wf.PipeGraph("card_resident", wf.Mode.DEFAULT, config=cfg)
+        g.add_source(gated_source(PORT, n, n_keys,
+                                  epochs_at=(4000, 8000, 16_000))) \
+            .add(wf.WinSeqFFATTPUBuilder(lambda t: t.value, "sum")
+                 .with_cb_windows(win, slide).build()) \
+            .add_sink(wf.SinkBuilder(sink).with_exactly_once().build())
+        return g
+
+    fq.reset_fused_launch_count()
+    g = run_with_epochs(factory, max_restarts=2)
+    assert g._epoch_restored == 2
+    for nd in g._all_nodes():
+        for lg in ([s.logic for s in nd.logic.segments]
+                   if isinstance(nd.logic, FusedLogic) else [nd.logic]):
+            if isinstance(lg, WinSeqFFATResidentLogic):
+                logics.append(lg)
+    assert logics and logics[0].device.type == "cuda"
+    assert logics[0].launched_batches > 0
+    assert fq.fused_launch_count() > logics[0].launched_batches
+    want = {}
+    for k in range(n_keys):
+        vals = [dur_val(i) for i in range(k, n, n_keys)]
+        for w in range((len(vals) - 1) // slide + 1):
+            want[(k, w)] = float(sum(vals[w * slide: w * slide + win]))
+    assert max(counts.values()) == 1
+    assert wins == want

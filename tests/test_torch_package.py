@@ -61,8 +61,14 @@ def test_umbrella_exports_ported_names_and_names_the_rest():
         "windflow_tpu_torch.builders.builders_tpu"
     assert wf.KeyFarmBuilder.__module__ == \
         "windflow_tpu_torch.builders.builders"
+    assert wf.EpochCoordinator.__module__ == \
+        "windflow_tpu_torch.durability.coordinator"
+    assert wf.run_with_epochs.__module__ == \
+        "windflow_tpu_torch.durability.recovery"
     with pytest.raises(AttributeError, match="ROADMAP.md A10"):
         wf.Server
+    with pytest.raises(AttributeError, match="ROADMAP.md A10"):
+        wf.ElasticController
     with pytest.raises(AttributeError, match="ROADMAP.md A11"):
         wf.KeyFarmMesh
     with pytest.raises(AttributeError, match="no attribute"):
@@ -70,8 +76,7 @@ def test_umbrella_exports_ported_names_and_names_the_rest():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("durability", object()), ("slo", object()), ("distributed", object()),
-    ("supervision", object())])
+    ("slo", object()), ("distributed", object())])
 def test_unported_planes_raise_at_start(field, value):
     import windflow_tpu_torch as wf
     from windflow_tpu_torch.operators.basic_ops import Sink

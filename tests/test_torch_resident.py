@@ -676,3 +676,147 @@ def test_scripted_load_shift_flips_lane_zero_loss():
     rep = g.explain()
     assert rep["Replacements"][0]["operator"] == flips[0]["operator"]
     assert "device -> host" in render_text(rep)
+
+
+# ---------------------------------------------------------------------------
+# the resident lanes under the durability plane (tests/test_resident.py
+# TestResidentDurability): epochs snapshot the resident state, a crash
+# restores it, every window once
+# ---------------------------------------------------------------------------
+
+def _cb_oracle(n, n_keys, win, slide):
+    """(key, window) -> sum over the key's tuples [w*slide, w*slide+win)
+    of a gated_source stream (tuple i: key i % n_keys, value i % 7),
+    partial tail windows included."""
+    from torch_graphs import dur_val
+    out = {}
+    for k in range(n_keys):
+        vals = [dur_val(i) for i in range(k, n, n_keys)]
+        w = 0
+        while w * slide < len(vals):
+            out[(k, w)] = float(sum(vals[w * slide: w * slide + win]))
+            w += 1
+    return out
+
+
+def _durable_run(pkg, make_op, n, path, plan=None, durable=True,
+                 epochs_at=(), hooks_for=None):
+    """gated source -> ``make_op(wf)`` -> exactly-once sink under
+    ``run_with_epochs`` (attempt 0 gets ``plan`` and the hooks of
+    ``hooks_for(graph)``); ``durable=False`` runs the same graph once
+    without epochs.  Returns the last graph, its windows and how many
+    times each window reached the sink."""
+    from torch_graphs import durable_config, gated_source
+    wf = importlib.import_module(pkg)
+    wins, counts = {}, {}
+    lock = threading.Lock()
+
+    def sink(r):
+        if r is not None:
+            with lock:
+                wins[(r.key, r.id)] = r.value
+                counts[(r.key, r.id)] = counts.get((r.key, r.id), 0) + 1
+
+    def factory(attempt):
+        cfg = durable_config(pkg, path, plan if attempt == 0 else None,
+                             durable)
+        g = wf.PipeGraph("dur_resident", wf.Mode.DEFAULT, config=cfg)
+        hooks = hooks_for(g) if hooks_for and attempt == 0 else None
+        sb = wf.SinkBuilder(sink)
+        if durable:
+            sb = sb.with_exactly_once()
+        g.add_source(gated_source(pkg, n, epochs_at=epochs_at,
+                                  hooks=hooks)) \
+            .add(make_op(wf)).add_sink(sb.build())
+        return g
+
+    if durable:
+        g = _mod(pkg, "durability").run_with_epochs(factory, max_restarts=2)
+    else:
+        g = factory(0)
+        g.run()
+    return g, wins, counts
+
+
+def _resident_op(wf):
+    return wf.WinSeqFFATTPUBuilder(lambda t: t.value, "sum") \
+        .with_cb_windows(96, 16).build()
+
+
+def test_crash_restart_resident_ffat_lane(tmp_path):
+    """Epoch snapshots carry the resident forest (copied off the
+    device); a crash on the engine restores it into a fresh forest and
+    the rerun emits every window once, equal to the oracle, to the
+    uninterrupted durable run and to the reference without epochs."""
+    n = 5000
+    pkg = "windflow_tpu_torch"
+    FaultPlan = _mod(pkg, "resilience").FaultPlan
+    epochs = (1200, 2400, 3600)
+    _g, ref, rc = _durable_run("windflow_tpu", _resident_op, n, None,
+                               durable=False)
+    _g, clean, cc = _durable_run(pkg, _resident_op, n,
+                                 str(tmp_path / "clean"), epochs_at=epochs)
+    plan = FaultPlan(seed=9).crash_replica("win_seqffat_tpu",
+                                           at_tuple=3000)
+    g, wins, counts = _durable_run(pkg, _resident_op, n,
+                                   str(tmp_path / "chaos"), plan=plan,
+                                   epochs_at=epochs)
+    assert g._epoch_restored == 2
+    assert max(counts.values()) == max(cc.values()) == max(rc.values()) == 1
+    assert wins == clean == ref == _cb_oracle(n, 4, 96, 16)
+    logic = next(lg for nd in g._all_nodes()
+                 for lg in _segment_logics(nd)
+                 if type(lg).__name__ == "WinSeqFFATResidentLogic")
+    assert logic.launched_batches > 0
+
+
+def _segment_logics(node):
+    segs = getattr(node.logic, "segments", None)
+    return [s.logic for s in segs] if segs else [node.logic]
+
+
+def test_lane_flip_between_epochs_exactly_once(tmp_path):
+    """A scripted device -> host lane flip at stream index 3,000 (the
+    source waits for it), between epochs 1 (index 1,500) and 2 (index
+    4,500); a crash on the engine's 5,200th tuple restores epoch 2,
+    taken on the host lane, into a fresh device-lane engine.  Every
+    window once, equal to the oracle and to the reference's run
+    without epochs or flip."""
+    n, win, slide = 6000, 64, 32
+    pkg = "windflow_tpu_torch"
+    FaultPlan = _mod(pkg, "resilience").FaultPlan
+
+    def make_op_for(p):
+        WinSeqTPU = _mod(p, "operators.tpu.win_seq_tpu").WinSeqTPU
+        WinType = importlib.import_module(p).WinType
+        return lambda wf: WinSeqTPU("sum", win, slide, WinType.CB,
+                                    batch_len=32, placement="device",
+                                    value_of=lambda t: t.value)
+
+    flips = []
+
+    def hooks_for(g):
+        def flip():
+            done = threading.Event()
+
+            def run():
+                try:
+                    flips.append(g.replace_lane(
+                        "pipe0/win_seq_tpu.0", "host", trigger="script"))
+                finally:
+                    done.set()
+            threading.Thread(target=run, daemon=True).start()
+            return done
+        return {3000: flip}
+
+    _g, ref, rc = _durable_run("windflow_tpu", make_op_for("windflow_tpu"),
+                               n, None, durable=False)
+    plan = FaultPlan(seed=13).crash_replica("win_seq_tpu", at_tuple=5200)
+    g, wins, counts = _durable_run(pkg, make_op_for(pkg), n,
+                                   str(tmp_path / "chaos"), plan=plan,
+                                   epochs_at=(1500, 4500),
+                                   hooks_for=hooks_for)
+    assert flips and flips[0] is not None and flips[0]["new"] == "host"
+    assert g._epoch_restored == 2
+    assert max(counts.values()) == max(rc.values()) == 1
+    assert wins == ref == _cb_oracle(n, 4, win, slide)

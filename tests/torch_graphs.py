@@ -229,3 +229,221 @@ def q7_oracle(pkg, n, win, batch):
         * nx.DOL_TO_EUR
     return {w: float(np.float32(prices[w * win:(w + 1) * win].max()))
             for w in range((n - 1) // win + 1)}
+
+
+# ---------------------------------------------------------------------------
+# durable graphs (durability/): a source that drives its own epochs
+# ---------------------------------------------------------------------------
+
+# epochs a durable graph commits only where its source asks (the
+# coordinator's own cadence is pushed out of reach): a run's epochs,
+# and so where a fault lands, depend on the stream, not on the clock
+NO_CADENCE_S = 3600.0
+# bound on a source's wait for a commit; a run that reaches it goes on
+# and its test fails on the restored epoch, never hangs
+COMMIT_WAIT_S = 60.0
+
+
+def dur_val(i):
+    return float(i % 7)
+
+
+def _resolved(coord, epoch):
+    """True once ``epoch`` committed, or left the coordinator's pending
+    set without committing (a failed manifest write, an abort)."""
+    with coord._cond:
+        return coord.committed >= epoch or (
+            epoch not in coord._pending and coord._committing != epoch)
+
+
+def gated_source(pkg, n, n_keys=4, epochs_at=(), name="ckpt_source",
+                 hooks=None):
+    """An offset-checkpointable source of package ``pkg`` (the reference
+    suites' ``CkptSource`` contract: ``state_dict``/``load_state``/
+    ``progress_frontier``) emitting record i = (key i % n_keys, id
+    i // n_keys, ts i, value i % 7).  At every index in ``epochs_at``
+    it begins an epoch itself and emits nothing more until the
+    coordinator has committed that epoch (or given it up), so an
+    epoch's cut always
+    precedes the tuples after its index, and a fault placed past an
+    index lands after that epoch's commit.  Without the durability
+    plane the indices are ignored.  ``hooks`` maps an index to a
+    function called there once, which returns a ``threading.Event``:
+    the source emits nothing more until it is set (a lane flip run on
+    another thread, say)."""
+    core = mod(pkg, "core")
+    basic = mod(pkg, "core.basic")
+    base = mod(pkg, "operators.base")
+    emitters = mod(pkg, "runtime.emitters")
+    node = mod(pkg, "runtime.node")
+    marks = frozenset(epochs_at)
+    hooks = dict(hooks or {})
+
+    class Logic(node.SourceLoopLogic):
+        def __init__(self):
+            self.i = 0
+            self._began = -1          # index whose epoch was begun
+            self._wait = None         # (epoch, deadline)
+            self._hook = None         # (event, deadline)
+            super().__init__(self._step)
+
+        def _step(self, emit):
+            import time
+            i = self.i
+            if i >= n:
+                return False
+            inj = self.epoch_injector
+            if self._wait is not None:
+                epoch, deadline = self._wait
+                if not _resolved(inj.coord, epoch) \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.0005)
+                    return True   # the loop head injects and polls
+                self._wait = None
+            elif inj is not None and i in marks and self._began != i:
+                self._began = i
+                self._wait = (inj.coord.begin_epoch(),
+                              time.monotonic() + COMMIT_WAIT_S)
+                return True
+            if i in hooks:
+                done = hooks.pop(i)()
+                deadline = time.monotonic() + COMMIT_WAIT_S
+                self._hook = (done, deadline)
+            if self._hook is not None:
+                done, deadline = self._hook
+                if not done.is_set() and time.monotonic() < deadline:
+                    time.sleep(0.0005)
+                    return True
+                self._hook = None
+            emit(core.BasicRecord(i % n_keys, i // n_keys, i, dur_val(i)))
+            self.i = i + 1
+            return True
+
+        def state_dict(self):
+            return {"i": self.i}
+
+        def load_state(self, st):
+            self.i = st["i"]
+
+        def progress_frontier(self):
+            return self.i
+
+    class Source(base.Operator):
+        def __init__(self):
+            super().__init__(name, 1, basic.RoutingMode.NONE,
+                             basic.Pattern.SOURCE)
+
+        def stages(self):
+            return [base.StageSpec(self.name, [Logic()],
+                                   emitters.StandardEmitter(),
+                                   self.routing)]
+
+    return Source()
+
+
+def durable_config(pkg, path, plan=None, durable=True, interval=None,
+                   **dur_kw):
+    """RuntimeConfig of a durable test graph (the port on the CPU);
+    ``durable=False`` gives the same graph without epochs or faults."""
+    wf = importlib.import_module(pkg)
+    cfg = wf.RuntimeConfig()
+    if durable:
+        cfg.durability = mod(pkg, "core").DurabilityConfig(
+            epoch_interval_s=interval or NO_CADENCE_S, path=path, **dur_kw)
+        cfg.fault_plan = plan
+    if pkg == PORT:
+        cfg.device = "cpu"
+    return cfg
+
+
+def acc_graph(pkg, n, path, sink, plan=None, durable=True, epochs_at=(),
+              sink_mode="transactional", n_keys=4, interval=None,
+              acc_fn=None, restartable=False, cfg_kw=None, acc_par=2,
+              hooks=None, **dur_kw):
+    """source -> keyed map (2 replicas: two producers to align) ->
+    keyed accumulator (2 replicas) -> exactly-once sink: the reference
+    suites' ``_acc_graph`` (and, with ``cfg_kw`` such as
+    ``state_budget_bytes`` or ``supervision``, their ``_tiered_graph``
+    and ``_sup_graph``).  ``sink`` is the sink's function; ``hooks`` go
+    to the source (``gated_source``)."""
+    wf = importlib.import_module(pkg)
+    BasicRecord = mod(pkg, "core").BasicRecord
+
+    def add(t, a):
+        a.value += t.value
+
+    cfg = durable_config(pkg, path, plan, durable, interval, **dur_kw)
+    for k, v in (cfg_kw or {}).items():
+        setattr(cfg, k, v)
+    g = wf.PipeGraph("dur_acc", wf.Mode.DEFAULT, config=cfg)
+    sb = wf.SinkBuilder(sink)
+    if durable:
+        sb = sb.with_exactly_once(sink_mode)
+    accb = wf.AccumulatorBuilder(acc_fn or add) \
+        .with_initial_value(BasicRecord(value=0.0)) \
+        .with_parallelism(acc_par)
+    if restartable:
+        accb = accb.with_restartable()
+    g.add_source(gated_source(pkg, n, n_keys, epochs_at, hooks=hooks)) \
+        .add(wf.MapBuilder(lambda t: None).with_key_by()
+             .with_parallelism(2).build()) \
+        .add(accb.build()) \
+        .add_sink(sb.build())
+    return g
+
+
+def acc_oracle(n, n_keys=4):
+    """key -> [(id, running sum)] of ``acc_graph``'s stream."""
+    out, sums = {}, {}
+    for i in range(n):
+        k = i % n_keys
+        sums[k] = sums.get(k, 0.0) + dur_val(i)
+        out.setdefault(k, []).append((i // n_keys, sums[k]))
+    return out
+
+
+class Effects:
+    """A durable sink's function: (key, id, value) of every result, in
+    arrival order, from any sink thread."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.rows = []
+
+    def __call__(self, r):
+        if r is not None:
+            with self.lock:
+                self.rows.append((r.key, r.id, r.value))
+
+
+def reference_clean(path, n, n_keys=4):
+    """The reference's sink output of ``acc_graph`` without epochs or
+    faults, per key: the output every durable run must equal."""
+    eff = Effects()
+    acc_graph(PACKAGES[0], n, path, eff, durable=False, n_keys=n_keys).run()
+    return effects_per_key(eff.rows)
+
+
+def effects_per_key(effects):
+    out = {}
+    for k, tid, v in effects:
+        out.setdefault(k, []).append((tid, v))
+    return out
+
+
+def assert_ledger_exact(graph, healed=False):
+    """The conservation ledger of a (final) run: no violation, every
+    edge balanced, and the graph-wide identity in stream tuples exact
+    (barriers counted once on each end).  After an in-place heal the
+    rewound source re-emits a replay window the sink discards, so the
+    identity is ``>=`` there."""
+    import json
+    cons = json.loads(graph.stats.to_json())["Conservation"]
+    assert cons["Violations_total"] == 0, cons["Violations"]
+    assert cons["Edges_balanced"], cons
+    rhs = cons["Sinks_consumed"] + cons["Dead_letters"] \
+        + cons["Shed_tuples"]
+    if healed:
+        assert cons["Sources_emitted"] >= rhs, cons
+    else:
+        assert cons["Sources_emitted"] == rhs, cons

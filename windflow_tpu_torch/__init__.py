@@ -64,6 +64,14 @@ _LAZY = {
     "DiagnosisPlane": "windflow_tpu_torch.diagnosis",
     "build_report": "windflow_tpu_torch.diagnosis",
     "render_text": "windflow_tpu_torch.diagnosis",
+    # durability plane (durability/; docs/RESILIENCE.md
+    # "Exactly-once epochs")
+    "EpochCoordinator": "windflow_tpu_torch.durability",
+    "EpochStore": "windflow_tpu_torch.durability",
+    "EpochBarrier": "windflow_tpu_torch.durability",
+    "EpochTaggedStore": "windflow_tpu_torch.durability",
+    "run_with_epochs": "windflow_tpu_torch.durability",
+    "restore_epoch": "windflow_tpu_torch.durability",
     # resident FFAT lane (operators/tpu/ffat_resident.py)
     "WinSeqFFATResident": "windflow_tpu_torch.operators.tpu.ffat_resident",
 }
@@ -86,9 +94,7 @@ _NOT_YET = {
         "WorkerFailure", "plan_partition", "merge_stats", "wire_table",
         "check_wire_conservation", "MsgDecoder", "Server", "TenantSpec",
         "TenantHandle", "TenantState", "AdmissionError", "ArbiterConfig",
-        "CrossTenantArbiter", "EpochCoordinator", "EpochStore",
-        "EpochBarrier", "EpochTaggedStore", "run_with_epochs",
-        "restore_epoch", "Watermark", "watermarked", "WatermarkedSource",
+        "CrossTenantArbiter", "Watermark", "watermarked", "WatermarkedSource",
         "EventTimeWindow", "SessionWindow", "IntervalJoin", "WindowJoin",
         "Sided", "side_tagger", "tag_side", "LEFT", "RIGHT", "StreamQuery",
         "query"),

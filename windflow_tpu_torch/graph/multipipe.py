@@ -207,9 +207,15 @@ class MultiPipe:
         supervised registry (durability/supervision.py): the replica
         supervisor rebuilds crashed replicas of these groups from the
         last committed epoch instead of failing the graph."""
-        from .._unported import unported
-        raise unported("restartable operators (durability/supervision.py)",
-                       "host_planes")
+        from ..durability.supervision import SupervisedGroup
+        key = f"{self.name}/{stage.name}"
+        if key in self.graph.supervised:
+            raise RuntimeError(f"restartable operator {key!r} already "
+                               "registered")
+        for node in replica_nodes:
+            node.supervised_group = key
+        self.graph.supervised[key] = SupervisedGroup(
+            key, self, stage.elastic_factory, list(replica_nodes))
 
     def _register_elastic(self, stage: StageSpec, replica_nodes,
                           outlets) -> None:

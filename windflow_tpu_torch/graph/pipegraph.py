@@ -27,9 +27,6 @@ from .multipipe import MultiPipe
 # RuntimeConfig fields that turn on planes this port does not carry yet
 _UNPORTED_PLANES = (
     ("distributed", "the distributed runtime plane"),
-    ("durability", "the durability plane"),
-    ("supervision", "supervised replica healing"),
-    ("state_budget_bytes", "tiered keyed state"),
     ("slo", "the SLO plane"),
     ("sched_lease", "the global-scheduler plane"),
 )
@@ -430,6 +427,17 @@ class PipeGraph:
                     if getattr(uf, "_wants_flight", False):
                         uf.flight = self.flight
                         uf.source_name = n.name
+        # tiered keyed state (state/; docs/RESILIENCE.md "Tiered state
+        # & memory pressure"): under RuntimeConfig.state_budget_bytes,
+        # swap capable keyed logics' dict stores for TieredKeyedStores
+        # (hot/warm/cold under the keyed_state_dict contract).  AFTER
+        # flight/dead-letter/fault binding (the stores record
+        # state_pressure/spill_abort and shed into dead_letters),
+        # BEFORE the audit plane (the auditor hands its hot-key
+        # sketches to the stores it finds)
+        if getattr(self.config, "state_budget_bytes", None):
+            from ..state import attach_tiered_state
+            self.tiered_state = attach_tiered_state(self)
         # audit plane (audit/; docs/OBSERVABILITY.md): attach the
         # per-edge delivery books, outlet put-fault state and KEYBY
         # hot-key sketches AFTER fusion/ingest wiring and fault binding
@@ -456,6 +464,34 @@ class PipeGraph:
                 "RuntimeConfig.slo needs the diagnosis plane: SLO "
                 "burn rates are evaluated on the diagnosis tick "
                 "(leave RuntimeConfig.diagnosis at its default True)")
+        # durability plane (durability/; docs/RESILIENCE.md): the epoch
+        # coordinator + per-node barrier aligners/injectors.  AFTER the
+        # audit books (barriers ride Outlet.send_to, so per-edge
+        # delivery books count them symmetrically) and fault binding
+        # (crash_at_epoch fires through the bound NodeFaults), BEFORE
+        # any replica thread runs
+        if self.config.durability is not None:
+            from ..durability import EpochCoordinator
+            self.durability = EpochCoordinator(self)
+            self.durability.attach()
+        # supervised replica self-healing (durability/supervision.py):
+        # opt-in via RuntimeConfig.supervision, and only on top of the
+        # durability plane -- the heal rewinds the graph to the last
+        # committed epoch, which does not exist without one.  Built
+        # BEFORE the replica threads start: the supervisor's pre-start
+        # state capture is the rewind point until the first commit.
+        if self.config.supervision is not None:
+            if self.durability is None:
+                raise RuntimeError(
+                    "RuntimeConfig.supervision needs the durability "
+                    "plane: a supervised restart rewinds to the last "
+                    "committed epoch (set RuntimeConfig.durability)")
+            if self.supervised:
+                from ..durability.supervision import ReplicaSupervisor
+                self._supervisor = ReplicaSupervisor(self)
+                for grp in self.supervised.values():
+                    for n in grp.replicas:
+                        n.supervisor = self._supervisor
         for n in self._all_nodes():
             n.start()
         if self.auditor is not None:
@@ -909,7 +945,41 @@ class PipeGraph:
         return build_report(stats, self.flight.snapshot())
 
     def live_checkpoint(self, path: str, timeout: float = 120.0) -> int:
-        """Mid-stream snapshot to a file: the checkpoint utilities and
-        the durability plane are not ported yet, so this raises."""
-        raise unported("PipeGraph.live_checkpoint (utils/checkpoint.py "
-                       "and the durability plane)", "host_planes")
+        """Mid-stream snapshot to a ``restore_graph``-compatible file.
+
+        With the durability plane on (``RuntimeConfig.durability``)
+        this is NON-STOP: it forces one aligned epoch and waits for its
+        commit -- no source pause, no drain, the graph keeps emitting
+        throughout -- then mirrors the committed states to ``path``.
+        Without it, the legacy barrier applies: quiesce (pause sources,
+        drain channels and in-flight device batches), snapshot, resume.
+        Returns the number of replicas captured.  Restores pair with
+        source replay from the captured offsets."""
+        import pickle
+        from ..utils.checkpoint import write_snapshot
+        if not self._started or self._ended:
+            # both paths need a live graph: the legacy barrier pauses
+            # running sources, and a forced epoch can only commit while
+            # the coordinator thread and the sinks are alive
+            raise RuntimeError("live_checkpoint() needs a running graph")
+        if self.durability is not None:
+            epoch, blobs = self.durability.checkpoint_now(timeout)
+            states = {name: pickle.loads(b) for name, b in blobs.items()}
+            write_snapshot(path, states, epoch=epoch)
+            self.flight.record("checkpoint_epoch", path=path, epoch=epoch,
+                               replicas=len(states), non_stop=True)
+            return len(states)
+        from ..utils.checkpoint import graph_state
+        # serialize with elastic rescales: SourcePauseControl is a
+        # non-counting boolean, so a concurrent rescale's resume()
+        # would un-park sources mid-snapshot (and vice versa)
+        with self._rescale_lock:
+            self.quiesce(timeout)
+            try:
+                state = graph_state(self)
+                write_snapshot(path, state)
+            finally:
+                self.resume()
+        self.flight.record("checkpoint_epoch", path=path,
+                           replicas=len(state))
+        return len(state)

@@ -369,10 +369,14 @@ class Sink(_BasicOp):
         self.exactly_once = exactly_once
 
     def _make_logic(self, i, n=None):
-        if self.exactly_once is not None:
-            from .._unported import unported
-            raise unported("exactly-once sinks (the durability plane)",
-                           "host_planes")
+        if self.exactly_once == "transactional":
+            from ..durability.transaction import TransactionalSinkLogic
+            return TransactionalSinkLogic(self.fn, n or self.parallelism,
+                                          i, self.closing_func)
+        if self.exactly_once == "idempotent":
+            from ..durability.transaction import IdempotentSinkLogic
+            return IdempotentSinkLogic(self.fn, n or self.parallelism,
+                                       i, self.closing_func)
         return SinkLogic(self.fn, n or self.parallelism, i,
                          self.closing_func)
 

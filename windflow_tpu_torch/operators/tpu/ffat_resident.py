@@ -136,7 +136,7 @@ class WinSeqFFATResidentLogic(NodeLogic):
 
     @property
     def forest(self) -> BatchedFlatFAT:
-        if self._forest is None:
+        if self.device is None:
             self.set_device("cuda")
         return self._forest
 
@@ -149,6 +149,17 @@ class WinSeqFFATResidentLogic(NodeLogic):
             self.set_device("cuda")
         return BatchedFlatFAT(self.combine, self.neutral, n_keys, n,
                               device=self.device, stream=self._stream)
+
+    def _restored_forest(self, n_keys: int, n: int) -> BatchedFlatFAT:
+        """The forest a restore loads into.  A logic not bound to a
+        device yet -- restored into a graph before it starts, as
+        ``run_with_epochs`` and ``restore_graph`` do -- keeps it on the
+        host until ``set_device`` moves it, contents and all, to the
+        device the graph binds, before the first launch."""
+        if self.device is None:
+            return BatchedFlatFAT(self.combine, self.neutral, n_keys, n,
+                                  device="cpu")
+        return self._new_forest(n_keys, n)
 
     def _key_state(self, key) -> _ResidentKey:
         st = self.keys.get(key)
@@ -453,7 +464,8 @@ class WinSeqFFATResidentLogic(NodeLogic):
 
     def load_state(self, state):
         """Restore a snapshot (``tree`` as a numpy or torch [K, 2n]
-        array; it goes to this logic's device)."""
+        array; it goes to this logic's device, see
+        ``_restored_forest``)."""
         tree = state["tree"]
         if isinstance(tree, torch.Tensor):
             tree = tree.detach().cpu().numpy()
@@ -461,7 +473,7 @@ class WinSeqFFATResidentLogic(NodeLogic):
         # the forest matches the snapshot's row count EXACTLY, so a new
         # key past it grows the forest instead of landing on a row the
         # snapshot does not hold
-        self._forest = self._new_forest(tree.shape[0], self.capacity)
+        self._forest = self._restored_forest(tree.shape[0], self.capacity)
         self._forest.load_tree(tree)
         self.keys.clear()
         for k, fields in state["keys"].items():
@@ -523,7 +535,7 @@ class WinSeqFFATResidentLogic(NodeLogic):
         while n < need:
             n <<= 1
         self.capacity = n
-        self._forest = self._new_forest(max(2, len(kv)), n)
+        self._forest = self._restored_forest(max(2, len(kv)), n)
         for k, blob in kv.items():
             st = _ResidentKey(len(self.keys), self.capacity, self.is_tb)
             st.count, st.next_fire = blob["count"], blob["next_fire"]
@@ -540,8 +552,8 @@ class WinSeqFFATResidentLogic(NodeLogic):
             leaves = np.asarray(blob["leaves"], np.float32)
             for c in range(0, len(live), 4096):
                 pos = live[c:c + 4096]
-                self.forest.update(np.full(len(pos), st.row), pos,
-                                   leaves[c:c + 4096])
+                self._forest.update(np.full(len(pos), st.row), pos,
+                                    leaves[c:c + 4096])
 
 
 class WinSeqFFATResident(Operator):

@@ -1155,9 +1155,11 @@ class RtNode(threading.Thread):
                 # cut for) and tell downstream aligners no further
                 # barriers come from here -- BEFORE flush_eos closes
                 # the producer slots
-                from .._unported import unported
-                raise unported("the durability plane (epoch barriers)",
-                               "host_planes")
+                from ..durability.barrier import (broadcast_final,
+                                                  capture_states)
+                self.epoch_coord.node_finished(self.name,
+                                               capture_states(self))
+                broadcast_final(self)
             if self.stats is not None:
                 self.stats.set_terminated()
             term = getattr(self.logic, "set_segments_terminated", None)
