@@ -203,13 +203,42 @@ every phase passed):
    map's 10th chunk: restored epoch 2, every window once, K1 after the
    restore, at most 2 launches a chunk.
    delta16, tiered17 -- bench configs 16 and 17 (bench.py:1378, :1543)
-   at their sizes with the bench's own gates (no kernel runs).
+   with the bench's own gates (no kernel runs): config 17 at its size,
+   config 16 with 200 of its 400 rounds of the hot set.
+12. planes -- the elastic scaling plane and the event-time plane
+   (windflow_tpu_torch/elastic/, eventtime/), each kernel count set to
+   0 just before a path and read just after.
+   rescale15 -- config 15's resident FFAT lane at its size (8M events,
+   8 keys, CB 4096/16, source batch 65,536, torch.add) with its forest
+   repartitioned on the card as a rescale moves keyed state: one
+   WinSeqFFATResidentLogic takes the first half, its keyed_state_dict()
+   goes through partition_keyed_state into 3 fresh logics on the card
+   (load_keyed_state), the next quarter is routed to them by owner_of,
+   and merge_keyed_states brings it back into one logic, which
+   finishes the stream: every window equal to oracle15 and to
+   [main15]'s unsplit lane, every forest on the card, each logic's
+   fused update+query launches equal to its batches (the refills
+   counted apart), no other kernel; the bytes copied off and onto the
+   card, the seconds and the forest shapes of each cut, tuples/s.
+   elastic2i -- bench config 2i (bench.py:331-404) at 9,000 events:
+   a skewed-key step load (500/s, 2,000/s, 500/s, open-loop paced)
+   into an elastic accumulator with a 1,000 us sleep fold (1..4
+   replicas, target 0.5), the controller on: every tuple conserved,
+   each key's last value equal to its count, at least one scale-up,
+   every event inside [1, 4], the controller's threads stopped at the
+   end of run(); the rescale events, the rate, p50/p99 a phase.
+   nexmark18 -- bench config 18 (bench.py:2088-2218) at 200,000 bids
+   through the port's builders: Q4 against q4_oracle within 1e-9 per
+   window, Q8 against q8_oracle exactly with its watermark-to-result
+   latency (bench.py's _WmClock and _stamped_record_source), the
+   planted-late lane (every straggler in dead letters, the late_data
+   flight events counting them), no on-time tuple quarantined.
 
 Then one JSON line describing each kernel (the window-sum kernel's
 launches: the headline's, phase 5b's, the models' and phase 11's; the
-three FlatFAT
-kernels twice: builtin, and compiled with torch.logaddexp, each with the
-launches of its own paths), the card line, and
+three FlatFAT kernels twice: builtin, and compiled with torch.logaddexp,
+each with the launches of its own paths, the fused update+query
+kernel's including phase 12's), the card line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1799,6 +1828,8 @@ def ffat_lane(lane: str):
 
 # config 15's cells, each run once per round: cell -> one reading a round
 READINGS15: dict = collections.defaultdict(list)
+# (keys, ids, values) of [main15]'s resident lane, sorted by key and id
+MAIN15_RESIDENT: list = []
 
 
 def check_launches(tag: str, logics, kernels: dict, expect) -> int:
@@ -1890,6 +1921,9 @@ def main15(card: str) -> dict:
         launches = check_launches(f"main15 {lane}", logic, counts, kernel)
         got = sorted_windows(sink, f"main15 {lane}")
         hold_to_oracle(got, want, f"main15 {lane}")
+        if lane == "resident":
+            # the unsplit lane's windows, which [rescale15] must equal
+            MAIN15_RESIDENT[:] = got[:3]
         lanes[lane] = {"bpl": bytes_per_launch(logic), "launches": launches,
                        "state": logic.device_resident_bytes()
                        if lane == "resident" else 0}
@@ -3113,7 +3147,9 @@ def delta16(card: str) -> None:
     from windflow_tpu_torch.runtime.emitters import StandardEmitter
     from windflow_tpu_torch.runtime.node import SourceLoopLogic
 
-    n_keys, dirty_frac, dirty_rounds, interval_s = 10_000, 0.01, 400, 0.06
+    # bench.py runs 400 dirty rounds; 200 keep the script's time (its
+    # record plane ran about 20 s a lane on the H100) for phase 12
+    n_keys, dirty_frac, dirty_rounds, interval_s = 10_000, 0.01, 200, 0.06
     n_dirty = max(1, int(n_keys * dirty_frac))
     n_events = n_keys + dirty_rounds * n_dirty
     tmp = tempfile.mkdtemp(prefix="chip-smoke-delta-")
@@ -3330,6 +3366,416 @@ def main_durable(card: str) -> tuple:
     return k1, k2f
 
 
+# ---------------------------------------------------------------------------
+# 12. the elastic scaling plane and the event-time plane
+# ---------------------------------------------------------------------------
+
+# [rescale15]: the replica count after each cut, made at the first
+# source batch at or past its event: 1 -> 3 at half the stream, 3 -> 1
+# at three quarters
+RESCALE15 = ((N15 // 2, 3), (3 * N15 // 4, 1))
+# bench config 2i (bench.py:331-404, run at :2375)
+N2I = 9_000
+SVC2I_US, LOW2I, BURST2I = 1000.0, 500.0, 4.0
+# bench config 18 (bench.py:2088-2218, run at :2581)
+N18 = 200_000
+WIN18 = 256
+LATE18_M, LATE18_PLANTED = 20_000, 7
+
+
+class _ReplicaNode:
+    """The fields of a replica node ``merge_keyed_states`` reads."""
+
+    def __init__(self, logic):
+        self.logic = logic
+        self.name = "win_seqffat_resident"
+
+
+def rescale15(card: str) -> int:
+    """[rescale15]: config 15's resident FFAT lane at its size (8M
+    events, 8 keys, CB 4096/16, source batch 65,536, ``torch.add``),
+    its forest repartitioned across replicas on the card as the elastic
+    plane moves keyed state (tests/test_resident.py:344, taken 1->3->1):
+    one ``WinSeqFFATResidentLogic`` on the card takes the first half of
+    the stream; its ``keyed_state_dict()`` goes through
+    ``partition_keyed_state`` into 3 fresh logics on the card
+    (``load_keyed_state``), which take the next quarter routed by
+    ``owner_of`` (keys {0,3,6}, {1,4,7}, {2,5}); ``merge_keyed_states``
+    brings the state back into one logic, which finishes the stream.
+    Every window equals ``oracle15`` and [main15]'s unsplit lane exactly;
+    every forest is on the card; on every logic the fused update+query
+    launches equal its launched batches, the refills' launches counted
+    apart, no other kernel.  Returns the fused kernel's launches."""
+    from windflow_tpu_torch.core.tuples import TupleBatch
+    from windflow_tpu_torch.elastic import (merge_keyed_states, owner_of,
+                                            partition_keyed_state)
+    from windflow_tpu_torch.operators.tpu.ffat_resident import \
+        WinSeqFFATResidentLogic
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+
+    def fresh():
+        return WinSeqFFATResidentLogic(lambda t: t.value, torch.add, 0.0,
+                                       WIN15, SLIDE15, device=DEVICE15)
+
+    stamps: list = []
+    sink = RecordSink(stamps, SLIDE15)
+    reps = [fresh()]
+    steps = [0]          # the fused kernel's launches a logic, this stage
+    refills = 0
+    cuts = list(RESCALE15)
+    reset_counts()
+    t0 = time.perf_counter()
+    for c in range(0, N15, SOURCE15):
+        if cuts and c >= cuts[0][0]:
+            for rep, k2f in zip(reps, steps):
+                if k2f != rep.launched_batches or k2f <= 0:
+                    raise AssertionError(
+                        f"[rescale15] {k2f} fused launches != "
+                        f"{rep.launched_batches} batches on a logic")
+            torch.cuda.synchronize()
+            t_cut = time.perf_counter()
+            off = sum(r.forest.state_bytes for r in reps)
+            merged, stateful = merge_keyed_states(
+                [_ReplicaNode(r) for r in reps])
+            if not stateful or sorted(merged) != list(range(KEYS15)):
+                raise AssertionError(f"[rescale15] merged keys "
+                                     f"{sorted(merged)}")
+            new_n = cuts.pop(0)[1]
+            old_n = len(reps)
+            reps = [fresh() for _ in range(new_n)]
+            k0 = fq.fused_launch_count()
+            for part, rep in zip(partition_keyed_state(merged, new_n),
+                                 reps):
+                rep.load_keyed_state(part)
+            torch.cuda.synchronize()
+            secs_cut = time.perf_counter() - t_cut
+            refill = fq.fused_launch_count() - k0
+            refills += refill
+            on = sum(b["leaves"].nbytes for b in merged.values())
+            for rep in reps:
+                if rep.forest.tree.device.type != DEVICE15:
+                    raise AssertionError("[rescale15] forest off the card")
+            shapes = [tuple(r.forest.tree.shape) for r in reps]
+            owned = [sorted(r.keys) for r in reps]
+            log(f"[rescale15] {old_n} -> {new_n} at event {c}: "
+                f"{off} forest bytes copied off the card, {on} leaf "
+                f"bytes copied onto it ({refill} refill launches of the "
+                f"fused kernel); {secs_cut:.6f} s; forests {shapes}, keys "
+                f"{owned} ({card})")
+            steps = [0] * new_n
+        idx = np.arange(c, min(c + SOURCE15, N15))
+        stamps.append(time.perf_counter())
+        batch = TupleBatch({"key": idx % KEYS15, "id": idx // KEYS15,
+                            "ts": idx // KEYS15,
+                            "value": (idx % VMOD).astype(np.float64)})
+        owner = np.array([owner_of(k, len(reps)) for k in range(KEYS15)])
+        owners = owner[batch.key]
+        for i, rep in enumerate(reps):
+            sel = np.nonzero(owners == i)[0]
+            if len(sel):
+                k0 = fq.fused_launch_count()
+                rep.svc(batch.take(sel), 0, sink)
+                steps[i] += fq.fused_launch_count() - k0
+    k0 = fq.fused_launch_count()
+    reps[0].eos_flush(sink)
+    steps[0] += fq.fused_launch_count() - k0
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    if steps[0] != reps[0].launched_batches:
+        raise AssertionError(f"[rescale15] {steps[0]} fused launches != "
+                             f"{reps[0].launched_batches} batches")
+    for name, count in counts.items():
+        if name != "flatfat_update_query" and count:
+            raise AssertionError(f"[rescale15] {name} launched {count} "
+                                 f"times")
+    got = sorted_windows(sink, "rescale15")
+    hold_to_oracle(got, oracle15(N15, SLIDE15), "rescale15")
+    if not all(np.array_equal(a, b) for a, b in zip(got[:3],
+                                                    MAIN15_RESIDENT)):
+        raise AssertionError("[rescale15] windows differ from [main15]'s "
+                             "unsplit resident lane")
+    k2f = counts["flatfat_update_query"]
+    if cuts or not refills:
+        raise AssertionError(f"[rescale15] cuts {cuts} not made")
+    log(f"[rescale15] {N15} events in {secs:.3f} s = {N15 / secs:.1f} "
+        f"tuples/s over the phase; {len(got[0])} windows equal oracle15 "
+        f"and [main15]'s unsplit lane exactly; {k2f} flatfat_update_query "
+        f"launches = the logics' steps + {refills} refills, every logic's "
+        f"steps = its batches, other kernels 0 ({card})")
+    return k2f
+
+
+def elastic2i(card: str) -> None:
+    """[elastic2i]: bench config 2i (bench.py:331-404) at its 9,000
+    events: keys zipf(1.3) % 32 from default_rng(0), three open-loop
+    phases at 500/s, 2,000/s and 500/s, a 1,000 us sleep fold in an
+    elastic ``AccumulatorBuilder`` (1..4 replicas, target_util 0.5)
+    under ``ElasticityConfig(sample_period_s=0.1, cooldown_s=1.0,
+    ewma_alpha=0.6)``.  Every tuple conserved, each key's last
+    accumulated value equal to its count, at least one scale-up, every
+    event inside [1, 4], the controller and sampler threads stopped by
+    the end of ``run()``; no kernel on this path."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.elastic import ElasticityConfig
+
+    phase_len = max(1, N2I // 3)
+    state = {"i": 0}
+    keys = (np.random.default_rng(0).zipf(1.3, size=N2I) % 32) \
+        .astype(np.int64)
+    sched = [0.0]
+
+    def src(shipper, ctx):
+        i = state["i"]
+        if i >= N2I:
+            return False
+        rate = LOW2I * (BURST2I if min(i // phase_len, 2) == 1 else 1.0)
+        now = time.perf_counter()
+        if sched[0] == 0.0:
+            sched[0] = now
+        if now < sched[0]:
+            time.sleep(sched[0] - now)
+        sched[0] += 1.0 / rate
+        shipper.push(wf.BasicRecord(int(keys[i]), i,
+                                    time.perf_counter_ns() // 1000, 1.0))
+        state["i"] = i + 1
+        return True
+
+    lats = {0: [], 1: [], 2: []}
+    last: dict = {}
+    lock = threading.Lock()
+
+    def sink(r):
+        if r is None:
+            return
+        lat_ms = (time.perf_counter_ns() // 1000 - r.ts) / 1e3
+        with lock:
+            lats[min(r.id // phase_len, 2)].append(lat_ms)
+            last[r.key] = max(last.get(r.key, 0.0), r.value)
+
+    def fold(t, acc):
+        time.sleep(SVC2I_US / 1e6)
+        acc.value += t.value
+
+    cfg = wf.RuntimeConfig(elasticity=ElasticityConfig(
+        sample_period_s=0.1, cooldown_s=1.0, ewma_alpha=0.6))
+    g = wf.PipeGraph("chip_smoke2i", wf.Mode.DEFAULT, config=cfg)
+    acc = wf.AccumulatorBuilder(fold).with_name("acc") \
+        .with_initial_value(wf.BasicRecord()) \
+        .with_elasticity(1, 4, target_util=0.5).build()
+    g.add_source(wf.SourceBuilder(src).build()) \
+        .add(acc).add_sink(wf.SinkBuilder(sink).build())
+    reset_counts()
+    t0 = time.perf_counter()
+    g.run()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    events = json.loads(g.stats.to_json())["Rescale_events"]
+    sunk = sum(len(v) for v in lats.values())
+    if sunk != N2I:
+        raise AssertionError(f"[elastic2i] sunk {sunk} != emitted {N2I}")
+    want = collections.Counter(keys.tolist())
+    if last != {k: float(c) for k, c in want.items()}:
+        raise AssertionError("[elastic2i] a key's last value is not its "
+                             "count")
+    if not any(e["new_parallelism"] > e["old_parallelism"] for e in events):
+        raise AssertionError(f"[elastic2i] no scale-up: {events}")
+    if not all(1 <= e["new_parallelism"] <= 4 for e in events):
+        raise AssertionError(f"[elastic2i] outside [1, 4]: {events}")
+    if any(counts.values()):
+        raise AssertionError(f"[elastic2i] kernels launched {counts}")
+    ctl = g._controller
+    if ctl is None or ctl.is_alive() or ctl.sampler.is_alive():
+        raise AssertionError("[elastic2i] controller threads still alive")
+    phases = "; ".join(
+        f"phase {ph} p50 {np.percentile(lats[ph], 50):.3f} ms, p99 "
+        f"{np.percentile(lats[ph], 99):.3f} ms" for ph in (0, 1, 2))
+    path = " ".join(f"{e['old_parallelism']}->{e['new_parallelism']}"
+                    f"@{e['duration_s']:.6f}s" for e in events)
+    log(f"[elastic2i] {N2I} events in {secs:.3f} s = {N2I / secs:.1f} "
+        f"tuples/s; sunk {sunk} = emitted; every key's last value = its "
+        f"count; rescales {path}; {phases}; controller and sampler "
+        f"stopped; no kernel ({card})")
+
+
+class _WmClock:
+    """bench.py's ``_WmClock``: the wall time at which a watermarked
+    source's promise first reached each value (the seal stamps +inf)."""
+
+    def __init__(self):
+        self.w, self.t = [], []
+
+    def note(self, wm):
+        self.w.append(wm)
+        self.t.append(time.perf_counter())
+
+    def reached(self, x):
+        import bisect
+        i = bisect.bisect_left(self.w, x)
+        return self.t[i] if i < len(self.t) else None
+
+
+def _stamped_record_source(keys, tss, values, clock, every=32):
+    """bench.py's ``_stamped_record_source``: NEXMark's record source
+    with its watermark cadence stamped into ``clock``."""
+    from windflow_tpu_torch.core.tuples import BasicRecord
+    from windflow_tpu_torch.eventtime import watermarked
+
+    n = len(keys)
+    state = {"i": 0, "hi": float("-inf")}
+
+    def body(shipper):
+        i = state["i"]
+        if i >= n:
+            clock.note(float("inf"))
+            return False
+        shipper.push(BasicRecord(int(keys[i]), i, int(tss[i]), values[i]))
+        if float(tss[i]) > state["hi"]:
+            state["hi"] = float(tss[i])
+        state["i"] = i + 1
+        if state["i"] % every == 0:
+            clock.note(state["hi"])
+        return True
+
+    return watermarked(body, every=every)
+
+
+def nexmark18(card: str) -> None:
+    """[nexmark18]: bench config 18 (bench.py:2088-2218) at its 200,000
+    bids, through the port's own builders: Q4 (auctions |><| bids per
+    tumbling window, the closing-price average per category) against
+    ``q4_oracle`` per window within 1e-9; Q8 (persons |><| auctions, new
+    users) against ``q8_oracle`` as an exact multiset, with the
+    watermark-to-result latency; the planted-late lane, every straggler
+    in dead letters and counted by the ``late_data`` flight events.  No
+    on-time tuple quarantined; no kernel on these paths."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.core.tuples import BasicRecord
+    from windflow_tpu_torch.eventtime import EventTimeWindow, watermarked
+    from windflow_tpu_torch.models.nexmark import (
+        build_q4_avg_price, build_q8_new_users, q4_oracle, q8_oracle,
+        synth_auctions, synth_bids, synth_persons)
+    from windflow_tpu_torch.operators.basic_ops import Sink
+
+    n_side = max(256, N18 // 8)
+    persons = synth_persons(n_side, n_cities=16)
+    auctions = synth_auctions(n_side, n_sellers=max(8, n_side // 2))
+    bids = synth_bids(N18, n_auctions=n_side)
+    lock = threading.Lock()
+    reset_counts()
+
+    q4 = {}
+
+    def q4_sink(r):
+        if r is not None:
+            with lock:
+                q4[(r.key, r.ts)] = r.value
+
+    g4 = wf.PipeGraph("chip_smoke18_q4", wf.Mode.DEFAULT)
+    build_q4_avg_price(g4, auctions, bids, WIN18, q4_sink)
+    t0 = time.perf_counter()
+    g4.run()
+    dt4 = time.perf_counter() - t0
+    want4 = q4_oracle(auctions, bids, WIN18)
+    if set(q4) != set(want4) or not all(abs(q4[k] - want4[k]) < 1e-9
+                                        for k in want4):
+        raise AssertionError("[nexmark18] Q4 diverged from q4_oracle")
+    if g4.dead_letters.count():
+        raise AssertionError("[nexmark18] Q4 quarantined on-time tuples")
+
+    clocks = iter((_WmClock(), _WmClock()))
+    used = []
+    q8 = []
+
+    def q8_sink(r):
+        if r is not None:
+            now = time.perf_counter()
+            with lock:
+                q8.append((r.key, r.ts, r.value, now))
+
+    def source_of(k, t, v):
+        clock = next(clocks)
+        used.append(clock)
+        return _stamped_record_source(k, t, v, clock)
+
+    g8 = wf.PipeGraph("chip_smoke18_q8", wf.Mode.DEFAULT)
+    build_q8_new_users(g8, persons, auctions, WIN18, q8_sink,
+                       source_of=source_of)
+    t0 = time.perf_counter()
+    g8.run()
+    dt8 = time.perf_counter() - t0
+    got8 = sorted((int(k), int(ts), int(v[0]), int(v[1]))
+                  for k, ts, v, _ in q8)
+    if got8 != q8_oracle(persons, auctions, WIN18):
+        raise AssertionError("[nexmark18] Q8 diverged from q8_oracle")
+    if g8.dead_letters.count():
+        raise AssertionError("[nexmark18] Q8 quarantined on-time tuples")
+    lats = [max(0.0, now - max(c.reached(ts + WIN18) for c in used))
+            for _k, ts, _v, now in q8]
+
+    ts = list(range(LATE18_M))
+    stragglers = ts[LATE18_M // 2:LATE18_M // 2 + LATE18_PLANTED]
+    on_time = ts[:LATE18_M // 2] + ts[LATE18_M // 2 + LATE18_PLANTED:]
+    order = on_time + stragglers
+    state = {"i": 0}
+
+    def late_body(shipper):
+        i = state["i"]
+        if i >= len(order):
+            return False
+        shipper.push(BasicRecord(0, i, float(order[i]), 1.0))
+        state["i"] = i + 1
+        return True
+
+    sums = {}
+
+    def late_sink(r):
+        if r is not None:
+            with lock:
+                sums[r.ts] = r.value
+
+    gl = wf.PipeGraph("chip_smoke18_late", wf.Mode.DEFAULT)
+    gl.add_source(wf.SourceBuilder(
+        watermarked(late_body, every=16)).build()) \
+        .add(EventTimeWindow(sum, 32.0, name="late_win")) \
+        .add_sink(Sink(late_sink, name="late_sink"))
+    gl.run()
+    quarantined = gl.dead_letters.count()
+    flights = sum(e["n"] for e in gl.flight.snapshot()
+                  if e["kind"] == "late_data")
+    if quarantined != LATE18_PLANTED or flights != LATE18_PLANTED:
+        raise AssertionError(f"[nexmark18] planted {LATE18_PLANTED}, "
+                             f"quarantined {quarantined}, late_data "
+                             f"{flights}")
+    expect: dict = {}
+    for t in on_time:
+        expect[float(t // 32 * 32)] = expect.get(float(t // 32 * 32), 0) + 1
+    if sums != expect:
+        raise AssertionError("[nexmark18] late lane fired wrong sums")
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[nexmark18] kernels launched {counts}")
+    fed = N18 + 3 * n_side
+    p50, p99 = (float(np.percentile(lats, q)) * 1e3 for q in (50, 99))
+    log(f"[nexmark18] {N18} bids, {n_side} persons and auctions: "
+        f"{fed / (dt4 + dt8):.1f} tuples/s (Q4 {dt4:.3f} s, "
+        f"{(N18 + n_side) / dt4:.1f}/s, {len(q4)} windows within 1e-9 of "
+        f"q4_oracle; Q8 {dt8:.3f} s, {2 * n_side / dt8:.1f}/s, "
+        f"{len(got8)} pairs equal q8_oracle); Q8 watermark-to-result "
+        f"p50 {p50:.3f} ms, p99 {p99:.3f} ms; late lane: "
+        f"{LATE18_PLANTED} planted, {quarantined} quarantined, late_data "
+        f"n {flights}; Q4 and Q8 quarantined 0; no kernel ({card})")
+
+
+def main_planes(card: str) -> int:
+    """The elastic and event-time planes' cells; returns the fused
+    update+query kernel's launches on [rescale15]."""
+    k2f = rescale15(card)
+    elastic2i(card)
+    nexmark18(card)
+    return k2f
+
+
 def kernel_entry(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3429,6 +3875,13 @@ def main() -> int:
     k1_durable, k2f_durable = main_durable(card)
     launches += k1_durable
     launches15["flatfat_update_query"] += k2f_durable
+    log(f"[smoke] durability done at {time.perf_counter() - t_start:.1f} s")
+
+    # the elastic and event-time planes: config 15's resident forest
+    # repartitioned 1 -> 3 -> 1 on the card, configs 2i and 18; each
+    # path driven with every launch count set to 0 just before it and
+    # read just after
+    launches15["flatfat_update_query"] += main_planes(card)
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
     src = "windflow_tpu_torch/ops/cuda/flatfat_query.cu"

@@ -7,7 +7,9 @@ coalesced and not, PaneFarmTPU fused at LEVEL2, a custom window
 function) on CUDA against the same on the CPU, one kernel launch per
 launched batch; the application models (the Yahoo step against its CPU
 run, NEXMark Q5 and Q7 against their numpy oracles: Q5's count windows
-launch the window-sum kernel once a batch, Q7's max none).  The three
+launch the window-sum kernel once a batch, Q7's max none); the resident
+FFAT forest repartitioned 1 -> 3 -> 1 across replicas on the card as
+the elastic plane moves keyed state.  The three
 FlatFAT kernels run every combine: the builtins and user combines
 compiled from their torch ops into a library of their own (a product,
 ``logaddexp``, a NaN-skipping max written with ``where``, and
@@ -757,3 +759,97 @@ def test_resident_lane_crash_restart_on_the_card(tmp_path):
             want[(k, w)] = float(sum(vals[w * slide: w * slide + win]))
     assert max(counts.values()) == 1
     assert wins == want
+
+
+def test_resident_forest_repartitions_across_replicas_on_the_card():
+    """[rescale15]'s protocol at a small size: one resident FFAT logic on
+    the card takes the first half of the stream; its keyed state goes
+    through ``partition_keyed_state`` into 3 fresh logics on the card,
+    which take the next quarter routed by ``owner_of``;
+    ``merge_keyed_states`` brings it back into one logic, which finishes
+    the stream.  Every window equals the unsplit lane's on the CPU and
+    the closed form (integer values: exact); every forest stays on the
+    card, and after each repartition each logic's fused update+query
+    launches equal its launched batches, no other kernel launched."""
+    from windflow_tpu_torch.elastic import (merge_keyed_states, owner_of,
+                                            partition_keyed_state)
+    n, n_keys, win, slide, chunk = 24_000, 8, 96, 16, 2_000
+
+    def logic(device):
+        return WinSeqFFATResidentLogic(lambda t: t.value, torch.add, 0.0,
+                                       win, slide, device=device)
+
+    def batch(lo, hi):
+        idx = np.arange(lo, hi)
+        return TupleBatch({"key": idx % n_keys, "id": idx // n_keys,
+                           "ts": idx // n_keys,
+                           "value": (idx % 7).astype(np.float64)})
+
+    def flat(out):
+        return {(r.key, r.id): r.value for r in out}
+
+    cpu, want = logic("cpu"), []
+    for c in range(0, n, chunk):
+        cpu.svc(batch(c, c + chunk), 0, want.append)
+    cpu.eos_flush(want.append)
+
+    class Node:
+        def __init__(self, lg):
+            self.logic, self.name = lg, "win_seqffat_resident"
+
+    def others():
+        return (fq.launch_count(), fq.build_query_launch_count(),
+                ws.launch_count())
+
+    out, reps = [], [logic("cuda")]
+    stages = {n // 2: 3, 3 * n // 4: 1}
+    fq.reset_launch_count()
+    fq.reset_build_query_launch_count()
+    ws.reset_launch_count()
+    for c in range(0, n, chunk):
+        if c in stages:
+            merged, stateful = merge_keyed_states([Node(r) for r in reps])
+            assert stateful and set(merged) == set(range(n_keys))
+            reps = [logic("cuda") for _ in range(stages[c])]
+            for part, rep in zip(
+                    partition_keyed_state(merged, len(reps)), reps):
+                rep.load_keyed_state(part)
+                assert rep.forest.tree.is_cuda
+        b = batch(c, c + chunk)
+        owners = np.array([owner_of(int(k), len(reps)) for k in b.key])
+        for i, rep in enumerate(reps):
+            sel = np.nonzero(owners == i)[0]
+            if not len(sel):
+                continue
+            before = (fq.fused_launch_count(), rep.launched_batches)
+            rep.svc(b.take(sel), 0, out.append)
+            assert fq.fused_launch_count() - before[0] \
+                == rep.launched_batches - before[1] > 0
+    before = (fq.fused_launch_count(), reps[0].launched_batches)
+    reps[0].eos_flush(out.append)
+    assert fq.fused_launch_count() - before[0] \
+        == reps[0].launched_batches - before[1]
+    assert others() == (0, 0, 0)
+    assert flat(out) == flat(want)
+    for k in range(n_keys):
+        vals = [float(i % 7) for i in range(k, n, n_keys)]
+        for w in range((len(vals) - 1) // slide + 1):
+            assert flat(out)[(k, w)] == float(sum(
+                vals[w * slide: w * slide + win]))
+
+
+def test_resident_forest_off_the_card_raises():
+    """A resident logic bound to the card whose forest is on the host
+    (a load that bypassed its device) raises on its next step; it never
+    takes the kernel's plain version."""
+    from windflow_tpu_torch.ops.flatfat_torch import BatchedFlatFAT
+    lg = WinSeqFFATResidentLogic(lambda t: t.value, torch.add, 0.0, 96, 16,
+                                 device="cuda")
+    lg.forest = BatchedFlatFAT(torch.add, 0.0, 2, lg.capacity,
+                               device="cpu")
+    idx = np.arange(200)
+    before = fq.fused_launch_count()
+    with pytest.raises(RuntimeError, match="forest on cpu"):
+        lg.svc(TupleBatch({"key": idx % 2, "id": idx // 2, "ts": idx // 2,
+                           "value": np.ones(200)}), 0, lambda r: None)
+    assert fq.fused_launch_count() == before

@@ -67,8 +67,13 @@ def test_umbrella_exports_ported_names_and_names_the_rest():
         "windflow_tpu_torch.durability.recovery"
     with pytest.raises(AttributeError, match="ROADMAP.md A10"):
         wf.Server
+    assert wf.ElasticController.__module__ == \
+        "windflow_tpu_torch.elastic.controller"
+    assert wf.EventTimeWindow.__module__ == \
+        "windflow_tpu_torch.eventtime.windows"
+    assert wf.Watermark.__module__ == "windflow_tpu_torch.runtime.queues"
     with pytest.raises(AttributeError, match="ROADMAP.md A10"):
-        wf.ElasticController
+        wf.TenantSpec
     with pytest.raises(AttributeError, match="ROADMAP.md A11"):
         wf.KeyFarmMesh
     with pytest.raises(AttributeError, match="no attribute"):

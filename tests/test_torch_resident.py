@@ -268,6 +268,21 @@ def _resident(pkg, win=512, slide=16, tb=False, combine=ADD, neutral=0.0):
         win_type=wt.TB if tb else wt.CB, **_dev(pkg))
 
 
+class _Node:
+    """The RtNode fields ``merge_keyed_states`` reads."""
+
+    def __init__(self, logic):
+        self.logic = logic
+        self.name = "win_seqffat_resident"
+
+
+def _tree(pkg, lg):
+    """A resident logic's forest [K, 2n] on the host."""
+    if pkg == "windflow_tpu_torch":
+        return lg.forest.tree_numpy()
+    return np.asarray(lg.forest.tree)
+
+
 class TestResidentFFAT:
     def test_bytes_per_launch_10x_below_rebuild(self):
         """The bench-15 claim at a small size, in both packages: the
@@ -329,36 +344,95 @@ class TestResidentFFAT:
         assert len(got["windflow_tpu"]) == (20_000 - 1) // 16 + 1
         assert got["windflow_tpu_torch"] == got["windflow_tpu"]
 
-    def test_keyed_state_partitions_across_replicas(self):
-        """keyed_state_dict() splits by key and load_keyed_state()
-        rebuilds per-owner forests: a 1->2 repartition mid-stream
-        matches the uninterrupted run (the reference's rescale helpers
-        split the port's blobs: they are dicts of numpy arrays)."""
-        from windflow_tpu.elastic.rescale import (owner_of,
-                                                  partition_keyed_state)
-        pkg = "windflow_tpu_torch"
-        n, n_keys = 12_000, 4
-        ref = {(k, i): v[0] for (k, i), v in _run_logic(
-            pkg, _resident(pkg, 128, 32), n, 600, n_keys).items()}
-        a = _resident(pkg, 128, 32)
-        out = []
-        for c in range(0, n // 2, 600):
-            a.svc(_batch(pkg, c, c + 600, n_keys), 0, out.append)
-        parts = partition_keyed_state(a.keyed_state_dict(), 2)
-        reps = [_resident(pkg, 128, 32), _resident(pkg, 128, 32)]
-        for part, rep in zip(parts, reps):
-            rep.load_keyed_state(part)
-        for c in range(n // 2, n, 600):
-            batch = _batch(pkg, c, c + 600, n_keys)
-            for owner in (0, 1):
-                mask = np.array([owner_of(int(k), 2) == owner
-                                 for k in batch.key])
-                if mask.any():
-                    reps[owner].svc(batch.take(np.nonzero(mask)[0]), 0,
-                                    out.append)
-        for rep in reps:
-            rep.eos_flush(out.append)
-        assert {(r.key, r.id): r.value for r in out} == ref
+    def test_snapshot_does_not_alias_the_live_forest(self):
+        """A resident lane's ``state_dict()`` and ``keyed_state_dict()``
+        are snapshots: stepping the lane on after them leaves them as
+        the reference's snapshots at the same point (the port's CPU
+        forest was once read in place, ROADMAP.md C6)."""
+        snaps = {}
+        for pkg in PACKAGES:
+            lg = _resident(pkg, 128, 32)
+            out = []
+            for c in range(0, 3000, 500):
+                lg.svc(_batch(pkg, c, c + 500), 0, out.append)
+            snap, keyed = lg.state_dict(), lg.keyed_state_dict()
+            for c in range(3000, 6000, 500):
+                lg.svc(_batch(pkg, c, c + 500), 0, out.append)
+            snaps[pkg] = (np.array(snap["tree"]),
+                          {k: b["leaves"].tolist() for k, b in keyed.items()})
+        np.testing.assert_array_equal(snaps[PACKAGES[1]][0],
+                                      snaps[PACKAGES[0]][0])
+        assert snaps[PACKAGES[1]][1] == snaps[PACKAGES[0]][1]
+
+    @pytest.mark.parametrize("steps", [(2,), (3, 1)],
+                             ids=["1-2", "1-3-1"])
+    def test_keyed_state_partitions_across_replicas(self, steps):
+        """The twin of the reference's 1->2 repartition
+        (tests/test_resident.py::test_keyed_state_partitions_across_replicas),
+        also taken 1->3->1 so the owners hold unequal key counts: each
+        package cuts its own lane with its own ``partition_keyed_state``
+        / ``owner_of`` / ``merge_keyed_states``.  After every cut each
+        replica's forest (leaves and inner nodes) equals the
+        reference's, and the windows equal the reference's and the
+        uninterrupted run's."""
+        n, n_keys, chunk = 12_000, 5, 600
+        cuts = [n // 2 + i * n // (2 * len(steps)) for i in range(len(steps))]
+        got, trees = {}, {}
+        for pkg in PACKAGES:
+            el = _mod(pkg, "elastic")
+            out = []
+            reps = [_resident(pkg, 128, 32)]
+            for c in range(0, n, chunk):
+                if c in cuts:
+                    merged, stateful = el.merge_keyed_states(
+                        [_Node(r) for r in reps])
+                    assert stateful and set(merged) == set(range(n_keys))
+                    new_n = steps[cuts.index(c)]
+                    parts = el.partition_keyed_state(merged, new_n)
+                    reps = [_resident(pkg, 128, 32) for _ in range(new_n)]
+                    for part, rep in zip(parts, reps):
+                        rep.load_keyed_state(part)
+                    trees[pkg, c] = [_tree(pkg, r) for r in reps]
+                batch = _batch(pkg, c, c + chunk, n_keys)
+                owners = np.array([el.owner_of(int(k), len(reps))
+                                   for k in batch.key])
+                for i, rep in enumerate(reps):
+                    if (owners == i).any():
+                        rep.svc(batch.take(np.nonzero(owners == i)[0]), 0,
+                                out.append)
+            for rep in reps:
+                rep.eos_flush(out.append)
+            got[pkg] = _flat(out)
+        full = _run_logic(PACKAGES[0], _resident(PACKAGES[0], 128, 32), n,
+                          chunk, n_keys)
+        assert got[PACKAGES[1]] == got[PACKAGES[0]] == full
+        for c in cuts:
+            assert len(trees[PACKAGES[1], c]) == len(trees[PACKAGES[0], c])
+            for t_port, t_ref in zip(trees[PACKAGES[1], c],
+                                     trees[PACKAGES[0], c]):
+                np.testing.assert_array_equal(t_port, t_ref)
+
+    @pytest.mark.parametrize("src,dst", [PACKAGES, PACKAGES[::-1]],
+                             ids=["reference-to-port", "port-to-reference"])
+    def test_keyed_state_blob_crosses_packages(self, src, dst):
+        """A resident lane's ``keyed_state_dict()`` blob of one package
+        loads into the other's ``load_keyed_state`` as it is (both hold
+        the same fields: counters and numpy leaf and timestamp spans),
+        and the lane goes on to the uninterrupted run's windows."""
+        n, half = 9000, 4500
+        full = _run_logic(src, _resident(src, 256, 32), n)
+        a, out = _resident(src, 256, 32), []
+        for c in range(0, half, 500):
+            a.svc(_batch(src, c, c + 500), 0, out.append)
+        blob = pickle.loads(pickle.dumps(a.keyed_state_dict()))
+        b, own = _resident(dst, 256, 32), _resident(src, 256, 32)
+        b.load_keyed_state(blob)
+        own.load_keyed_state(pickle.loads(pickle.dumps(blob)))
+        np.testing.assert_array_equal(_tree(dst, b), _tree(src, own))
+        for c in range(half, n, 500):
+            b.svc(_batch(dst, c, c + 500), 0, out.append)
+        b.eos_flush(out.append)
+        assert _flat(out) == full
 
     @pytest.mark.parametrize("name", list(FFAT_COMBINES))
     def test_reference_snapshot_continues_in_port(self, name):

@@ -10,8 +10,7 @@ tests/test_state_recovery.py, tests/test_durability_delta.py):
   run and a crash restart; a torn delta chain falling back with
   ``blob_missing``; a supervised heal in place; a kill-restart while
   the store spills; a full disk that aborts commits and recovers;
-  restore into another parallelism, which raises until the elastic
-  plane is ported.
+  a delta-lane restore into another parallelism.
 
 Every durable graph drives its own epochs at fixed stream indices
 (``torch_graphs.gated_source``) and is held to the closed-form oracle
@@ -431,23 +430,31 @@ def test_tiered_graph_equals_all_hot(tmp_path):
     assert rows and all("tiers" in r for r in rows)
 
 
-def test_restore_into_other_parallelism_waits_for_elastic_plane(tmp_path):
+def test_delta_restore_into_other_parallelism(tmp_path):
     """The twin of the reference's delta restore into another
-    parallelism: the repartition is the elastic scaling plane's, which
-    the port does not carry yet (ROADMAP.md A10c), so it raises naming
-    that item before any state loads."""
+    parallelism (tests/test_durability_delta.py): crashed at accumulator
+    parallelism 2, restarted at 4, the delta chain resolves to per-key
+    entries, which repartition through the elastic hash % n owner; every
+    effect once, equal to the reference's clean run, the ledger exact."""
     FaultPlan = mod(PORT, "resilience").FaultPlan
     eff = Effects()
+    pars = []
 
     def factory(attempt):
+        par = 2 if attempt == 0 else 4
+        pars.append(par)
         plan = (FaultPlan(seed=5).crash_replica("accumulator",
                                                 at_tuple=1200)
                 if attempt == 0 else None)
         return acc_graph(PORT, N, str(tmp_path / "epochs"), eff,
                          plan=plan, epochs_at=EPOCHS_AT, delta=True,
-                         acc_par=2 if attempt == 0 else 4)
+                         acc_par=par)
 
-    with pytest.raises(NotImplementedError,
-                       match="different parallelism.*ROADMAP.md A10"):
-        _epochs(factory,
-                parallelism_overrides={"accumulator": 4})
+    g = _epochs(factory, parallelism_overrides={"accumulator": 4})
+    assert pars == [2, 4]
+    assert g._epoch_restored == 2
+    _exactly_once(eff.rows, _reference_clean(tmp_path))
+    ev = [e for e in g.flight.snapshot() if e["kind"] == "epoch_restore"]
+    assert ev and ev[-1].get("repartitioned") == ["accumulator"]
+    assert g.durability.delta
+    assert_ledger_exact(g)

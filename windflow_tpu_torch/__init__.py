@@ -72,6 +72,27 @@ _LAZY = {
     "EpochTaggedStore": "windflow_tpu_torch.durability",
     "run_with_epochs": "windflow_tpu_torch.durability",
     "restore_epoch": "windflow_tpu_torch.durability",
+    # elastic scaling plane (elastic/; docs/ELASTIC.md)
+    "ElasticityConfig": "windflow_tpu_torch.elastic",
+    "ElasticController": "windflow_tpu_torch.elastic",
+    "RescaleEvent": "windflow_tpu_torch.elastic",
+    "RescaleError": "windflow_tpu_torch.elastic",
+    "LoadReport": "windflow_tpu_torch.elastic",
+    # event-time relational plane (eventtime/; docs/EVENTTIME.md)
+    "Watermark": "windflow_tpu_torch.runtime.queues",
+    "watermarked": "windflow_tpu_torch.eventtime",
+    "WatermarkedSource": "windflow_tpu_torch.eventtime",
+    "EventTimeWindow": "windflow_tpu_torch.eventtime",
+    "SessionWindow": "windflow_tpu_torch.eventtime",
+    "IntervalJoin": "windflow_tpu_torch.eventtime",
+    "WindowJoin": "windflow_tpu_torch.eventtime",
+    "Sided": "windflow_tpu_torch.eventtime",
+    "side_tagger": "windflow_tpu_torch.eventtime",
+    "tag_side": "windflow_tpu_torch.eventtime",
+    "LEFT": "windflow_tpu_torch.eventtime",
+    "RIGHT": "windflow_tpu_torch.eventtime",
+    "StreamQuery": "windflow_tpu_torch.eventtime",
+    "query": "windflow_tpu_torch.eventtime",
     # resident FFAT lane (operators/tpu/ffat_resident.py)
     "WinSeqFFATResident": "windflow_tpu_torch.operators.tpu.ffat_resident",
 }
@@ -89,15 +110,11 @@ _LAZY.update({name: "windflow_tpu_torch.builders.builders_tpu" for name in (
 # names of the reference umbrella that later slices port, by ROADMAP item
 _NOT_YET = {
     "host_planes": (
-        "ElasticityConfig", "ElasticController", "RescaleEvent",
-        "RescaleError", "LoadReport", "DistributedSpec", "run_distributed",
-        "WorkerFailure", "plan_partition", "merge_stats", "wire_table",
+        "DistributedSpec", "run_distributed", "WorkerFailure",
+        "plan_partition", "merge_stats", "wire_table",
         "check_wire_conservation", "MsgDecoder", "Server", "TenantSpec",
         "TenantHandle", "TenantState", "AdmissionError", "ArbiterConfig",
-        "CrossTenantArbiter", "Watermark", "watermarked", "WatermarkedSource",
-        "EventTimeWindow", "SessionWindow", "IntervalJoin", "WindowJoin",
-        "Sided", "side_tagger", "tag_side", "LEFT", "RIGHT", "StreamQuery",
-        "query"),
+        "CrossTenantArbiter"),
     "mesh": ("KeyFarmMesh", "PaneFarmMesh", "WinMapReduceMesh",
              "make_mesh", "make_multihost_mesh"),
 }

@@ -65,8 +65,8 @@ def watermark_of(source) -> float:
     docs/EVENTTIME.md) -- distinct from the transport frontier above,
     which counts items, not event time.
 
-    Accepts anything exposing ``current_watermark`` (the reference's
-    ``WatermarkedSource``; the event-time plane is not ported yet),
+    Accepts a :class:`~windflow_tpu_torch.eventtime.watermarks.
+    WatermarkedSource` (or anything exposing ``current_watermark``),
     a running RtNode (its last min-merged outbound watermark), or any
     node as a fallback through :func:`source_frontier`.  Returns
     ``-inf`` before the first promise."""

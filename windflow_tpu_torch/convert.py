@@ -17,6 +17,13 @@ array; the port's ``load_state`` puts it on the logic's device.  (The
 resident pane carry of ``WinSeqTPULogic`` is not part of a snapshot in
 either package: it is rebuilt from the host series.)
 
+A resident FFAT lane's per-key blobs (``keyed_state_dict()``, what a
+rescale or a restore into another parallelism moves) need no
+conversion in either direction: both packages write the same fields --
+counters and numpy leaf and timestamp spans -- and each
+``load_keyed_state`` takes the other's as they are
+(``tests/test_torch_resident.py::test_keyed_state_blob_crosses_packages``).
+
 Both packages build the same ``native/*.cpp`` engine, so its versioned
 blob passes through unchanged.  The Python staging path's per-key
 stores are rebuilt as the port's key-state objects, attribute by

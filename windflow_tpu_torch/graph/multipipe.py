@@ -221,10 +221,24 @@ class MultiPipe:
                           outlets) -> None:
         """Register a wired elastic stage with the graph (rescale
         registry + always-on stats records for the load signals)."""
-        from .._unported import unported
-        raise unported("elastic operators (the elastic scaling plane)",
-                       "host_planes")
+        from ..elastic.rescale import ElasticHandle
+        key = f"{self.name}/{stage.name}"
+        if key in self.graph.elastic:
+            raise RuntimeError(f"elastic operator {key!r} already "
+                               "registered")
+        for i, node in enumerate(replica_nodes):
+            node.elastic_group = key
+            # load signals need service-time samples even when tracing
+            # is off; records registered here keep monitoring
+            # attribution consistent with the traced path
+            if node.stats is None:
+                node.stats = self.graph.stats.register(key, str(i))
+        self.graph.elastic[key] = ElasticHandle(
+            key, stage.elastic, self, stage.elastic_factory,
+            replica_nodes, outlets,
+            error_policy=stage.error_policy or "fail")
 
+    # -- public API (multipipe.hpp add/chain surface) ----------------------
     def add_source(self, source: Operator) -> "MultiPipe":
         if self.has_source:
             raise RuntimeError("source already present")

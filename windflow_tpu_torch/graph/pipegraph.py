@@ -509,6 +509,11 @@ class PipeGraph:
                 self, self.config.watchdog_timeout_s,
                 cancel=self.config.watchdog_cancel)
             self._watchdog.start()
+        # elastic controller LAST: its sampler reads live replica
+        # stats, and its decisions call rescale() on a running graph
+        if self.elastic:
+            from ..elastic.controller import start_controller
+            self._controller = start_controller(self)
 
     def cancel(self, reason: Optional[BaseException] = None) -> bool:
         """Poison every channel: blocked replicas unwind and wait_end
@@ -780,10 +785,53 @@ class PipeGraph:
     # -- elastic scaling plane (elastic/; docs/ELASTIC.md) --------------
     def rescale(self, operator: str, new_parallelism: int,
                 trigger: str = "manual", timeout: float = 60.0):
-        """Rescale a running elastic operator: the elastic scaling
-        plane is not ported yet, so this raises."""
-        raise unported("PipeGraph.rescale (the elastic scaling plane)",
-                       "host_planes")
+        """Rescale a running elastic operator to ``new_parallelism``
+        replicas with the pause-drain-migrate protocol
+        (elastic/rescale.py): quiesce, repartition keyed state by the
+        emitter's ``hash % parallelism`` contract, rebuild/retire
+        replica threads and rewire channels, resume.  In-flight tuples
+        are conserved (the pipeline is drained before any rewiring).
+
+        ``operator`` is the registry key (``"<pipe>/<name>"``) or any
+        unique substring of one (e.g. the builder name).  Returns the
+        recorded :class:`~windflow_tpu_torch.elastic.RescaleEvent`, or None
+        when already at ``new_parallelism``."""
+        if not self._started:
+            raise RuntimeError("rescale() needs a started graph")
+        if self._ended:
+            raise RuntimeError("rescale() after wait_end()")
+        handle = self.elastic.get(operator)
+        if handle is None:
+            matches = [h for k, h in self.elastic.items() if operator in k]
+            if len(matches) != 1:
+                raise KeyError(
+                    f"no unique elastic operator matching {operator!r}; "
+                    f"registered: {sorted(self.elastic)}")
+            handle = matches[0]
+        from ..elastic.rescale import rescale_operator
+        dur = self.durability
+        if dur is not None:
+            # durability plane: barriers and rescales serialize PER
+            # EPOCH, not under one global lock -- stop the epoch
+            # cadence, let in-flight epochs commit while the graph
+            # keeps flowing, then rescale inside the gap
+            dur.hold_epochs(timeout)
+        try:
+            with self._rescale_lock:
+                event = rescale_operator(self, handle, new_parallelism,
+                                         trigger, timeout)
+            if dur is not None:
+                # refresh aligner producer counts for the rewired
+                # channel set (retired producers already announced
+                # themselves with final barriers) and give the new
+                # replicas aligners before the cadence resumes
+                dur.rewire()
+        finally:
+            if dur is not None:
+                dur.release_epochs()
+        if event is not None:
+            self.flight.record("rescale", **event.to_dict())
+        return event
 
     # -- online re-planning (graph/replanner.py; docs/PLANNER.md) -------
     def replace_lane(self, operator: str, lane: str,

@@ -27,22 +27,12 @@ bench gate:
 * Q8 monitor new users -- persons |><| auctions-by-seller per window
                               (who registered AND sold in the window)
 
-The event-time plane is not ported yet (ROADMAP.md A10): the Q3, Q4,
-Q6 and Q8 graph builders raise ``NotImplementedError`` when called; their
-generators and oracles are here in full.
-
 Synthetic bid stream: (auction, bidder, price, ts), ts dense; persons
 and auctions streams carry dense event times over the same axis.
 """
 from __future__ import annotations
 
 import numpy as np
-
-from .._unported import unported
-
-
-def _eventtime():
-    return unported("eventtime (the event-time plane)", "host_planes")
 
 DOL_TO_EUR = 0.9
 
@@ -195,7 +185,23 @@ def _record_source(keys, tss, values, every: int = 32,
                    skew: float = None):
     """Watermarked shipper-style source over parallel arrays (one
     record per step; the event-time queries are record-plane)."""
-    raise _eventtime()
+    from ..core.tuples import BasicRecord
+    from ..eventtime import watermarked
+
+    n = len(keys)
+    state = {"i": 0}
+
+    def body(shipper):
+        i = state["i"]
+        if i >= n:
+            return False
+        shipper.push(BasicRecord(int(keys[i]), i, int(tss[i]), values[i]))
+        state["i"] = i + 1
+        return True
+
+    if skew is None:
+        skew = 0.0
+    return watermarked(body, every=every, skew=skew)
 
 
 def build_q3_local_items(graph, persons, auctions, sink,
@@ -206,7 +212,27 @@ def build_q3_local_items(graph, persons, auctions, sink,
     (persons |><| auctions on seller; unbounded IntervalJoin, so
     neither side is ever evicted).  Sinked records: key = person id,
     value = (city, auction id)."""
-    raise _eventtime()
+    from ..builders.builders import SourceBuilder
+    from ..eventtime import LEFT, RIGHT, IntervalJoin, tag_side
+    from ..operators.basic_ops import Sink
+
+    p_keep = np.isin(persons["city"], np.asarray(cities, dtype=np.int64))
+    a_keep = auctions["category"] == category
+    pp = graph.add_source(SourceBuilder(_record_source(
+        persons["person"][p_keep], persons["ts"][p_keep],
+        persons["city"][p_keep])).build())
+    pa = graph.add_source(SourceBuilder(_record_source(
+        auctions["seller"][a_keep], auctions["ts"][a_keep],
+        auctions["auction"][a_keep])).build())
+    pp.chain(tag_side(LEFT))
+    pa.chain(tag_side(RIGHT))
+    merged = pp.merge(pa)
+    merged.add(IntervalJoin(float("-inf"), float("inf"),
+                            join_fn=lambda city, auc: (int(city),
+                                                       int(auc)),
+                            parallelism=parallelism, name="q3_join"))
+    merged.add_sink(Sink(sink, name="q3_sink"))
+    return graph
 
 
 def q3_oracle(persons, auctions, cities=(0, 1), category: int = 2):
@@ -241,7 +267,22 @@ def _build_auction_bid_join(graph, auctions, bids, win_len,
     """Shared Q4/Q6 front: auctions |><| bids on auction id per
     tumbling window; the joined record carries ((re-key attr),
     (auction, price)) so the downstream window can re-key."""
-    raise _eventtime()
+    from ..builders.builders import SourceBuilder
+    from ..eventtime import LEFT, RIGHT, WindowJoin, tag_side
+
+    # left value = the re-key attribute (category or seller)
+    pa = graph.add_source(SourceBuilder(_record_source(
+        auctions["auction"], auctions["ts"],
+        auctions[out_key])).build())
+    pb = graph.add_source(SourceBuilder(_record_source(
+        bids["auction"], bids["ts"], bids["price"])).build())
+    pa.chain(tag_side(LEFT))
+    pb.chain(tag_side(RIGHT))
+    merged = pa.merge(pb)
+    merged.add(WindowJoin(
+        win_len, join_fn=lambda attr, price: (int(attr), float(price)),
+        parallelism=parallelism, name="ab_join"))
+    return merged
 
 
 def _rekey_joined(merged, name):
@@ -264,7 +305,17 @@ def build_q4_avg_price(graph, auctions, bids, win_len, sink,
     auctions |><| bids on auction id per window, closing price =
     per-auction max, averaged per category.  Sinked records:
     key = category, ts = window start, value = average."""
-    raise _eventtime()
+    from ..eventtime import EventTimeWindow
+    from ..operators.basic_ops import Sink
+
+    merged = _build_auction_bid_join(graph, auctions, bids, win_len,
+                                     "category", parallelism)
+    _rekey_joined(merged, "q4_by_category")
+    merged.add(EventTimeWindow(_closing_price_agg, win_len,
+                               parallelism=parallelism,
+                               name="q4_avg"))
+    merged.add_sink(Sink(sink, name="q4_sink"))
+    return graph
 
 
 def build_q6_avg_seller(graph, auctions, bids, win_len, sink,
@@ -272,7 +323,17 @@ def build_q6_avg_seller(graph, auctions, bids, win_len, sink,
     """Q6: average selling price per SELLER over tumbling windows --
     the Q4 join re-keyed by seller.  Sinked records: key = seller,
     ts = window start, value = average closing price."""
-    raise _eventtime()
+    from ..eventtime import EventTimeWindow
+    from ..operators.basic_ops import Sink
+
+    merged = _build_auction_bid_join(graph, auctions, bids, win_len,
+                                     "seller", parallelism)
+    _rekey_joined(merged, "q6_by_seller")
+    merged.add(EventTimeWindow(_closing_price_agg, win_len,
+                               parallelism=parallelism,
+                               name="q6_avg"))
+    merged.add_sink(Sink(sink, name="q6_sink"))
+    return graph
 
 
 def _q4q6_oracle(auctions, bids, win_len, attr):
@@ -316,7 +377,25 @@ def build_q8_new_users(graph, persons, auctions, win_len, sink,
     window start, value = (city, auction id).  ``source_of(keys, tss,
     values)`` overrides the watermarked record source -- bench.py
     injects stamped sources to measure watermark-to-result latency."""
-    raise _eventtime()
+    from ..builders.builders import SourceBuilder
+    from ..eventtime import LEFT, RIGHT, WindowJoin, tag_side
+    from ..operators.basic_ops import Sink
+
+    if source_of is None:
+        source_of = _record_source
+    pp = graph.add_source(SourceBuilder(source_of(
+        persons["person"], persons["ts"], persons["city"])).build())
+    pa = graph.add_source(SourceBuilder(source_of(
+        auctions["seller"], auctions["ts"],
+        auctions["auction"])).build())
+    pp.chain(tag_side(LEFT))
+    pa.chain(tag_side(RIGHT))
+    merged = pp.merge(pa)
+    merged.add(WindowJoin(
+        win_len, join_fn=lambda city, auc: (int(city), int(auc)),
+        parallelism=parallelism, name="q8_join"))
+    merged.add_sink(Sink(sink, name="q8_sink"))
+    return graph
 
 
 def q8_oracle(persons, auctions, win_len):

@@ -136,9 +136,19 @@ class WinSeqFFATResidentLogic(NodeLogic):
 
     @property
     def forest(self) -> BatchedFlatFAT:
+        """The bound forest.  On a logic bound to the card it must be on
+        the card: a forest left on the host (a restore or repartition
+        that bypassed ``_restored_forest``) raises here instead of
+        letting the step take the kernel's plain version."""
         if self.device is None:
             self.set_device("cuda")
-        return self._forest
+        forest = self._forest
+        if forest.device.type != self.device.type:
+            raise RuntimeError(
+                f"resident FFAT forest on {forest.device}, logic bound to "
+                f"{self.device}: the forest must be loaded on the logic's "
+                f"device before its next step")
+        return forest
 
     @forest.setter
     def forest(self, forest: BatchedFlatFAT) -> None:

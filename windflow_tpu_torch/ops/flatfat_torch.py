@@ -220,10 +220,12 @@ class BatchedFlatFAT(_OnDevice):
         return self.tree.numel() * self.tree.element_size()
 
     def tree_numpy(self) -> np.ndarray:
-        """The forest on the host, after every launch queued on its
-        stream."""
+        """A copy of the forest on the host, after every launch queued
+        on its stream (a CPU forest is copied too: a snapshot must not
+        change as the forest steps on)."""
         with self._ctx():
-            return self.tree.cpu().numpy()
+            host = self.tree.cpu()
+        return host.numpy().copy() if host is self.tree else host.numpy()
 
     def load_tree(self, tree) -> None:
         """Replace the forest's contents (a snapshot's [K, 2n] array)."""

@@ -127,16 +127,55 @@ def _override_for(prefix: str, overrides) -> Optional[str]:
     return None
 
 
+def _slice_keyed_entries(decoded: Any, scratch) -> Dict[Any, Any]:
+    """One manifest slice -> {key: value}.  Delta manifests resolve to
+    keyed marker payloads (durability/delta.py) that unpack directly;
+    schema-1 slices are opaque ``state_dict`` pickles, so the slice is
+    decoded THROUGH a scratch logic of the destination group
+    (``load_state`` then ``keyed_state_dict``) -- the logic's own
+    serialization round-trip is the only universal way back to per-key
+    form.  The scratch logic's state is clobbered; callers overwrite
+    it with its final partition afterwards."""
+    from ..durability.delta import is_keyed_payload, unpack_keyed
+    if is_keyed_payload(decoded):
+        return unpack_keyed(decoded)
+    scratch.load_state(decoded)
+    return dict(scratch.keyed_state_dict())
+
+
 def _repartition_group(prefix: str, describe: str, states, decode,
                        manifest_names, group_logics) -> None:
     """Repartition one replica group's manifest keyed state into a
     different replica count through the elastic ``hash % n`` contract
     (elastic/rescale.py owns the partitioner and the duplicate-key
-    invariant).  The elastic scaling plane is not ported yet, so this
-    raises before touching any logic."""
-    from .._unported import unported
-    raise unported("restore into a different parallelism (the elastic "
-                   "scaling plane)", "host_planes")
+    invariant)."""
+    from ..durability.delta import keyed_capable
+    from ..elastic.rescale import partition_keyed_state
+    new_n = len(group_logics)
+    for idx, logic in group_logics:
+        if not keyed_capable(logic):
+            raise RuntimeError(
+                f"{describe}: parallelism override for {prefix!r} "
+                f"needs the keyed-state contract, but replica "
+                f"{prefix}.{idx}'s logic ({type(logic).__name__}) "
+                "does not implement keyed_state_dict/load_keyed_state")
+    scratch = group_logics[0][1]
+    merged: Dict[Any, Any] = {}
+    for name in manifest_names:
+        st = states[name]
+        decoded = decode(st) if decode is not None else st
+        for k, v in _slice_keyed_entries(decoded, scratch).items():
+            if k in merged:
+                raise RuntimeError(
+                    f"{describe}: key {k!r} appears in more than one "
+                    f"manifest slice of {prefix!r} -- the snapshot "
+                    "violates the single-owner contract; refusing to "
+                    "merge")
+            merged[k] = v
+    parts = partition_keyed_state(merged, new_n)
+    for i, (idx, logic) in enumerate(
+            sorted(group_logics, key=lambda t: t[0])):
+        logic.load_keyed_state(parts[i])
 
 
 def restore_states(graph, states: Dict[str, Any], describe: str,
@@ -162,9 +201,7 @@ def restore_states(graph, states: Dict[str, Any], describe: str,
     and repartitioned through the elastic ``hash % n`` owner contract,
     so every key lands on the replica the new topology's KEYBY emitter
     routes it to.  Groups not named by an override still require exact
-    structure.  The repartition needs the elastic scaling plane, which
-    is not ported yet: an override that matches a group raises
-    ``NotImplementedError``."""
+    structure."""
     from ..durability.delta import load_into
     from ..graph.fuse import iter_logics
     loadable = {}
