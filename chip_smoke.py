@@ -233,9 +233,42 @@ every phase passed):
    latency (bench.py's _WmClock and _stamped_record_source), the
    planted-late lane (every straggler in dead letters, the late_data
    flight events counting them), no on-time tuple quarantined.
+13. mission -- the observability planes over config 11's graph (the
+   template feed of bench.py, 16M events, through WinSeqTPU("sum",
+   4096, 2048, TB): native fold, K1), each run with every kernel count
+   set to 0 just before it and read just after: K1's launches equal the
+   engine's batches, no other kernel launches.  Each cell interleaves
+   its plane off and on, best of 3, with every run's windows bitwise
+   equal and their keys and ids exact and values within rtol 1e-5 of
+   the feed's float64 closed form.
+   overhead8, overhead9, overhead10 -- bench configs 8, 9 and 10
+   (bench.py:728, :802, :861): tracing at the default sampling (and a
+   trace_sample 1 readout of the e2e latency; the 3 % bar reported,
+   not gated), the audit plane (zero conservation violations, the
+   final check done, every edge balanced), the diagnosis plane
+   (explain()'s hop-class shares sum to 1 within 0.02, also in a
+   trace_sample 1 run that must attribute traces).
+   slo13 -- bench config 13 (bench.py:928-1007): SLO off, and SLO on
+   with a ClusterObserver fed by a StatsPusher every 0.25 s: every push
+   delivered, the Slo block in the merged live view; rate_on,
+   rate_off, overhead_frac, slo_ticks, breaches, budget_burned.
+   slo breach -- the same graph with a p99 budget a quarter of the
+   plane-off e2e p50 and windows scaled onto the run: a slo_breach
+   episode opens on the live K1 graph, its windows bitwise slo13's.
+   dashboard -- a traced K1 graph at 2M events reporting to an
+   in-process DashboardServer and pushing to a ClusterObserver (all on
+   port 0): /, /apps, /metrics, /flight, /explain and /cluster answer
+   200, the report's Device_launches equal K1's counted launches, and
+   ``python -m windflow_tpu_torch.doctor`` over the log directory and
+   with ``--watch --once`` against the observer exit 0 naming a
+   bottleneck.
+   K2r under torch.logaddexp is read 7 times at the rebuild shape in
+   phase 3 (median and spread; a profile of any reading twice the
+   fastest).
 
 Then one JSON line describing each kernel (the window-sum kernel's
-launches: the headline's, phase 5b's, the models' and phase 11's; the
+launches: the headline's, phase 5b's, the models', phase 11's and
+phase 13's; the
 three FlatFAT kernels twice: builtin, and compiled with torch.logaddexp,
 each with the launches of its own paths, the fused update+query
 kernel's including phase 12's), the card line, and
@@ -390,7 +423,7 @@ def device_busy_ms(prof) -> float:
                for e in prof.key_averages()) / 1e3
 
 
-def timed(fn, reps: int = 50, warmup: int = 5):
+def timed(fn, reps: int = 50, warmup: int = 5, profile_out=None):
     """(device ms per call, wall ms per call) of ``fn`` on the card.
 
     Device time: torch.profiler's CUPTI record of the kernels and copies
@@ -398,7 +431,7 @@ def timed(fn, reps: int = 50, warmup: int = 5):
     the host's launch overhead (None if the profiler saw no device
     activity).  Wall time: median of single calls bracketed by CUDA
     events, which includes the host's launch path while the card
-    waits."""
+    waits.  ``profile_out``, a list, receives the profiler run."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -417,6 +450,8 @@ def timed(fn, reps: int = 50, warmup: int = 5):
             fn()
         torch.cuda.synchronize()
     busy = device_busy_ms(prof)
+    if profile_out is not None:
+        profile_out.append(prof)
     return (busy / reps if busy > 0 else None), float(np.median(times))
 
 
@@ -1295,6 +1330,41 @@ def legacy_rebuild(leaves, se, comb, neutral):
     return torch.where(se[1] > se[0], out, torch.zeros_like(out))
 
 
+# readings of K2r under the path's user combine, in one process: one
+# reading of 0.05590 ms stood against 0.0052-0.0094 ms in every other
+K2R_READINGS = 7
+# a reading this many times the fastest is slow: its profile is logged
+SLOW_READING = 2.0
+
+
+def repeated_readings(fn, tag: str, card: str):
+    """``timed(fn)`` K2R_READINGS times: logs every device reading, the
+    median and the spread, and for a reading at SLOW_READING times the
+    fastest or more, its profile's top device ops.  Returns the median
+    (device ms, wall ms)."""
+    reads, profs = [], []
+    for _ in range(K2R_READINGS):
+        reads.append(timed(fn, profile_out=profs))
+    devs = [d for d, _w in reads if d is not None]
+    if len(devs) != len(reads):
+        raise AssertionError(f"[{tag}] the profiler saw no device time")
+    lo = min(devs)
+    med = (float(np.median(devs)), float(np.median([w for _d, w in reads])))
+    log(f"[{tag} readings] device ms per call: "
+        f"{', '.join(f'{d:.5f}' for d in devs)}; median {med[0]:.5f}, "
+        f"spread {lo:.5f}-{max(devs):.5f} ({card})")
+    for i, d in enumerate(devs):
+        if d >= SLOW_READING * lo:
+            ops = sorted(((getattr(e, "self_device_time_total", 0) / 1e3,
+                           e.count, e.key)
+                          for e in profs[i].key_averages()), reverse=True)
+            log(f"[{tag} readings] reading {i + 1} is {d / lo:.1f}x the "
+                f"fastest; its profile's device ops: "
+                + "; ".join(f"{k[:60]} x{n} {ms:.4f} ms"
+                            for ms, n, k in ops[:6] if ms > 0))
+    return med
+
+
 def check_k2r(device, card: str) -> dict:
     """The fused build+query kernel against its plain version: bitwise
     for the four combines on integer and random f32 leaves, at every
@@ -1317,10 +1387,17 @@ def check_k2r(device, card: str) -> dict:
             k, p = k.cpu().numpy(), p.cpu().numpy()
             tally.add(uname, *hold_user(
                 k, p, trans, f"kernel K2 rebuild {name} {uname}"), k, p)
-            if name == "rebuild":
+            if name == "rebuild" and uname == PATH_COMBINE:
+                t_u = repeated_readings(
+                    lambda: fq.flatfat_build_query(v, se, comb, neutral),
+                    f"kernel K2 rebuild {uname}", card)
+                user_t.append(f"{uname} {fmt(t_u)} (median of "
+                              f"{K2R_READINGS})")
+            elif name == "rebuild":
                 t_u = timed(lambda: fq.flatfat_build_query(v, se, comb,
                                                            neutral))
                 user_t.append(f"{uname} {fmt(t_u)}")
+            if name == "rebuild":
                 if uname == PATH_COMBINE:
                     t_up = timed(lambda: fq.flatfat_build_query_plain(
                         v, se, comb, neutral), reps=20)
@@ -3776,6 +3853,501 @@ def main_planes(card: str) -> int:
     return k2f
 
 
+# ---------------------------------------------------------------------------
+# 13. the mission-control plane on the card: the SLO plane, the live
+#     cluster view, the dashboard and the doctor (bench config 13), and
+#     the observability planes' overhead gates (bench configs 8, 9, 10)
+# ---------------------------------------------------------------------------
+
+# bench.py runs configs 8, 9, 10 and 13 at N_EVENTS // 4 (bench.py:2473,
+# :2488, :2501, :2536)
+N13 = 16_000_000
+N_DASH = 2_000_000
+MISSION_DEVICE = "cuda"
+# the diagnosis and audit cadence of the breach run: the auditor's floor
+# of 20 ms, so a run of a few hundred ms judges its objectives ~10 times
+BREACH_TICK_S = 0.02
+# fast and slow windows of the breach run in stream seconds, both mapped
+# onto the run's length by window_scale: with ticks 20-40 ms apart a
+# shorter fast window would hold fewer than the 2 samples a burn needs
+BREACH_FAST_S = BREACH_SLOW_S = 40.0
+# the p99 budget of the breach run, as a fraction of the plane-off p50
+BREACH_BUDGET = 0.25
+# the breach run's pusher: each push also offers the diagnosis a tick
+BREACH_PUSH_S = 0.05
+DOCTOR_TIMEOUT_S = 120
+
+
+def template_oracle(n_events: int):
+    """Closed form of ``template_source`` under config 11's TB windows,
+    float64: key k holds ids 0..M-1 (M = n/keys) with value
+    pool[(id % P) * keys + k], P = SOURCE_BATCH / keys (every source
+    batch repeats the pool); window w covers ids [w*slide, w*slide +
+    win), partial tail windows flushed at EOS."""
+    assert n_events % N_KEYS == 0
+    pool = np.random.default_rng(0).random(SOURCE_BATCH).astype(np.float32)
+    M = n_events // N_KEYS
+    per = pool.astype(np.float64).reshape(-1, N_KEYS)      # [P, keys]
+    vals = np.tile(per, (-(-M // per.shape[0]), 1))[:M]     # [M, keys]
+    prefix = np.concatenate([np.zeros((1, N_KEYS)),
+                             np.cumsum(vals, axis=0)])
+    n_win = (M - 1) // SLIDE + 1
+    a = np.arange(n_win) * SLIDE
+    b = np.minimum(a + WIN, M)
+    sums = (prefix[b] - prefix[a]).T                        # [keys, W]
+    return (np.repeat(np.arange(N_KEYS), n_win),
+            np.tile(np.arange(n_win), N_KEYS), sums.reshape(-1))
+
+
+def plane_run(tag: str, log_dir: str, n_events: int = 0, attach=None,
+              **cfg_kw):
+    """One run of the template feed through config 11's WinSeqTPU into a
+    sink, under ``RuntimeConfig(**cfg_kw)`` on MISSION_DEVICE, timed
+    from ``start`` to ``wait_end`` as bench.py times configs 8-13.
+    ``attach(g)`` runs inside the timed span right after ``start`` (the
+    observer and pusher of config 13) and returns what ``plane_run``
+    hands back.  Every kernel count is set to 0 just before and read
+    just after; the window-sum kernel's launches must equal the
+    engine's batches and no other kernel may launch.  Returns (tuples/s,
+    the sink's sorted windows, K1 launches, the graph, attach's
+    value).  ``n_events`` 0 means N13."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.operators.basic_ops import Sink
+    from windflow_tpu_torch.operators.batch_ops import BatchSource
+    n_events = n_events or N13
+    cfg = wf.RuntimeConfig(device=MISSION_DEVICE, log_dir=log_dir, **cfg_kw)
+    g = wf.PipeGraph("bench13", wf.Mode.DEFAULT, config=cfg)
+    sink = WindowSink()
+    g.add_source(BatchSource(template_source(n_events), 1)) \
+        .add(config11_op()).add_sink(Sink(sink))
+    reset_counts()
+    hook = None
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the dashboard-less fallback
+        g.start()
+        if attach is not None:
+            hook = attach(g)
+        g.wait_end()
+    secs = time.perf_counter() - t0
+    k1 = check_launches(tag, find_logic(g), read_counts(), "window_sum")
+    return n_events / secs, sink.sorted(), k1, g, hook
+
+
+def hold_lanes(tag: str, runs, want) -> None:
+    """Every run's windows bitwise equal to the first's, and the first's
+    keys and ids exact and values within RTOL_F32 of the float64
+    oracle."""
+    ref = runs[0][1]
+    for r in runs[1:]:
+        if not all(np.array_equal(a, b) for a, b in zip(r[1], ref)):
+            raise AssertionError(f"[{tag}] the windows differ between "
+                                 f"runs (plane on/off)")
+    ok, oi, ov = want
+    if not (np.array_equal(ref[0], ok) and np.array_equal(ref[1], oi)):
+        raise AssertionError(f"[{tag}] window keys or ids differ from the "
+                             f"template oracle ({len(ref[0])} windows, "
+                             f"oracle {len(ok)})")
+    if not np.allclose(ref[2], ov, rtol=RTOL_F32, atol=0):
+        raise AssertionError(f"[{tag}] window values outside rtol "
+                             f"{RTOL_F32} of the template oracle (max rel "
+                             f"err {np.max(np.abs(ref[2] - ov) / ov):.3g})")
+
+
+def interleaved(one):
+    """bench.py's protocol: off, on, three times; returns (off runs, on
+    runs) and each lane's best rate."""
+    offs, ons = [], []
+    for _ in range(3):
+        offs.append(one(False))
+        ons.append(one(True))
+    return offs, ons, max(r[0] for r in offs), max(r[0] for r in ons)
+
+
+def rates(runs) -> str:
+    return ", ".join(f"{r[0]:.1f}" for r in runs)
+
+
+def observed(interval_s: float):
+    """An ``attach`` for ``plane_run``: a ClusterObserver on a free port
+    and a StatsPusher from the graph to it every ``interval_s``."""
+    from windflow_tpu_torch.distributed.observe import (ClusterObserver,
+                                                         attach_pusher)
+
+    def attach(g):
+        obs = ClusterObserver()
+        obs.start()
+        return obs, attach_pusher(g, obs.host, obs.port, interval_s)
+
+    return attach
+
+
+def settle(tag: str, hook) -> tuple:
+    """Stop the pusher (its final push carries the settled books) and let
+    the observer ingest every push; the caller stops the observer.
+    Gates: at least one push, no push error.  Returns the merged live
+    view and the pushes."""
+    obs, pusher = hook
+    pusher.stop()
+    deadline = time.monotonic() + 10.0
+    while obs.pushes < pusher.pushes and time.monotonic() < deadline:
+        time.sleep(0.01)
+    merged = obs.merged() or {}
+    if pusher.pushes < 1 or pusher.errors != 0:
+        raise AssertionError(f"[{tag}] pusher: {pusher.pushes} pushes, "
+                             f"{pusher.errors} errors")
+    return merged, pusher.pushes
+
+
+def slo13(card: str, tmp: str, want) -> tuple:
+    """[slo13]: bench config 13 (``run_slo_overhead``, bench.py:928-1007)
+    at its 16M events: traced runs with diagnosis ticks every 0.25 s,
+    SLO off, and SLO on (generous objectives) with a ClusterObserver and
+    a StatsPusher every 0.25 s, interleaved best of 3.  Gates: windows
+    bitwise equal across the lanes and equal to the template oracle,
+    every push delivered (pushes >= 1, errors 0) and the Slo block in
+    the merged live view, K1 launches = batches in each run.  Returns
+    the off runs and the K1 launches."""
+    from windflow_tpu_torch.slo import SloConfig
+    t0 = time.perf_counter()
+    k1 = []
+
+    def one(slo_on):
+        kw = dict(tracing=True, diagnosis_interval_s=0.25)
+        if slo_on:
+            kw["slo"] = SloConfig(p99_ms=1e9, min_throughput_rps=0.001)
+        r = plane_run(f"slo13 {'on' if slo_on else 'off'}",
+                      f"{tmp}/slo13_{len(k1)}",
+                      attach=observed(0.25) if slo_on else None, **kw)
+        k1.append(r[2])
+        live = None
+        if slo_on:
+            try:
+                merged, pushes = settle("slo13", r[4])
+            finally:
+                r[4][0].stop()
+            live = merged.get("Slo")
+            if live is None:
+                raise AssertionError("[slo13] the Slo block never reached "
+                                     "the live merged view")
+            live = dict(live, pushes=pushes)
+        return r[0], r[1], live, r[3]
+
+    offs, ons, rate_off, rate_on = interleaved(one)
+    hold_lanes("slo13", offs + ons, want)
+    best = max(ons, key=lambda r: r[0])[2]
+    log(f"[slo13] {N13} events, {len(want[0])} windows bitwise equal with "
+        f"the SLO plane on and off, keys and ids exact and values within "
+        f"rtol {RTOL_F32} of the template oracle; rate_on {rate_on:.1f} "
+        f"(runs {rates(ons)}), rate_off {rate_off:.1f} (runs "
+        f"{rates(offs)}) tuples/s; overhead_frac "
+        f"{1.0 - rate_on / rate_off:.4f} (best of 3; not gated); "
+        f"slo_ticks {best.get('Ticks', 0)}, breaches "
+        f"{best.get('Breaches_total', 0)}, budget_burned "
+        f"{best.get('Budget_burned')}; pushes "
+        f"{', '.join(str(r[2]['pushes']) for r in ons)} (errors 0); "
+        f"window_sum launches = batches in all 6 runs "
+        f"({', '.join(map(str, k1))}), other kernels 0; "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    return offs, sum(k1)
+
+
+def slo_breach(card: str, tmp: str, offs, p50_us: float) -> int:
+    """[slo breach]: the same graph once more with trace_sample 1,
+    diagnosis and audit ticks every BREACH_TICK_S, and a p99 budget of
+    BREACH_BUDGET times ``p50_us``, the traced e2e p50 of the plane-off
+    graph
+    ([overhead8]'s trace_sample 1 readout: at the default sampling of
+    1 in 128 source batches [slo13]'s 16 batches close no trace);
+    window_scale maps the slow window onto the off lane's run time, so
+    both windows fill within the run.  Gates: a slo_breach flight
+    episode opens, Breaches_total >= 1, windows bitwise [slo13]'s off
+    lane's, the episode in the merged view of a ClusterObserver the run
+    pushes to every BREACH_PUSH_S, K1 launches = batches."""
+    from windflow_tpu_torch.slo import SloConfig
+    t0 = time.perf_counter()
+    if not p50_us:
+        raise AssertionError("[slo breach] no traced e2e p50 to set the "
+                             "budget from")
+    p50_ms = p50_us / 1e3
+    run_s = N13 / max(r[0] for r in offs)
+    cfg = SloConfig(p99_ms=p50_ms * BREACH_BUDGET, target=0.9,
+                    fast_burn=5.0,
+                    fast_window_s=BREACH_FAST_S,
+                    slow_window_s=BREACH_SLOW_S,
+                    window_scale=run_s / BREACH_SLOW_S, warmup_ticks=1)
+    rate, wins, k1, g, hook = plane_run(
+        "slo breach", f"{tmp}/slo_breach", attach=observed(BREACH_PUSH_S),
+        tracing=True, trace_sample=1, diagnosis_interval_s=BREACH_TICK_S,
+        audit_interval_s=BREACH_TICK_S, slo=cfg)
+    try:
+        merged, pushes = settle("slo breach", hook)
+    finally:
+        hook[0].stop()
+    if not all(np.array_equal(a, b) for a, b in zip(wins, offs[0][1])):
+        raise AssertionError("[slo breach] the windows differ from "
+                             "[slo13]'s off lane")
+    kinds = [e["kind"] for e in g.flight.snapshot()]
+    slo = json.loads(g.stats.to_json())["Slo"]
+    if "slo_breach" not in kinds or (slo or {}).get("Breaches_total", 0) < 1:
+        raise AssertionError(f"[slo breach] no breach episode (flight "
+                             f"{sorted(set(kinds))}, Slo {slo})")
+    live = merged.get("Slo") or {}
+    if live.get("Breaches_total", 0) < 1 or not any(
+            e.get("kind") == "slo_breach" for e in merged.get("Flight") or ()):
+        raise AssertionError(f"[slo breach] the breach never reached the "
+                             f"live merged view (Slo {live})")
+    rep = g.explain()
+    log(f"[slo breach] p99 budget {p50_ms * BREACH_BUDGET:.3f} ms "
+        f"({BREACH_BUDGET} x the plane-off traced e2e p50 {p50_ms:.3f} ms), "
+        f"windows fast "
+        f"{slo['Windows']['fast_s']} s / slow {slo['Windows']['slow_s']} s: "
+        f"slo_breach opened ({kinds.count('slo_breach')} episode(s), "
+        f"Breaches_total {slo['Breaches_total']}, ticks {slo['Ticks']}, bad "
+        f"{slo['Bad_ticks']}, burn fast {slo['Burn_rate_fast']} / slow "
+        f"{slo['Burn_rate_slow']}, budget_burned {slo['Budget_burned']}, "
+        f"values {slo['Values']}); verdict: {rep['Verdict']!r}; windows "
+        f"bitwise [slo13]'s off lane; the episode in the observer's merged "
+        f"view after {pushes} pushes; {rate:.1f} tuples/s; window_sum "
+        f"launches = batches ({k1}), other kernels 0; "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    return k1
+
+
+def http_get(url: str):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return r.status, r.read().decode()
+
+
+def doctor_cli(*args) -> str:
+    """``python -m windflow_tpu_torch.doctor <args>`` as a user runs it;
+    fails unless it exits 0 and names a bottleneck."""
+    p = subprocess.run([sys.executable, "-m", "windflow_tpu_torch.doctor",
+                        *args], capture_output=True, text=True,
+                       timeout=DOCTOR_TIMEOUT_S)
+    if p.returncode != 0 or "bottleneck" not in p.stdout:
+        raise AssertionError(f"[dashboard] doctor {args}: rc "
+                             f"{p.returncode}, stdout {p.stdout[-400:]!r}, "
+                             f"stderr {p.stderr[-400:]!r}")
+    line = next((ln for ln in p.stdout.splitlines()
+                 if "bottleneck" in ln), "")
+    return line.strip()
+
+
+def dashboard_phase(card: str, tmp: str) -> int:
+    """[dashboard]: a traced K1 graph (the template feed at N_DASH)
+    reporting to an in-process DashboardServer (port 0) with its HTTP
+    front (port 0), and pushing to a ClusterObserver.  Gates: the graph
+    registered (/apps non-empty); /, /apps, /metrics, /flight,
+    /explain and /cluster answer 200, and the observer's /cluster too;
+    /apps's report carries Device_launches equal to K1's counted
+    launches; ``python -m windflow_tpu_torch.doctor <log_dir>`` and
+    ``--watch <observer> --once`` exit 0 and name a bottleneck."""
+    from windflow_tpu_torch.monitoring.dashboard import (DashboardServer,
+                                                          serve_http)
+    t0 = time.perf_counter()
+    log_dir = f"{tmp}/dashboard"
+    dash = DashboardServer(port=0)
+    dash.start()
+    httpd = hook = None
+    try:
+        httpd = serve_http(dash, port=0)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        rate, wins, k1, g, hook = plane_run(
+            "dashboard", log_dir, n_events=N_DASH, attach=observed(0.25),
+            tracing=True, dashboard_port=dash.port)
+        obs = hook[0]
+        _merged, pushes = settle("dashboard", hook)
+        obs.serve_http(port=0)
+        # the deregister frame lands on the dashboard's connection thread
+        deadline = time.monotonic() + 10.0
+        while True:
+            apps = json.loads(http_get(base + "/apps")[1])
+            if apps and not any(a.get("active") for a in apps.values()) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        if not apps:
+            raise AssertionError("[dashboard] the graph never registered "
+                                 "(/apps is empty)")
+        (app,) = apps.values()
+        launches = sum(r.get("Device_launches", 0)
+                       for op in app["report"]["Operators"]
+                       for r in op.get("Replicas") or ())
+        if launches != k1:
+            raise AssertionError(f"[dashboard] /apps Device_launches "
+                                 f"{launches} != window_sum launches {k1}")
+        paths = ("/", "/apps", "/metrics", "/flight", "/explain", "/cluster")
+        for path in paths:
+            code, body = http_get(base + path)
+            if code != 200 or not body:
+                raise AssertionError(f"[dashboard] GET {path}: {code}")
+        code, body = http_get(obs.http_url + "/cluster")
+        if code != 200 or not json.loads(body).get("merged"):
+            raise AssertionError(f"[dashboard] observer /cluster: {code}")
+        offline = doctor_cli(log_dir)
+        live = doctor_cli("--watch", obs.http_url, "--once")
+    finally:
+        if hook is not None:
+            for part in reversed(hook):  # the pusher, then the observer
+                part.stop()
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        dash.stop()
+    log(f"[dashboard] {N_DASH} events at {rate:.1f} tuples/s, "
+        f"{len(wins[0])} windows; registered as app(s) {sorted(apps)}; "
+        f"GET {', '.join(paths)} and the observer's /cluster: 200; /apps "
+        f"Device_launches {launches} = window_sum launches {k1} = "
+        f"batches, other kernels 0; {pushes} pushes; doctor "
+        f"{log_dir.rsplit('/', 1)[-1]}/: {offline!r}; doctor --watch "
+        f"--once: {live!r}; {time.perf_counter() - t0:.1f} s ({card})")
+    return k1
+
+
+def overhead8(card: str, tmp: str, want) -> int:
+    """[overhead8]: bench config 8 (``run_tracing_overhead``,
+    bench.py:728-799) at 16M events: tracing off and on (default
+    sampling), interleaved best of 3, windows identical, then the e2e
+    readout run at trace_sample 1.  The 3 % bar is reported, not
+    gated, as the bench does."""
+    t0 = time.perf_counter()
+    k1 = []
+
+    def one(tracing, sample=None):
+        kw = {"tracing": tracing}
+        if sample is not None:
+            kw["trace_sample"] = sample
+        r = plane_run(f"overhead8 {'on' if tracing else 'off'}",
+                      f"{tmp}/o8_{len(k1)}", **kw)
+        k1.append(r[2])
+        return r
+
+    offs, ons, rate_off, rate_on = interleaved(one)
+    readout = one(True, sample=1)
+    hold_lanes("overhead8", offs + ons + [readout], want)
+    e2e = json.loads(readout[3].stats.to_json()).get("Latency_e2e") or {}
+    ovh = 1.0 - rate_on / rate_off
+    log(f"[overhead8] {N13} events, windows bitwise equal with tracing on "
+        f"and off and in the trace_sample=1 readout, equal to the template "
+        f"oracle; rate_on {rate_on:.1f} (runs {rates(ons)}), rate_off "
+        f"{rate_off:.1f} (runs {rates(offs)}) tuples/s; overhead_frac "
+        f"{ovh:.4f} against the bench's 3 % bar: "
+        f"{'under' if ovh < 0.03 else 'over'} it (reported, not gated); "
+        f"e2e at trace_sample 1: n {e2e.get('n')}, p50 "
+        f"{e2e.get('p50_us')} us, p99 {e2e.get('p99_us')} us; window_sum "
+        f"launches = batches in all 7 runs ({', '.join(map(str, k1))}), "
+        f"other kernels 0; {time.perf_counter() - t0:.1f} s ({card})")
+    return sum(k1), e2e.get("p50_us")
+
+
+def overhead9(card: str, tmp: str, want) -> int:
+    """[overhead9]: bench config 9 (``run_audit_overhead``,
+    bench.py:802-858) at 16M events: the audit plane off and on,
+    interleaved best of 3; windows identical, and every audited run
+    with zero conservation violations, its final check done and every
+    edge balanced."""
+    t0 = time.perf_counter()
+    k1, books = [], []
+
+    def one(audit):
+        r = plane_run(f"overhead9 {'on' if audit else 'off'}",
+                      f"{tmp}/o9_{len(k1)}", audit=audit)
+        k1.append(r[2])
+        if audit:
+            a = r[3].auditor
+            if a.violations or not a.final_done:
+                raise AssertionError(f"[overhead9] violations "
+                                     f"{a.violations}, final check done "
+                                     f"{a.final_done}")
+            cons = a.ledger.conservation_block(
+                a.ledger.edges(), r[3]._all_nodes(), a.violations,
+                a.passes, a.final_done)
+            if not all(e["balanced"] for e in cons["Edges"]):
+                raise AssertionError(f"[overhead9] unbalanced edge: "
+                                     f"{cons['Edges']}")
+            books.append(len(cons["Edges"]))
+        return r
+
+    offs, ons, rate_off, rate_on = interleaved(one)
+    hold_lanes("overhead9", offs + ons, want)
+    log(f"[overhead9] {N13} events, windows bitwise equal with the audit "
+        f"plane on and off, equal to the template oracle; 0 conservation "
+        f"violations, final check done, every edge balanced "
+        f"({', '.join(map(str, books))} edges); rate_on {rate_on:.1f} "
+        f"(runs {rates(ons)}), rate_off {rate_off:.1f} (runs "
+        f"{rates(offs)}) tuples/s; overhead_frac "
+        f"{1.0 - rate_on / rate_off:.4f} (not gated); window_sum launches "
+        f"= batches in all 6 runs ({', '.join(map(str, k1))}), other "
+        f"kernels 0; {time.perf_counter() - t0:.1f} s ({card})")
+    return sum(k1)
+
+
+def overhead10(card: str, tmp: str, want) -> int:
+    """[overhead10]: bench config 10 (``run_diagnosis_overhead``,
+    bench.py:861-925) at 16M events: tracing on in both lanes,
+    ``diagnosis`` off and on (ticks every 0.25 s), interleaved best of
+    3; windows identical, and each diagnosed run's ``explain()``
+    hop-class shares summing to 1 within 0.02 where it attributed a
+    trace (the bench's own gate).  At the default sampling a 16-batch
+    run may close no trace, so one more diagnosed run at trace_sample 1
+    must attribute traces and meet the same gate."""
+    t0 = time.perf_counter()
+    k1, summ = [], []
+
+    def one(diagnosis, sample=None):
+        kw = {} if sample is None else {"trace_sample": sample}
+        r = plane_run(f"overhead10 {'on' if diagnosis else 'off'}",
+                      f"{tmp}/o10_{len(k1)}", tracing=True,
+                      diagnosis=diagnosis, diagnosis_interval_s=0.25, **kw)
+        k1.append(r[2])
+        if diagnosis:
+            rep = r[3].explain()
+            attr = rep.get("Attribution")
+            if sample is not None and not (attr or {}).get("Traces"):
+                raise AssertionError(f"[overhead10] the trace_sample "
+                                     f"{sample} run attributed no trace")
+            if attr is not None and abs(attr["Share_sum"] - 1.0) >= 0.02:
+                raise AssertionError(f"[overhead10] shares sum to "
+                                     f"{attr['Share_sum']}: {attr}")
+            summ.append(((rep.get("Bottleneck") or {}).get("Operator"),
+                         (attr or {}).get("Traces", 0),
+                         (attr or {}).get("Share_sum")))
+        return r
+
+    offs, ons, rate_off, rate_on = interleaved(one)
+    readout = one(True, sample=1)
+    hold_lanes("overhead10", offs + ons + [readout], want)
+    log(f"[overhead10] {N13} events, windows bitwise equal with the "
+        f"diagnosis plane on and off and in a trace_sample=1 readout, "
+        f"equal to the template oracle; explain() (bottleneck, traces, "
+        f"share sum) per diagnosed run, the readout last: {summ}; rate_on {rate_on:.1f} (runs {rates(ons)}), rate_off "
+        f"{rate_off:.1f} (runs {rates(offs)}) tuples/s; overhead_frac "
+        f"{1.0 - rate_on / rate_off:.4f} (not gated); window_sum launches "
+        f"= batches in all 7 runs ({', '.join(map(str, k1))}), other "
+        f"kernels 0; {time.perf_counter() - t0:.1f} s ({card})")
+    return sum(k1)
+
+
+def main_mission(card: str) -> int:
+    """Phase 13's cells; returns the window-sum kernel's launches."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-mission-")
+    try:
+        want = template_oracle(N13)
+        k1, p50_us = overhead8(card, tmp, want)
+        k1 += overhead9(card, tmp, want)
+        k1 += overhead10(card, tmp, want)
+        offs, k = slo13(card, tmp, want)
+        k1 += k + slo_breach(card, tmp, offs, p50_us)
+        k1 += dashboard_phase(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return k1
+
+
 def kernel_entry(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3882,6 +4454,13 @@ def main() -> int:
     # path driven with every launch count set to 0 just before it and
     # read just after
     launches15["flatfat_update_query"] += main_planes(card)
+    log(f"[smoke] planes done at {time.perf_counter() - t_start:.1f} s")
+
+    # the mission-control plane: bench config 13 (the SLO plane and the
+    # live cluster view), a breach on a live K1 graph, the dashboard and
+    # the doctor, and the overhead gates 8-10; each run with every
+    # kernel count set to 0 just before it and read just after
+    launches += main_mission(card)
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
     src = "windflow_tpu_torch/ops/cuda/flatfat_query.cu"

@@ -20,13 +20,14 @@ reference's run and with the reference tests' numpy oracles.
   rescale events.
 
 The port runs with ``device="cpu"``; no graph here has a device engine.
-The doctor's golden report over the event-time gauges waits for the
-port of ``doctor.py`` (ROADMAP.md A10i).
+The doctor's golden report over the event-time gauges (the schema-10
+pair in tests/golden/) goes through both packages' doctor CLIs.
 """
 import collections
 import importlib
 import json
 import math
+import os
 import threading
 import time
 
@@ -971,3 +972,29 @@ def test_openmetrics_eventtime_families():
                 "windflow_join_state_keys"):
         assert f'{fam}{{app="1",graph="ev",operator="pipe0/map"}}' \
             not in text
+
+
+def test_doctor_golden_v10_eventtime_gauges(capsys):
+    """Schema-10 dump (event-time gauges + late_data flight events) ->
+    the port's doctor --json: the reference's bytes and the committed
+    golden report."""
+    golden_dir = os.path.join(os.path.dirname(__file__), "golden")
+    path = os.path.join(golden_dir, "doctor_stats_v10.json")
+    outs = []
+    for pkg in PACKAGES:
+        rc = mod(pkg, "doctor").main([path, "--json"])
+        outs.append(capsys.readouterr().out)
+        assert rc == 0
+    assert outs[1] == outs[0]
+    rep = json.loads(outs[1])
+    src = rep.pop("Source")
+    assert src.endswith("doctor_stats_v10.json")
+    with open(os.path.join(golden_dir, "doctor_report_v10.json")) as f:
+        golden = json.load(f)
+    assert rep == golden
+    with open(path) as f:
+        dump = json.load(f)
+    assert dump["Schema_version"] == 10
+    sess = next(o for o in dump["Operators"]
+                if o["Operator_name"] == "pipe0/session_window")
+    assert sum(r["Late_tuples"] for r in sess["Replicas"]) == 7

@@ -65,23 +65,31 @@ def test_umbrella_exports_ported_names_and_names_the_rest():
         "windflow_tpu_torch.durability.coordinator"
     assert wf.run_with_epochs.__module__ == \
         "windflow_tpu_torch.durability.recovery"
-    with pytest.raises(AttributeError, match="ROADMAP.md A10"):
+    with pytest.raises(AttributeError, match="ROADMAP.md A10h"):
         wf.Server
     assert wf.ElasticController.__module__ == \
         "windflow_tpu_torch.elastic.controller"
     assert wf.EventTimeWindow.__module__ == \
         "windflow_tpu_torch.eventtime.windows"
     assert wf.Watermark.__module__ == "windflow_tpu_torch.runtime.queues"
-    with pytest.raises(AttributeError, match="ROADMAP.md A10"):
+    with pytest.raises(AttributeError, match="ROADMAP.md A10h"):
         wf.TenantSpec
     with pytest.raises(AttributeError, match="ROADMAP.md A11"):
         wf.KeyFarmMesh
+    # the merged cluster view is ported (distributed/observe.py); the
+    # rest of the distributed plane still names its item
+    assert wf.merge_stats.__module__ == \
+        "windflow_tpu_torch.distributed.observe"
+    assert wf.wire_table.__module__ == \
+        "windflow_tpu_torch.distributed.observe"
+    with pytest.raises(AttributeError, match="ROADMAP.md A10g"):
+        wf.run_distributed
     with pytest.raises(AttributeError, match="no attribute"):
         wf.NoSuchName
 
 
 @pytest.mark.parametrize("field,value", [
-    ("slo", object()), ("distributed", object())])
+    ("sched_lease", object()), ("distributed", object())])
 def test_unported_planes_raise_at_start(field, value):
     import windflow_tpu_torch as wf
     from windflow_tpu_torch.operators.basic_ops import Sink
@@ -91,8 +99,34 @@ def test_unported_planes_raise_at_start(field, value):
     g = wf.PipeGraph("x", wf.Mode.DEFAULT, config=cfg)
     g.add_source(BatchSource(lambda ctx: None, 1)).add_sink(
         Sink(lambda item: None))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10[gh]"):
         g.start()
+
+
+def test_with_slo_starts_and_publishes_the_slo_block():
+    """The SLO plane is ported: ``with_slo`` sets ``RuntimeConfig.slo``
+    and a started CPU graph publishes the ``Slo`` stats block."""
+    import json
+    import tempfile
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.operators.basic_ops import Sink
+    from windflow_tpu_torch.operators.batch_ops import BatchSource
+    from windflow_tpu_torch.slo import SloConfig
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = wf.RuntimeConfig(device="cpu", log_dir=tmp)
+        g = wf.PipeGraph("x", wf.Mode.DEFAULT, config=cfg)
+        assert g.with_slo(p99_ms=5.0, min_throughput_rps=1.0) is g
+        assert isinstance(cfg.slo, SloConfig)
+        assert cfg.slo.objectives() == {"p99_ms": 5.0,
+                                        "min_throughput_rps": 1.0}
+        g.add_source(BatchSource(lambda ctx: None, 1)).add_sink(
+            Sink(lambda item: None))
+        g.run()
+        assert g.diagnosis.slo is not None
+        g.diagnosis.maybe_tick(force=True)
+        slo = json.loads(g.stats.to_json())["Slo"]
+        assert slo["Objectives"] == cfg.slo.objectives()
+        assert slo["Ticks"] >= 1 and slo["Breaches_total"] == 0
 
 
 def test_launch_span_is_a_record_function_only_when_asked(monkeypatch):

@@ -52,6 +52,43 @@ class Collector:
                 self.results.append((rec.key, rec.id, rec.value))
 
 
+def cpu_config(pkg, **kw):
+    """``RuntimeConfig(**kw)`` of package ``pkg``; the port's on the
+    CPU."""
+    cfg = importlib.import_module(pkg).RuntimeConfig(**kw)
+    if pkg == PORT:
+        cfg.device = "cpu"
+    return cfg
+
+
+def record_source(pkg, n):
+    """The diagnosis and SLO tests' record source: key = i % 4, id =
+    i // 4, ts = i, value = float(i)."""
+    BasicRecord = mod(pkg, "core").BasicRecord
+    state = {}
+
+    def fn(shipper, ctx):
+        i = state.setdefault("i", 0)
+        if i >= n:
+            return False
+        shipper.push(BasicRecord(i % 4, i // 4, i, float(i)))
+        state["i"] = i + 1
+        return True
+
+    return fn
+
+
+def doctor(pkg, argv):
+    """``doctor.main(argv)`` of package ``pkg``: (exit code, stdout,
+    stderr)."""
+    import contextlib
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = mod(pkg, "doctor").main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
 def run_graph(pkg, make_op, n_keys=3, per_key=48, mode="DEFAULT",
               config_kw=None):
     """Run source -> ``make_op(wf)`` -> sink in package ``pkg``; the

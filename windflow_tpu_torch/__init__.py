@@ -64,6 +64,11 @@ _LAZY = {
     "DiagnosisPlane": "windflow_tpu_torch.diagnosis",
     "build_report": "windflow_tpu_torch.diagnosis",
     "render_text": "windflow_tpu_torch.diagnosis",
+    # the merged cluster view (distributed/observe.py; docs/DISTRIBUTED.md
+    # "One graph view")
+    "merge_stats": "windflow_tpu_torch.distributed.observe",
+    "wire_table": "windflow_tpu_torch.distributed.observe",
+    "check_wire_conservation": "windflow_tpu_torch.distributed.observe",
     # durability plane (durability/; docs/RESILIENCE.md
     # "Exactly-once epochs")
     "EpochCoordinator": "windflow_tpu_torch.durability",
@@ -109,12 +114,12 @@ _LAZY.update({name: "windflow_tpu_torch.builders.builders_tpu" for name in (
 
 # names of the reference umbrella that later slices port, by ROADMAP item
 _NOT_YET = {
-    "host_planes": (
+    "distributed": (
         "DistributedSpec", "run_distributed", "WorkerFailure",
-        "plan_partition", "merge_stats", "wire_table",
-        "check_wire_conservation", "MsgDecoder", "Server", "TenantSpec",
-        "TenantHandle", "TenantState", "AdmissionError", "ArbiterConfig",
-        "CrossTenantArbiter"),
+        "plan_partition", "MsgDecoder"),
+    "serving": (
+        "Server", "TenantSpec", "TenantHandle", "TenantState",
+        "AdmissionError", "ArbiterConfig", "CrossTenantArbiter"),
     "mesh": ("KeyFarmMesh", "PaneFarmMesh", "WinMapReduceMesh",
              "make_mesh", "make_multihost_mesh"),
 }

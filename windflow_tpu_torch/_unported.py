@@ -7,7 +7,8 @@ partial or silent substitute.
 from __future__ import annotations
 
 ROADMAP_ITEMS = {
-    "host_planes": "ROADMAP.md A10 (remaining host planes)",
+    "distributed": "ROADMAP.md A10g (the distributed runtime plane)",
+    "serving": "ROADMAP.md A10h (serving and the global scheduler)",
     "mesh": "ROADMAP.md A11 (mesh plane)",
 }
 

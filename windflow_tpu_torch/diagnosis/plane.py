@@ -67,8 +67,8 @@ class DiagnosisPlane:
         # burn-rate tracker rides this tick -- no thread of its own
         self.slo = None
         if getattr(cfg, "slo", None) is not None:
-            from .._unported import unported
-            raise unported("the SLO plane", "host_planes")
+            from ..slo import SloTracker
+            self.slo = SloTracker(cfg.slo)
         self.edges = operator_edges(graph)
         self.ticks = 0
         self._lock = threading.Lock()

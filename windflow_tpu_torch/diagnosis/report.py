@@ -7,7 +7,8 @@ optional flight-event list), so the same code produces the report
 
 * live, via ``PipeGraph.explain()``,
 * server-side, at the dashboard's ``GET /explain``,
-* offline, from a stats-JSON / flight-JSONL dump.
+* offline, from a stats-JSON / flight-JSONL dump directory
+  (``python -m windflow_tpu_torch.doctor``).
 
 It prefers the precomputed ``Diagnosis`` block a diagnosing runtime
 published, and degrades gracefully on older dumps: the bottleneck walk

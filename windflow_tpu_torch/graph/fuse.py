@@ -80,7 +80,7 @@ def _partition_splits(graph, a: RtNode, b: RtNode) -> bool:
     if plan is None:
         return False
     from .._unported import unported
-    raise unported("the distributed runtime plane", "host_planes")
+    raise unported("the distributed runtime plane", "distributed")
 
 
 def _is_ingest_head(node: RtNode) -> bool:

@@ -26,16 +26,15 @@ from .multipipe import MultiPipe
 
 # RuntimeConfig fields that turn on planes this port does not carry yet
 _UNPORTED_PLANES = (
-    ("distributed", "the distributed runtime plane"),
-    ("slo", "the SLO plane"),
-    ("sched_lease", "the global-scheduler plane"),
+    ("distributed", "the distributed runtime plane", "distributed"),
+    ("sched_lease", "the global-scheduler plane", "serving"),
 )
 
 
 def _refuse_unported_planes(cfg: RuntimeConfig) -> None:
-    for attr, what in _UNPORTED_PLANES:
+    for attr, what, item in _UNPORTED_PLANES:
         if getattr(cfg, attr, None):
-            raise unported(f"RuntimeConfig.{attr} ({what})", "host_planes")
+            raise unported(f"RuntimeConfig.{attr} ({what})", item)
 
 
 class _AppNode:
@@ -912,7 +911,11 @@ class PipeGraph:
         ``RuntimeConfig.diagnosis`` (the default) to stay on."""
         if self._started:
             raise RuntimeError("with_slo() must be called before start()")
-        raise unported("PipeGraph.with_slo (the SLO plane)", "host_planes")
+        from ..slo import SloConfig
+        self.config.slo = SloConfig(
+            p99_ms=p99_ms, min_throughput_rps=min_throughput_rps,
+            max_frontier_lag_s=max_frontier_lag_s, **kw)
+        return self
 
     def refresh_gauges(self) -> None:
         """Update the per-replica gauge fields of the stats records
