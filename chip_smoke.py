@@ -98,7 +98,7 @@ every phase passed):
    parallelism=2) at 32M events, coalesced into one engine (the
    default) and as two replicas behind the key hash.
    farms -- WinFarmTPU(parallelism=2) at 8M events and WinMapReduceTPU
-   (MAP on the card, two stripes; REDUCE on the host) at 2^19 events
+   (MAP on the card, two stripes; REDUCE on the host) at 2^16 events
    of the same law as records (its map emitter routes records, not
    batches).
    custom -- KeyFarmTPU over a torch custom window function (the sum of
@@ -134,8 +134,6 @@ every phase passed):
    same stream, promoted by the planner onto the resident pane lane (the
    fused kernel per launch), against resident=False (K1 per launch):
    bitwise equal, equal to the oracle, launches checked as in main15.
-   Phases 6 and 7 run twice back to back; each cell's two readings are
-   printed side by side, the logaddexp cells beside the add cells.
    key_ffat -- KeyFFATTPUBuilder with the same combine at parallelism 2,
    coalesce=False (two replicas, one library), on config 15's stream
    cut 32x (250,000 events), held as main15 logaddexp.
@@ -278,6 +276,7 @@ from __future__ import annotations
 
 import collections
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -835,10 +834,10 @@ def profile_summary(prof, secs: float, n_top: int) -> str:
 # bench.py runs configs 3 and 4 at 32M events (bench.py:2434-2437)
 N34 = 32_000_000
 # [farms]: WinFarmTPU on 8M events of the headline stream; WinMapReduceTPU
-# on 2^19 (its map emitter routes records, not batches: the record plane
+# on 2^16 (its map emitter routes records, not batches: the record plane
 # runs at 1-2e4 tuples/s, so more would outlast the rest of the script)
 N_FARM = 8_000_000
-N_WMR = 1 << 19
+N_WMR = 1 << 16
 N_CUSTOM = 1_000_000
 RECORD_CHUNK = 65_536
 # f32 sums of squares of values < 97 over 4096-tick windows reach 3.8e7,
@@ -1903,8 +1902,6 @@ def ffat_lane(lane: str):
                               SLIDE15, wf.WinType.CB)
 
 
-# config 15's cells, each run once per round: cell -> one reading a round
-READINGS15: dict = collections.defaultdict(list)
 # (keys, ids, values) of [main15]'s resident lane, sorted by key and id
 MAIN15_RESIDENT: list = []
 
@@ -1952,9 +1949,8 @@ def read_counts() -> dict:
             "window_sum": window_sum.launch_count()}
 
 
-def reading(cell: str, secs: float, got) -> str:
+def reading(secs: float, got) -> str:
     p50, p99 = (float(np.percentile(got[3], q)) * 1e3 for q in (50, 99))
-    READINGS15[cell].append((N15 / secs, p50, p99))
     return (f"{N15} events in {secs:.3f} s = {N15 / secs:.1f} tuples/s; "
             f"{len(got[0])} windows match the oracle exactly; window "
             f"latency p50 {p50:.3f} ms, p99 {p99:.3f} ms")
@@ -2004,7 +2000,7 @@ def main15(card: str) -> dict:
         lanes[lane] = {"bpl": bytes_per_launch(logic), "launches": launches,
                        "state": logic.device_resident_bytes()
                        if lane == "resident" else 0}
-        log(f"[main15] {lane} lane: {reading(lane, secs, got)}; "
+        log(f"[main15] {lane} lane: {reading(secs, got)}; "
             f"{launches} {kernel} launches = {logic.launched_batches} "
             f"batches, other kernels 0; "
             f"{lanes[lane]['bpl']:.1f} bytes shipped per launch"
@@ -2122,7 +2118,6 @@ def main15_user(card: str) -> dict:
         hold_to_oracle_rtol(got[lane], want, tag, RTOL_F32)
         p50, p99 = (float(np.percentile(got[lane][3], q)) * 1e3
                     for q in (50, 99))
-        READINGS15[f"{lane} {PATH_COMBINE}"].append((N15 / secs, p50, p99))
         log(f"[main15 {PATH_COMBINE}] {lane} lane "
             f"(WinSeqFFATTPUBuilder, {type(logic).__name__}): {N15} events "
             f"in {secs:.3f} s = {N15 / secs:.1f} tuples/s; "
@@ -2220,7 +2215,7 @@ def resident_pane(card: str) -> int:
         got[tag] = sorted_windows(sink, f"resident pane {tag}")
         hold_to_oracle(got[tag], want, f"resident pane {tag}")
         log(f"[resident pane] {tag} lane: "
-            f"{reading('pane ' + tag, secs, got[tag])}; {launches} "
+            f"{reading(secs, got[tag])}; {launches} "
             f"{kernel} launches = {logic.launched_batches} batches, other "
             f"kernels 0; {bytes_per_launch(logic):.1f} bytes per launch; "
             f"Device_state_bytes_resident {logic.device_resident_bytes()} "
@@ -4348,6 +4343,274 @@ def main_mission(card: str) -> int:
     return k1
 
 
+# ---------------------------------------------------------------------------
+# 14. distributed
+# ---------------------------------------------------------------------------
+
+# bench config 12 (bench.py:1659-1735, run at :2525 with N_EVENTS // 4)
+N12 = N_EVENTS // 4
+WIN12, SLIDE12 = 8192, 4096
+SOURCE12 = 1 << 18
+AUCTIONS12 = 1000
+# the device engines' device (the CPU only to rehearse the phase without
+# a card)
+DIST_DEVICE = "cuda"
+DIST_TIMEOUT_S = 300.0
+SMOKE_TIMEOUT_S = 300
+
+
+def dist12_build(g):
+    """Worker-side build of bench config 12 (bench.py:1659-1681) on the
+    port.  The workers load it from this file, executed under an alias
+    (distributed/runtime._load_ref), so ``main`` does not run there.
+    The lane, the stream length and the paths travel as environment
+    variables: WINDFLOW_DIST12_PLACEMENT ('host' as the bench, or
+    'device'), WINDFLOW_DIST12_N, WINDFLOW_DIST12_OUT (the sink's
+    windows, an .npz written at EOS) and WINDFLOW_DIST12_PROBE (a
+    directory: each worker writes what it ran there at exit)."""
+    import atexit
+    from windflow_tpu_torch.models.nexmark import build_q5_hot_items
+    n = int(os.environ["WINDFLOW_DIST12_N"])
+    out = os.environ["WINDFLOW_DIST12_OUT"]
+    cols = {"key": [], "id": [], "value": []}
+
+    def sink(item):
+        if item is None:
+            np.savez(out, **{c: np.concatenate(v) if v else np.zeros(0)
+                             for c, v in cols.items()})
+            return
+        for c in cols:
+            cols[c].append(np.array(item[c] if c == "value"
+                                    else getattr(item, c)))
+
+    build_q5_hot_items(g, n, WIN12, SLIDE12, sink, n_auctions=AUCTIONS12,
+                       batch_size=SOURCE12, device_batch=DEVICE_BATCH,
+                       parallelism=2,
+                       placement=os.environ["WINDFLOW_DIST12_PLACEMENT"])
+    probe = os.environ.get("WINDFLOW_DIST12_PROBE")
+    if probe:
+        atexit.register(write_probe, g, probe)
+
+
+def dist12_config(worker_id):
+    """bench12_config (bench.py:1684-1689), its device engines on
+    WINDFLOW_DIST12_DEVICE (DIST_DEVICE, set by the coordinator)."""
+    import windflow_tpu_torch as wf
+    return wf.RuntimeConfig(tracing=True, trace_sample=2,
+                            device=os.environ["WINDFLOW_DIST12_DEVICE"],
+                            log_dir=os.environ["WINDFLOW_DIST12_LOG"])
+
+
+def write_probe(g, probe_dir: str) -> None:
+    """At a worker's exit: its kernel counts, its device engines and
+    their batches, whether it holds a CUDA context and on which card,
+    and whether jax or the reference package was imported."""
+    from windflow_tpu_torch.distributed.identity import worker_id
+    engines = device_logics(g)
+    doc = {"worker": worker_id(), "counts": read_counts(),
+           "engines": [{"placement": lg.resolved_placement,
+                        "device": str(lg.device),
+                        "batches": lg.launched_batches} for lg in engines],
+           "cuda": torch.cuda.is_initialized(),
+           "device_name": (torch.cuda.get_device_name(0)
+                           if torch.cuda.is_initialized() else None),
+           "jax": "jax" in sys.modules,
+           "reference": "windflow_tpu" in sys.modules}
+    with open(os.path.join(probe_dir, f"w{doc['worker']}.json"), "w") as f:
+        json.dump(doc, f)
+
+
+def dist12_oracle(n: int):
+    """Config 12's windows by numpy: per-auction bid counts of every
+    window of 8192 / 4096 up to the auction's last bid, over the pool
+    the source repeats every SOURCE12 bids."""
+    from windflow_tpu_torch.models import nexmark
+    pool = nexmark.synth_bids(SOURCE12, AUCTIONS12)["auction"]
+    keys = np.concatenate([pool[:min(SOURCE12, n - i)]
+                           for i in range(0, n, SOURCE12)])
+    return count_windows(keys, np.arange(n, dtype=np.int64), WIN12,
+                         SLIDE12)
+
+
+def dist12_windows(path: str, want, tag: str):
+    """The sink's windows (arrival order) held to the oracle exactly, as
+    integer counts; sorted by key then id."""
+    import types
+    with np.load(path) as z:
+        got = types.SimpleNamespace(keys=[z["key"]], ids=[z["id"]],
+                                    vals=[z["value"].astype(np.float64)])
+    rows = check_windows(got, want, tag)
+    if not np.array_equal(rows[2], np.round(rows[2])):
+        raise AssertionError(f"[{tag}] a count is not an integer")
+    return rows
+
+
+def dist12_lane(card: str, placement: str, want, tmp: str):
+    """One lane of config 12: the build in this process, then across 2
+    worker processes (spawn and import inside the wall, bench.py:1706;
+    observe=False, bench.py:1707-1711).  Returns the 2-process windows,
+    the K1 launches of both runs and the workers' probes."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.diagnosis.report import build_report
+    from windflow_tpu_torch.distributed import run_distributed
+    tag = f"dist12 {placement}"
+    os.environ["WINDFLOW_DIST12_N"] = str(N12)
+    os.environ["WINDFLOW_DIST12_PLACEMENT"] = placement
+    os.environ["WINDFLOW_DIST12_DEVICE"] = DIST_DEVICE
+    os.environ["WINDFLOW_DIST12_LOG"] = os.path.join(tmp, "log")
+    os.environ.pop("WINDFLOW_DIST12_PROBE", None)
+    local = os.path.join(tmp, f"{placement}_1proc.npz")
+    os.environ["WINDFLOW_DIST12_OUT"] = local
+    g = wf.PipeGraph("bench12_local", config=dist12_config(0))
+    dist12_build(g)
+    reset_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the dashboard-less fallback
+        g.run()
+    rate_1p = N12 / (time.perf_counter() - t0)
+    counts = read_counts()
+    engines = device_logics(g)
+    if placement == "device":
+        k1_local = check_launches(f"{tag} 1proc", engines, counts,
+                                  "window_sum")
+    elif any(counts.values()):
+        raise AssertionError(f"[{tag}] kernels {counts} on the host lane")
+    else:
+        k1_local = 0
+    rows_1p = dist12_windows(local, want, f"{tag} 1proc")
+
+    probe = os.path.join(tmp, f"{placement}_probe")
+    os.makedirs(probe)
+    os.environ["WINDFLOW_DIST12_PROBE"] = probe
+    dist = os.path.join(tmp, f"{placement}_2proc.npz")
+    os.environ["WINDFLOW_DIST12_OUT"] = dist
+    t0 = time.perf_counter()
+    report = run_distributed(dist12_build, n_workers=2,
+                             config_fn=dist12_config,
+                             graph_name=f"bench12_{placement}",
+                             workdir=os.path.join(tmp, f"{placement}_work"),
+                             timeout_s=DIST_TIMEOUT_S, observe=False)
+    rate_2p = N12 / (time.perf_counter() - t0)
+    os.environ.pop("WINDFLOW_DIST12_PROBE")
+    merged = report["merged"]
+    wire = merged.get("Wire") or {}
+    cons = merged.get("Conservation") or {}
+    flags = (wire.get("Balanced"), cons.get("Edges_balanced"),
+             cons.get("Final_check"))
+    if flags != (True, True, True):
+        raise AssertionError(f"[{tag}] Wire.Balanced, Edges_balanced, "
+                             f"Final_check = {flags}")
+    rows = dist12_windows(dist, want, f"{tag} 2proc")
+    bitwise(rows, rows_1p, f"{tag} 1proc vs 2proc")
+    probes = []
+    for w in (0, 1):
+        with open(os.path.join(probe, f"w{w}.json")) as f:
+            probes.append(json.load(f))
+    if any(p["jax"] or p["reference"] for p in probes):
+        raise AssertionError(f"[{tag}] a worker imported jax or the "
+                             f"reference package: {probes}")
+    if probes[0]["engines"] or len(probes[1]["engines"]) != 1:
+        raise AssertionError(f"[{tag}] engines per worker "
+                             f"{[p['engines'] for p in probes]}: the "
+                             f"engine belongs to worker 1")
+    (engine,) = probes[1]["engines"]
+    device_launches = sum(int(r.get("Device_launches", 0) or 0)
+                          for op in merged.get("Operators") or ()
+                          for r in op.get("Replicas") or ())
+    k1_dist = probes[1]["counts"]["window_sum"]
+    if any(probes[0]["counts"].values()) or probes[0]["cuda"]:
+        raise AssertionError(f"[{tag}] worker 0 owns no device engine, "
+                             f"yet: {probes[0]}")
+    if placement == "device":
+        if engine["placement"] != "device" \
+                or not engine["device"].startswith(DIST_DEVICE):
+            raise AssertionError(f"[{tag}] worker 1's engine {engine}")
+        # the worker's counts: K1 once a batch, no other kernel
+        others = {k: v for k, v in probes[1]["counts"].items()
+                  if k != "window_sum"}
+        if DIST_DEVICE == "cuda" and (k1_dist <= 0
+                                      or k1_dist != engine["batches"]
+                                      or k1_dist != device_launches
+                                      or any(others.values())):
+            raise AssertionError(
+                f"[{tag}] worker 1: K1 {k1_dist}, batches "
+                f"{engine['batches']}, Device_launches {device_launches}, "
+                f"other kernels {others}")
+    elif any(probes[1]["counts"].values()) \
+            or engine["placement"] != "host":
+        raise AssertionError(f"[{tag}] the host lane ran on the card: "
+                             f"{probes[1]}")
+    wire_rows = wire.get("Edges") or []
+    attr = build_report(merged).get("Attribution") or {}
+    if placement == "device":
+        kernel = (f"K1 launches 1proc {k1_local}, worker 0 "
+                  f"{probes[0]['counts']['window_sum']}, worker 1 "
+                  f"{k1_dist} = batches {engine['batches']} = "
+                  f"Device_launches {device_launches}")
+    else:
+        # worker 1 closes the traces, and the diagnosis plane's
+        # attribution probes the card's round trip once for them
+        # (diagnosis/plane.py _rtt_floor_ms), as the reference probes
+        # its device: a CUDA context, no kernel
+        kernel = (f"host lane: worker 1's engine {engine['batches']} "
+                  f"batches, no kernel; CUDA context in worker 1: "
+                  f"{probes[1]['cuda']}, in worker 0: False")
+    log(f"[{tag}] {N12} bids: rate {rate_2p:.1f}, rate_1proc "
+        f"{rate_1p:.1f}, vs_1proc {rate_2p / rate_1p:.4f}; wire_tuples "
+        f"{sum(r.get('tuples_sent', 0) for r in wire_rows)}, wire_edges "
+        f"{len(wire_rows)}; traced e2e p50 {attr.get('E2e_p50_ms')} / "
+        f"p99 {attr.get('E2e_p99_ms')} ms, wire class share "
+        f"{(attr.get('Classes') or {}).get('wire')}; {len(rows[0])} "
+        f"windows equal to the oracle and the 1-process run exactly; "
+        f"Wire.Balanced, Edges_balanced, Final_check true; {kernel}; "
+        f"devices "
+        f"{[p['device_name'] for p in probes]}; jax in no worker "
+        f"({card})")
+    return rows, k1_local + k1_dist
+
+
+def dist_smoke(*args) -> None:
+    """``python -m windflow_tpu_torch.distributed.smoke [args]`` as a
+    user runs it from the checkout; fails unless it exits 0."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m",
+                        "windflow_tpu_torch.distributed.smoke", *args],
+                       capture_output=True, text=True,
+                       timeout=SMOKE_TIMEOUT_S,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    last = (p.stdout.strip().splitlines() or [""])[-1]
+    if p.returncode != 0:
+        raise AssertionError(f"[dist smoke{' ' if args else ''}"
+                             f"{' '.join(args)}] rc {p.returncode}: "
+                             f"{last!r}, stderr {p.stderr[-600:]!r}")
+    log(f"[dist smoke{' ' if args else ''}{' '.join(args)}] "
+        f"{time.perf_counter() - t0:.1f} s: {last}")
+
+
+def main_distributed(card: str) -> int:
+    """Phase 14's cells; returns the window-sum kernel's launches (the
+    device lane's, in this process and in worker 1)."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-dist-")
+    try:
+        want = dist12_oracle(N12)
+        host, _k1 = dist12_lane(card, "host", want, tmp)
+        device, k1 = dist12_lane(card, "device", want, tmp)
+        bitwise(device, host, "dist12 device vs host")
+        dist_smoke()
+        dist_smoke("--live")
+    finally:
+        for var in ("WINDFLOW_DIST12_N", "WINDFLOW_DIST12_PLACEMENT",
+                    "WINDFLOW_DIST12_DEVICE", "WINDFLOW_DIST12_LOG",
+                    "WINDFLOW_DIST12_OUT",
+                    "WINDFLOW_DIST12_PROBE"):
+            os.environ.pop(var, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return k1
+
+
 def kernel_entry(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -4409,21 +4672,11 @@ def main() -> int:
     log(f"[smoke] farms done at {time.perf_counter() - t_start:.1f} s")
 
     # config 15's four cells and its two FFAT cells under the user
-    # combine, twice back to back; each path driven with every launch
-    # count set to 0 just before it and read just after
-    for rnd in (1, 2):
-        counts = main15(card)
-        counts["flatfat_update_query"] += resident_pane(card)
-        user = main15_user(card)
-        if rnd == 1:
-            launches15, user15 = counts, user
-        log(f"[smoke] config 15 round {rnd} done at "
-            f"{time.perf_counter() - t_start:.1f} s")
-    for cell, rows in READINGS15.items():
-        log(f"[main15 x2] {cell}: tuples/s "
-            f"{' / '.join(f'{r[0]:.1f}' for r in rows)}; p50 ms "
-            f"{' / '.join(f'{r[1]:.3f}' for r in rows)}; p99 ms "
-            f"{' / '.join(f'{r[2]:.3f}' for r in rows)} ({card})")
+    # combine; each path driven with every launch count set to 0 just
+    # before it and read just after
+    launches15 = main15(card)
+    launches15["flatfat_update_query"] += resident_pane(card)
+    user15 = main15_user(card)
     user15["flatfat_build_query"] += key_ffat_user(card)
     launches15["flatfat_query"] = drive_flatfat(card)
     user15["flatfat_query"] = drive_flatfat_user(card)
@@ -4461,6 +4714,16 @@ def main() -> int:
     # the doctor, and the overhead gates 8-10; each run with every
     # kernel count set to 0 just before it and read just after
     launches += main_mission(card)
+    log(f"[smoke] mission done at {time.perf_counter() - t_start:.1f} s")
+
+    # the distributed runtime plane: bench config 12's Q5 shuffle in one
+    # process and across two worker processes, on the host lane as the
+    # bench has it and on the device lane (worker 1 launches K1), and
+    # the plane's smoke modules; each run with every kernel count set to
+    # 0 just before it and read just after (a worker's: at its exit)
+    t14 = time.perf_counter()
+    launches += main_distributed(card)
+    log(f"[smoke] distributed done in {time.perf_counter() - t14:.1f} s")
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
     src = "windflow_tpu_torch/ops/cuda/flatfat_query.cu"

@@ -853,3 +853,45 @@ def test_resident_forest_off_the_card_raises():
         lg.svc(TupleBatch({"key": idx % 2, "id": idx // 2, "ts": idx // 2,
                            "value": np.ones(200)}), 0, lambda r: None)
     assert fq.fused_launch_count() == before
+
+
+def test_q5_device_lane_across_two_workers_launches_k1_in_worker_1(
+        tmp_path, monkeypatch):
+    """NEXMark Q5 on the device lane across two worker processes (the
+    distributed runtime): worker 1 owns the engine and launches the
+    window-sum kernel once a batch on the card; worker 0 owns none and
+    opens no CUDA context.  The sink is pinned to worker 0, so the
+    engine's windows cross the wire back; they equal the oracle."""
+    import json
+    import torch_dist_builds as builds
+    from windflow_tpu_torch.distributed import run_distributed
+    n = 60_000
+    out = tmp_path / "q5.json"
+    probes = tmp_path / "probes"
+    probes.mkdir()
+    for var, value in (("WFT_Q5_N", str(n)), ("WFT_Q5_OUT", str(out)),
+                       ("WFT_Q5_PLACEMENT", "device"),
+                       ("WFT_DEVICE", "cuda"),
+                       ("WFT_PROBE_DIR", str(probes)),
+                       ("WFT_LOG_DIR", str(tmp_path / "log"))):
+        monkeypatch.setenv(var, value)
+    report = run_distributed(builds.build_q5, n_workers=2,
+                             config_fn=builds.config_q5, graph_name="q5",
+                             workdir=str(tmp_path / "work"),
+                             assignment={"q5_counts": 1, "q5_sink": 0},
+                             timeout_s=120.0)
+    assert json.loads(out.read_text()) == builds.q5_oracle(n)
+    merged = report["merged"]
+    assert merged["Wire"]["Balanced"]
+    assert merged["Conservation"]["Edges_balanced"]
+    w0, w1 = builds.read_probes(str(probes))
+    assert not w0["jax"] and not w1["jax"]
+    assert w0["engines"] == [] and w0["k1_launches"] == 0
+    assert not w0["cuda_initialized"]
+    (engine,) = w1["engines"]
+    assert engine["placement"] == "device"
+    assert engine["device"].startswith("cuda")
+    assert w1["k1_launches"] == engine["batches"] > 0
+    assert sum(int(r.get("Device_launches", 0) or 0)
+               for op in merged["Operators"]
+               for r in op.get("Replicas") or ()) == engine["batches"]

@@ -45,6 +45,15 @@ def test_port_never_imports_jax_or_the_reference(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_guard_walks_the_distributed_plane_and_the_scheduler():
+    walked = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for name in ("partition", "transport", "wiring", "runtime", "worker",
+                 "smoke", "wire", "observe", "identity", "__init__"):
+        assert f"windflow_tpu_torch/distributed/{name}.py" in walked
+    for name in ("errors", "__init__"):
+        assert f"windflow_tpu_torch/scheduler/{name}.py" in walked
+
+
 def test_guard_sees_every_import_form():
     tree = ast.parse("import jax.numpy\nfrom windflow_tpu.core import x\n"
                      "import importlib\n"
@@ -76,31 +85,53 @@ def test_umbrella_exports_ported_names_and_names_the_rest():
         wf.TenantSpec
     with pytest.raises(AttributeError, match="ROADMAP.md A11"):
         wf.KeyFarmMesh
-    # the merged cluster view is ported (distributed/observe.py); the
-    # rest of the distributed plane still names its item
+    # the distributed runtime plane is ported (distributed/)
     assert wf.merge_stats.__module__ == \
         "windflow_tpu_torch.distributed.observe"
     assert wf.wire_table.__module__ == \
         "windflow_tpu_torch.distributed.observe"
-    with pytest.raises(AttributeError, match="ROADMAP.md A10g"):
-        wf.run_distributed
+    for name, module in (("run_distributed", "runtime"),
+                         ("DistributedSpec", "runtime"),
+                         ("WorkerFailure", "runtime"),
+                         ("plan_partition", "partition"),
+                         ("MsgDecoder", "wire")):
+        assert getattr(wf, name).__module__ == \
+            f"windflow_tpu_torch.distributed.{module}"
     with pytest.raises(AttributeError, match="no attribute"):
         wf.NoSuchName
 
 
+def _split_forward_group():
+    """A distributed spec whose pins put the two ends of one FORWARD
+    group (batch_source -> batch_map -> sink) on different workers."""
+    from windflow_tpu_torch.distributed.runtime import DistributedSpec
+    return DistributedSpec(
+        worker_id=0, n_workers=2,
+        endpoints=[("127.0.0.1", 0), ("127.0.0.1", 0)],
+        assignment={"batch_source": 0, "sink": 1})
+
+
 @pytest.mark.parametrize("field,value", [
-    ("sched_lease", object()), ("distributed", object())])
+    ("sched_lease", object()),
+    # the distributed plane is ported: its partition planner refuses,
+    # at start, pins that would split a FORWARD group between workers
+    ("distributed", _split_forward_group())])
 def test_unported_planes_raise_at_start(field, value):
     import windflow_tpu_torch as wf
+    from windflow_tpu_torch.distributed import PartitionError
     from windflow_tpu_torch.operators.basic_ops import Sink
-    from windflow_tpu_torch.operators.batch_ops import BatchSource
+    from windflow_tpu_torch.operators.batch_ops import BatchMap, BatchSource
     cfg = wf.RuntimeConfig(device="cpu")
     setattr(cfg, field, value)
     g = wf.PipeGraph("x", wf.Mode.DEFAULT, config=cfg)
-    g.add_source(BatchSource(lambda ctx: None, 1)).add_sink(
-        Sink(lambda item: None))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10[gh]"):
-        g.start()
+    g.add_source(BatchSource(lambda ctx: None, 1)).add(
+        BatchMap(lambda b: b)).add_sink(Sink(lambda item: None))
+    if field == "distributed":
+        with pytest.raises(PartitionError, match="conflicting"):
+            g.start()
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A10h"):
+            g.start()
 
 
 def test_with_slo_starts_and_publishes_the_slo_block():

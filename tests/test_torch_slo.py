@@ -1,7 +1,7 @@
 """The port's mission-control plane (windflow_tpu_torch/slo/, the live
 cluster view in distributed/observe.py and the doctor) held against the
 reference's (tests/test_slo.py, every test but the 2-process run,
-which waits for the distributed runtime: ROADMAP.md A10g).
+which tests/test_torch_distributed_procs.py twins).
 
 * Pure functions -- burn rates, debounce, episodes, ``merge_slo``,
   ``merge_stats``, ``stitch_traces``, the wire table, the OpenMetrics

@@ -69,6 +69,12 @@ _LAZY = {
     "merge_stats": "windflow_tpu_torch.distributed.observe",
     "wire_table": "windflow_tpu_torch.distributed.observe",
     "check_wire_conservation": "windflow_tpu_torch.distributed.observe",
+    # distributed runtime plane (distributed/; docs/DISTRIBUTED.md)
+    "DistributedSpec": "windflow_tpu_torch.distributed",
+    "run_distributed": "windflow_tpu_torch.distributed",
+    "WorkerFailure": "windflow_tpu_torch.distributed",
+    "plan_partition": "windflow_tpu_torch.distributed",
+    "MsgDecoder": "windflow_tpu_torch.distributed",
     # durability plane (durability/; docs/RESILIENCE.md
     # "Exactly-once epochs")
     "EpochCoordinator": "windflow_tpu_torch.durability",
@@ -114,9 +120,6 @@ _LAZY.update({name: "windflow_tpu_torch.builders.builders_tpu" for name in (
 
 # names of the reference umbrella that later slices port, by ROADMAP item
 _NOT_YET = {
-    "distributed": (
-        "DistributedSpec", "run_distributed", "WorkerFailure",
-        "plan_partition", "MsgDecoder"),
     "serving": (
         "Server", "TenantSpec", "TenantHandle", "TenantState",
         "AdmissionError", "ArbiterConfig", "CrossTenantArbiter"),

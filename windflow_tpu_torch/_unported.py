@@ -7,7 +7,6 @@ partial or silent substitute.
 from __future__ import annotations
 
 ROADMAP_ITEMS = {
-    "distributed": "ROADMAP.md A10g (the distributed runtime plane)",
     "serving": "ROADMAP.md A10h (serving and the global scheduler)",
     "mesh": "ROADMAP.md A11 (mesh plane)",
 }

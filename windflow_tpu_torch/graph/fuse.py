@@ -79,8 +79,11 @@ def _partition_splits(graph, a: RtNode, b: RtNode) -> bool:
     plan = getattr(graph, "_dist_plan", None)
     if plan is None:
         return False
-    from .._unported import unported
-    raise unported("the distributed runtime plane", "distributed")
+    from ..distributed.partition import node_owner
+    try:
+        return node_owner(a, plan) != node_owner(b, plan)
+    except KeyError:
+        return False  # node outside the plan (defensive): fuse freely
 
 
 def _is_ingest_head(node: RtNode) -> bool:

@@ -26,7 +26,6 @@ from .multipipe import MultiPipe
 
 # RuntimeConfig fields that turn on planes this port does not carry yet
 _UNPORTED_PLANES = (
-    ("distributed", "the distributed runtime plane", "distributed"),
     ("sched_lease", "the global-scheduler plane", "serving"),
 )
 
@@ -288,6 +287,15 @@ class PipeGraph:
         from ..runtime.node import FusedLogic, SourcePauseControl, \
             source_loop_of
         self._pause_ctl = SourcePauseControl()
+        # distributed runtime (distributed/partition.py): the partition
+        # plan must exist BEFORE the fusion pass (its partition barrier
+        # keeps fused nodes inside one worker) and is a pure function
+        # of the wired pre-fusion topology + pins, so every worker
+        # computes the same plan independently
+        if self.config.distributed is not None \
+                and self._dist_plan is None:
+            from ..distributed.partition import plan_partition
+            plan_partition(self)
         # graph compile pass (graph/fuse.py): at OptLevel.LEVEL2 (the
         # default; RuntimeConfig.opt_level opts out) adjacent
         # single-producer FORWARD stages fuse into single replicas.
@@ -296,6 +304,14 @@ class PipeGraph:
         # fault plans bind per fused segment.
         from .fuse import fuse_graph
         self.fused_nodes = fuse_graph(self)
+        # distributed runtime (distributed/wiring.py): prune to this
+        # worker's partition and wire the shuffle transport -- AFTER
+        # fusion (the node set is final) and BEFORE the planner /
+        # ingest wiring / audit attachment, so those planes see only
+        # the owned nodes and the post-distribution destination set
+        if self.config.distributed is not None:
+            from ..distributed.wiring import distribute_graph
+            distribute_graph(self)
         # cost-based placement planner (graph/planner.py;
         # docs/PLANNER.md): resolve every window engine's lane
         # ('auto' -> measured cost model; pins pass through), hand the
