@@ -202,7 +202,7 @@ every phase passed):
    restore, at most 2 launches a chunk.
    delta16, tiered17 -- bench configs 16 and 17 (bench.py:1378, :1543)
    with the bench's own gates (no kernel runs): config 17 at its size,
-   config 16 with 200 of its 400 rounds of the hot set.
+   config 16 with 100 of its 400 rounds of the hot set.
 12. planes -- the elastic scaling plane and the event-time plane
    (windflow_tpu_torch/elastic/, eventtime/), each kernel count set to
    0 just before a path and read just after.
@@ -218,14 +218,15 @@ every phase passed):
    fused update+query launches equal to its batches (the refills
    counted apart), no other kernel; the bytes copied off and onto the
    card, the seconds and the forest shapes of each cut, tuples/s.
-   elastic2i -- bench config 2i (bench.py:331-404) at 9,000 events:
-   a skewed-key step load (500/s, 2,000/s, 500/s, open-loop paced)
-   into an elastic accumulator with a 1,000 us sleep fold (1..4
-   replicas, target 0.5), the controller on: every tuple conserved,
-   each key's last value equal to its count, at least one scale-up,
+   elastic2i -- bench config 2i (bench.py:331-404) at 4,500 events
+   (9,000 in the bench): a skewed-key step load (500/s, 2,000/s,
+   500/s, open-loop paced) into an elastic accumulator with a 1,000 us
+   sleep fold (1..4 replicas, target 0.5), the controller on: every
+   tuple conserved, each key's last value equal to its count, at least
+   one scale-up,
    every event inside [1, 4], the controller's threads stopped at the
    end of run(); the rescale events, the rate, p50/p99 a phase.
-   nexmark18 -- bench config 18 (bench.py:2088-2218) at 200,000 bids
+   nexmark18 -- bench config 18 (bench.py:2088-2218) at 50,000 bids
    through the port's builders: Q4 against q4_oracle within 1e-9 per
    window, Q8 against q8_oracle exactly with its watermark-to-result
    latency (bench.py's _WmClock and _stamped_record_source), the
@@ -263,10 +264,39 @@ every phase passed):
    K2r under torch.logaddexp is read 7 times at the rebuild shape in
    phase 3 (median and spread; a profile of any reading twice the
    fastest).
+14. distributed -- bench config 12 (NEXMark Q5, bench.py:1659-1735) at
+   4M bids in one process and across two worker processes, on the host
+   lane and on the device lane (worker 1 launches K1; each worker
+   writes an exit probe), and both modes of
+   ``python -m windflow_tpu_torch.distributed.smoke``.
+15. serving -- the serving plane and the global scheduler, every kernel
+   count set to 0 just before a run and read just after (a fleet
+   worker's: in its exit probe).
+   contend K1 -- the reference's contended-chip chaos test at
+   deployment size: under Server(devices=1) the victim (priority 5, a
+   throughput SLO) runs a paced record lane and config 11's K1 lane
+   (16M events), the neighbour (priority 0) a burner farm and an
+   endless paced K1 lane; the planner leases the card to both, the
+   arbiter's first decision demotes the neighbour's lane device->host
+   and its ladder restores the victim's SLO; the victim's windows
+   bitwise its solo run on the card, K1's launches the victim's batches
+   plus the neighbour's up to its flip, the neighbour's windows
+   gap-free across the flip; seconds from submit to breach, breach to
+   demotion, demotion to slo_recovered.
+   serve14, sched20 -- bench configs 14 (bench.py:1010-1120) and 20
+   (:1123-1278) on the port's Server and FleetServer (2 workers) with
+   the bench's gates: config 14 at 500k records, config 20's 4 tenants
+   at the bench's 250k records each, its record-only workers holding
+   no CUDA context and launching no kernel.
+   fleet K1 -- two TenantSpec(devices=1) tenants of config 11's K1 lane
+   (16M events each) placed on the two workers of a second fleet:
+   windows bitwise [contend K1]'s solo run, each worker's K1 launches
+   equal to its engines' batches, a CUDA context where its device lane
+   ran, no jax in any worker.
 
 Then one JSON line describing each kernel (the window-sum kernel's
-launches: the headline's, phase 5b's, the models', phase 11's and
-phase 13's; the
+launches: the headline's, phase 5b's, the models', phase 11's,
+phase 13's, phase 14's and phase 15's; the
 three FlatFAT kernels twice: builtin, and compiled with torch.logaddexp,
 each with the launches of its own paths, the fused update+query
 kernel's including phase 12's), the card line, and
@@ -3219,9 +3249,9 @@ def delta16(card: str) -> None:
     from windflow_tpu_torch.runtime.emitters import StandardEmitter
     from windflow_tpu_torch.runtime.node import SourceLoopLogic
 
-    # bench.py runs 400 dirty rounds; 200 keep the script's time (its
-    # record plane ran about 20 s a lane on the H100) for phase 12
-    n_keys, dirty_frac, dirty_rounds, interval_s = 10_000, 0.01, 200, 0.06
+    # bench.py runs 400 dirty rounds; 100 keep the script's time (its
+    # record plane ran about 13 s a lane at 200 on the H100; PERF.md §4)
+    n_keys, dirty_frac, dirty_rounds, interval_s = 10_000, 0.01, 100, 0.06
     n_dirty = max(1, int(n_keys * dirty_frac))
     n_events = n_keys + dirty_rounds * n_dirty
     tmp = tempfile.mkdtemp(prefix="chip-smoke-delta-")
@@ -3447,10 +3477,11 @@ def main_durable(card: str) -> tuple:
 # at three quarters
 RESCALE15 = ((N15 // 2, 3), (3 * N15 // 4, 1))
 # bench config 2i (bench.py:331-404, run at :2375)
-N2I = 9_000
+N2I = 4_500  # 9,000 in bench.py, halved for phase 15's room (PERF.md §4)
 SVC2I_US, LOW2I, BURST2I = 1000.0, 500.0, 4.0
-# bench config 18 (bench.py:2088-2218, run at :2581)
-N18 = 200_000
+# bench config 18 (bench.py:2088-2218, run at :2581): 200,000 bids, cut
+# 4x for phase 15's room (PERF.md §4)
+N18 = 50_000
 WIN18 = 256
 LATE18_M, LATE18_PLANTED = 20_000, 7
 
@@ -3579,9 +3610,9 @@ def rescale15(card: str) -> int:
 
 
 def elastic2i(card: str) -> None:
-    """[elastic2i]: bench config 2i (bench.py:331-404) at its 9,000
-    events: keys zipf(1.3) % 32 from default_rng(0), three open-loop
-    phases at 500/s, 2,000/s and 500/s, a 1,000 us sleep fold in an
+    """[elastic2i]: bench config 2i (bench.py:331-404) at 4,500 of its
+    9,000 events: keys zipf(1.3) % 32 from default_rng(0), three
+    open-loop phases at 500/s, 2,000/s and 500/s, a 1,000 us sleep fold in an
     elastic ``AccumulatorBuilder`` (1..4 replicas, target_util 0.5)
     under ``ElasticityConfig(sample_period_s=0.1, cooldown_s=1.0,
     ewma_alpha=0.6)``.  Every tuple conserved, each key's last
@@ -4348,7 +4379,8 @@ def main_mission(card: str) -> int:
 # ---------------------------------------------------------------------------
 
 # bench config 12 (bench.py:1659-1735, run at :2525 with N_EVENTS // 4)
-N12 = N_EVENTS // 4
+# bench config 12's 16M bids, cut 4x for phase 15's room (PERF.md §4)
+N12 = N_EVENTS // 16
 WIN12, SLIDE12 = 8192, 4096
 SOURCE12 = 1 << 18
 AUCTIONS12 = 1000
@@ -4401,21 +4433,28 @@ def dist12_config(worker_id):
                             log_dir=os.environ["WINDFLOW_DIST12_LOG"])
 
 
+def probe_doc(graphs) -> dict:
+    """What a worker process ran, read at its exit: the kernels' counted
+    launches, the window engines of ``graphs`` with their batches,
+    whether it holds a CUDA context and on which card, and whether jax
+    or the reference package was imported."""
+    cuda = torch.cuda.is_initialized()
+    return {"pid": os.getpid(), "counts": read_counts(),
+            "engines": [{"tenant": g.name,
+                         "placement": lg.resolved_placement,
+                         "device": str(lg.device),
+                         "batches": lg.launched_batches}
+                        for g in graphs for lg in device_logics(g)],
+            "cuda": cuda,
+            "device_name": torch.cuda.get_device_name(0) if cuda else None,
+            "jax": "jax" in sys.modules,
+            "reference": "windflow_tpu" in sys.modules}
+
+
 def write_probe(g, probe_dir: str) -> None:
-    """At a worker's exit: its kernel counts, its device engines and
-    their batches, whether it holds a CUDA context and on which card,
-    and whether jax or the reference package was imported."""
+    """A distributed worker's exit probe, ``w<worker>.json``."""
     from windflow_tpu_torch.distributed.identity import worker_id
-    engines = device_logics(g)
-    doc = {"worker": worker_id(), "counts": read_counts(),
-           "engines": [{"placement": lg.resolved_placement,
-                        "device": str(lg.device),
-                        "batches": lg.launched_batches} for lg in engines],
-           "cuda": torch.cuda.is_initialized(),
-           "device_name": (torch.cuda.get_device_name(0)
-                           if torch.cuda.is_initialized() else None),
-           "jax": "jax" in sys.modules,
-           "reference": "windflow_tpu" in sys.modules}
+    doc = dict(probe_doc([g]), worker=worker_id())
     with open(os.path.join(probe_dir, f"w{doc['worker']}.json"), "w") as f:
         json.dump(doc, f)
 
@@ -4537,9 +4576,9 @@ def dist12_lane(card: str, placement: str, want, tmp: str):
                 f"[{tag}] worker 1: K1 {k1_dist}, batches "
                 f"{engine['batches']}, Device_launches {device_launches}, "
                 f"other kernels {others}")
-    elif any(probes[1]["counts"].values()) \
+    elif any(probes[1]["counts"].values()) or probes[1]["cuda"] \
             or engine["placement"] != "host":
-        raise AssertionError(f"[{tag}] the host lane ran on the card: "
+        raise AssertionError(f"[{tag}] the host lane touched the card: "
                              f"{probes[1]}")
     wire_rows = wire.get("Edges") or []
     attr = build_report(merged).get("Attribution") or {}
@@ -4549,13 +4588,10 @@ def dist12_lane(card: str, placement: str, want, tmp: str):
                   f"{k1_dist} = batches {engine['batches']} = "
                   f"Device_launches {device_launches}")
     else:
-        # worker 1 closes the traces, and the diagnosis plane's
-        # attribution probes the card's round trip once for them
-        # (diagnosis/plane.py _rtt_floor_ms), as the reference probes
-        # its device: a CUDA context, no kernel
+        # the host lane's traces carry no device hop, so the diagnosis
+        # plane never probes the card's round trip: no CUDA context
         kernel = (f"host lane: worker 1's engine {engine['batches']} "
-                  f"batches, no kernel; CUDA context in worker 1: "
-                  f"{probes[1]['cuda']}, in worker 0: False")
+                  f"batches, no kernel, no CUDA context in either worker")
     log(f"[{tag}] {N12} bids: rate {rate_2p:.1f}, rate_1proc "
         f"{rate_1p:.1f}, vs_1proc {rate_2p / rate_1p:.4f}; wire_tuples "
         f"{sum(r.get('tuples_sent', 0) for r in wire_rows)}, wire_edges "
@@ -4607,6 +4643,751 @@ def main_distributed(card: str) -> int:
                     "WINDFLOW_DIST12_OUT",
                     "WINDFLOW_DIST12_PROBE"):
             os.environ.pop(var, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return k1
+
+
+# ---------------------------------------------------------------------------
+# 15. serving: the serving plane and the global scheduler (A10h)
+# ---------------------------------------------------------------------------
+
+# [contend K1]: the victim's device lane is config 11's template feed;
+# the neighbour's endless K1 lane emits CONTEND_CHUNK events of the same
+# law every CONTEND_PACE_S seconds (its windows have the same closed form)
+N_CONTEND = N11
+CONTEND_CHUNK = 65_536
+CONTEND_PACE_S = 0.05
+# the neighbour's burner farm (the reference test's 4 replicas) and the
+# victim's throughput floor: the reference's SLO with its 60 records/s
+# floor raised to the card's host, where the paced lane reads 786/s
+# alone, 141/s beside 1 burner, 117/s beside 2 and 103/s beside 4 or 8
+# (tools/burner_calibration.py, PERF.md §4): 4 burners breach it and
+# the arbiter's squeeze to 1 clears it
+BURNERS = 4
+CONTEND_FLOOR_RPS = 125.0
+# bench config 14 (bench.py:1010-1120), cut from N_EVENTS // 16 records
+# to fit the script's time, and config 20 (:1123-1278) at the bench's
+# count a tenant (N_EVENTS // 32 over 8) with 4 of its 8 tenants
+# (PERF.md §4)
+N14 = N_EVENTS // 128
+N20_TENANT = N_EVENTS // 32 // 8
+N20_TENANTS = 4
+N_FLEET_K1 = N11
+# the tenants' device (the CPU only to rehearse the phase without a card)
+SERVE_DEVICE = "cuda"
+SERVE_WAIT_S = 180.0
+
+
+def serve_config(log_dir: str, **kw):
+    """A tenant's RuntimeConfig: its device lanes on SERVE_DEVICE, the
+    elastic controller off (the arbiter alone rescales), logs under
+    ``log_dir``."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.elastic import ElasticityConfig
+    kw.setdefault("elasticity", ElasticityConfig(enabled=False))
+    return wf.RuntimeConfig(device=SERVE_DEVICE, log_dir=log_dir, **kw)
+
+
+def paced_records(n: int, pace_s: float, counter: dict):
+    """The reference chaos test's SLO lane: key i % 4, id i // 4, one
+    record every ``pace_s``."""
+    import windflow_tpu_torch as wf
+
+    def fn(shipper, ctx):
+        i = counter["sent"]
+        if i >= n:
+            return False
+        time.sleep(pace_s)
+        shipper.push(wf.BasicRecord(i % 4, i // 4, i, float(i)))
+        counter["sent"] = i + 1
+        return True
+
+    return fn
+
+
+def burner_records(stop: threading.Event):
+    import windflow_tpu_torch as wf
+    state = {"i": 0}
+
+    def fn(shipper, ctx):
+        if stop.is_set():
+            return False
+        i = state["i"]
+        shipper.push(wf.BasicRecord(i % 64, i, i, 1.0))
+        state["i"] = i + 1
+        return True
+
+    return fn
+
+
+def burn_10ms(t):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 0.01:
+        pass
+    return None
+
+
+def paced_template(stop: threading.Event, counter: dict):
+    """``template_source``'s law (event e: key e % 64, id = ts = e // 64,
+    value pool[e % SOURCE_BATCH]) in chunks of CONTEND_CHUNK events, one
+    every CONTEND_PACE_S, until ``stop``; ``counter["sent"]`` counts
+    the events, so ``template_oracle`` of it is the lane's closed form."""
+    from windflow_tpu_torch.core.tuples import TupleBatch
+    pool = np.random.default_rng(0).random(SOURCE_BATCH).astype(np.float32)
+
+    def source(ctx):
+        if stop.is_set():
+            return None
+        time.sleep(CONTEND_PACE_S)
+        i = counter["sent"]
+        idx = np.arange(i, i + CONTEND_CHUNK, dtype=np.int64)
+        counter["sent"] = i + CONTEND_CHUNK
+        return TupleBatch({"key": idx % N_KEYS, "id": idx // N_KEYS,
+                           "ts": idx // N_KEYS,
+                           "value": pool[idx % SOURCE_BATCH]})
+
+    return source
+
+
+class EndSink(WindowSink):
+    """A ``WindowSink`` that notes when the end of its stream arrives
+    and how many windows it holds."""
+
+    def __init__(self):
+        super().__init__()
+        self.end_t = None
+
+    def __call__(self, item):
+        if item is None:
+            self.end_t = time.perf_counter()
+        super().__call__(item)
+
+    def count(self) -> int:
+        with self.lock:
+            return sum(len(k) for k in self.keys)
+
+
+def wait_until(tag: str, pred, what: str, timeout: float = SERVE_WAIT_S,
+               detail=None):
+    """Poll ``pred`` until it holds; on timeout fail with ``detail()``."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return time.perf_counter()
+        time.sleep(0.02)
+    raise AssertionError(f"[{tag}] {what} within {timeout} s"
+                         + (f": {detail()}" if detail is not None else ""))
+
+
+def tenant_detail(srv, counters: dict):
+    """What a stuck serving cell shows: each tenant's state and error,
+    its Slo block and flight kinds, and the given counters."""
+    def detail():
+        rows = {}
+        for name, h in srv.tenants().items():
+            doc = json.loads(h.graph.stats.to_json(0, 0))
+            rows[name] = {"state": h.state, "error": repr(h.error),
+                          "slo": doc.get("Slo"),
+                          "flight": dict(collections.Counter(
+                              e["kind"] for e in h.graph.flight.snapshot()))}
+        return {"tenants": rows, "decisions": list(srv.arbiter.decisions)
+                if srv.arbiter is not None else None, **counters}
+    return detail
+
+
+def first_event(g, kind: str):
+    return next((e for e in g.flight.snapshot() if e["kind"] == kind), None)
+
+
+def recovered_after_a_decision(srv, victim) -> bool:
+    """The arbiter has decided, and the victim's SLO recovered after its
+    first ``arbitration`` event (an episode that closes before
+    ``breach_ticks`` elapse is not the one under test)."""
+    if not srv.arbiter.decisions:
+        return False
+    evs = victim.graph.flight.snapshot()
+    first = next((e["seq"] for e in evs if e["kind"] == "arbitration"),
+                 None)
+    return first is not None and any(
+        e["kind"] == "slo_recovered" and e["seq"] > first for e in evs)
+
+
+def contend_k1(card: str, tmp: str, want):
+    """[contend K1]: the reference's
+    ``test_contended_chip_arbiter_demotes_neighbor_slo_recovers``
+    (tests/test_scheduler.py:448-605) at deployment size on the card.
+    Under ``Server(devices=1)`` the victim (priority 5, the reference's
+    throughput SLO) runs the paced record lane and config 11's K1 lane
+    over N_CONTEND events; the neighbour (priority 0) runs the burner
+    farm (BURNERS replicas) and an endless paced K1 lane until the cell
+    ends.  Gates: the
+    reference test's, plus the victim's windows bitwise its solo run on
+    the card and within RTOL_F32 of the closed form, K1's launches =
+    the victim's batches + the neighbour's batches at its flip (none
+    after it), and the neighbour's windows one gap-free sequence per
+    key across the flip, equal to their closed form.  Returns K1's
+    launches in the contended run and the solo run's windows."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.operators.basic_ops import Sink
+    from windflow_tpu_torch.operators.batch_ops import BatchSource
+    from windflow_tpu_torch.serving import ArbiterConfig, Server, TenantSpec
+    tag = "contend K1"
+    t_cell = time.perf_counter()
+    solo = WindowSink()
+    g = wf.PipeGraph("contend_solo", wf.Mode.DEFAULT,
+                     serve_config(f"{tmp}/solo"))
+    g.add_source(BatchSource(template_source(N_CONTEND), 1)) \
+        .add(config11_op()).add_sink(Sink(solo))
+    reset_counts()
+    t0 = time.perf_counter()
+    g.run()
+    solo_rate = N_CONTEND / (time.perf_counter() - t0)
+    k1_solo = check_launches(f"{tag} solo", find_logic(g), read_counts(),
+                             "window_sum")
+    solo_rows = solo.sorted()
+    hold_lanes(f"{tag} solo", [(None, solo_rows)], want)
+
+    stop = threading.Event()
+    vrec = {"sent": 0}
+    nsent = {"sent": 0}
+    vsink, nsink = EndSink(), EndSink()
+    flip = {}
+    srv = Server(capacity=1 << 16, devices=1, arbiter=ArbiterConfig(
+        interval_s=0.25, breach_ticks=2, cooldown_s=1.0,
+        clear_ticks=10 ** 6))
+    try:
+        def build_victim(g):
+            g.add_source(wf.SourceBuilder(
+                paced_records(10 ** 6, 0.001, vrec)).build()) \
+                .add(wf.MapBuilder(lambda t: None).with_name("vmap")
+                     .build()) \
+                .add_sink(wf.SinkBuilder(lambda r: None).build())
+            g.add_source(BatchSource(template_source(N_CONTEND), 1)) \
+                .add(config11_op()).add_sink(Sink(vsink))
+
+        def build_noisy(g):
+            g.add_source(wf.SourceBuilder(burner_records(stop)).build()) \
+                .add(wf.MapBuilder(burn_10ms).with_name("burn")
+                     .with_key_by().with_parallelism(BURNERS)
+                     .with_elasticity(1, BURNERS).build()) \
+                .add_sink(wf.SinkBuilder(lambda r: None).build())
+            g.add_source(BatchSource(paced_template(stop, nsent), 1)) \
+                .add(config11_op()).add_sink(Sink(nsink))
+
+        reset_counts()
+        t_v = time.perf_counter()
+        hv = srv.submit(
+            "vic", build_victim,
+            TenantSpec(credits=1024, priority=5,
+                       slo=dict(min_throughput_rps=CONTEND_FLOOR_RPS,
+                                target=0.9,
+                                fast_window_s=3.0, slow_window_s=30.0,
+                                warmup_ticks=1, fast_burn=2.0)),
+            config=serve_config(f"{tmp}/vic", diagnosis_interval_s=0.2,
+                                audit_interval_s=0.1))
+        t_n, t_n_wall = time.perf_counter(), time.time()
+        hn = srv.submit("noisy", build_noisy,
+                        TenantSpec(credits=4096, priority=0),
+                        config=serve_config(f"{tmp}/noisy",
+                                            queue_capacity=32))
+        for h in (hv, hn):
+            if h.state != "RUNNING":
+                raise AssertionError(f"[{tag}] tenant {h.name} {h.state}: "
+                                     f"{h.error!r}")
+        if not srv.devices.contended():
+            raise AssertionError(f"[{tag}] two device lanes on one card "
+                                 f"must contend: {srv.devices.block()}")
+        leases = srv.devices.rows()
+        chip = "cuda:0"
+        if {r["Chip"] for r in leases} != {chip} or len(leases) != 2:
+            raise AssertionError(f"[{tag}] lease rows {leases}")
+        vlogic, nlogic = find_logic(hv.graph), find_logic(hn.graph)
+        orig = nlogic.apply_placement
+
+        def spy(placement, rtt_floor_ms=None):
+            # called inside replace_lane's quiesce: no batch in flight,
+            # so the engine's batches are its device launches
+            if placement == "host" and "batches" not in flip:
+                flip.update(batches=nlogic.launched_batches,
+                            windows=nsink.count(),
+                            t=time.perf_counter())
+            return orig(placement, rtt_floor_ms=rtt_floor_ms)
+
+        nlogic.apply_placement = spy
+        detail = tenant_detail(srv, {"victim records": vrec,
+                                     "neighbour events": nsent})
+        wait_until(tag, lambda: hv.graph.diagnosis.slo is not None
+                   and hv.graph.diagnosis.slo.breached,
+                   "the victim breached under contention", timeout=60.0,
+                   detail=detail)
+        wait_until(tag, lambda: recovered_after_a_decision(srv, hv),
+                   "the victim's SLO recovered after an arbitration",
+                   detail=detail)
+        decisions = list(srv.arbiter.decisions)
+        dev = [a for d in decisions for a in d["actions"]
+               if a["type"] == "device"]
+        first = decisions[0]
+        if not (dev and dev[0].get("applied") and dev[0]["to"] == "host"
+                and any(a["type"] == "device" for a in first["actions"])
+                and (first["donor"], first["victim"]) == ("noisy", "vic")
+                and first["evidence"].get("contended") is True):
+            raise AssertionError(f"[{tag}] the first decision is not an "
+                                 f"applied device demotion noisy -> vic: "
+                                 f"{decisions}")
+        repl = [e for e in hn.graph.flight.snapshot()
+                if e["kind"] == "replacement"]
+        if not any("arbiter:device->host for vic" in (e.get("trigger") or "")
+                   for e in repl):
+            raise AssertionError(f"[{tag}] no arbiter replacement: {repl}")
+        if srv.devices.tenant_rows("noisy") or srv.devices.contended() \
+                or not srv.devices.tenant_rows("vic"):
+            raise AssertionError(f"[{tag}] leases after the demotion: "
+                                 f"{srv.devices.block()}")
+        for h in (hv, hn):
+            if not any("demoted" in (e.get("action") or "")
+                       for e in h.graph.flight.snapshot()
+                       if e["kind"] == "arbitration"):
+                raise AssertionError(f"[{tag}] {h.name}'s flight names no "
+                                     f"demotion")
+        blk = srv.scheduler_block()["Devices"]
+        if blk["Holders"] != 1 or blk["Contended"] is not False:
+            raise AssertionError(f"[{tag}] Devices block {blk}")
+        wait_until(tag, lambda: vsink.end_t is not None,
+                   "the victim's K1 lane ended")
+        # the neighbour's host lane goes on: let it close windows past
+        # the flip, then end its sources
+        wait_until(tag, lambda: nsink.count() > flip["windows"],
+                   "the neighbour's host lane emitted a window")
+        stop.set()
+        if hn.wait(SERVE_WAIT_S) != "COMPLETED":
+            raise AssertionError(f"[{tag}] neighbour {hn.state}: "
+                                 f"{hn.error!r}")
+        t_end = time.perf_counter()
+        counts = read_counts()
+        # the episode the demotion answered: the last breach before the
+        # flip, and the first recovery after it
+        ev_r = first_event(hn.graph, "replacement")
+        vev = hv.graph.flight.snapshot()
+        ev_b = [e for e in vev if e["kind"] == "slo_breach"
+                and e["t"] <= ev_r["t"]][-1]
+        ev_s = next(e for e in vev if e["kind"] == "slo_recovered"
+                    and e["t"] > ev_r["t"])
+        vrecs = vrec["sent"]
+        arbs = srv.arbiter.decisions_total
+    finally:
+        stop.set()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            srv.close()
+    # K1: the victim's batches and the neighbour's up to its flip
+    if not flip:
+        raise AssertionError(f"[{tag}] the neighbour's lane never flipped")
+    others = {k: v for k, v in counts.items() if k != "window_sum"}
+    if SERVE_DEVICE == "cuda" and (
+            counts["window_sum"] != vlogic.launched_batches + flip["batches"]
+            or any(others.values())) or flip["batches"] <= 0:
+        raise AssertionError(
+            f"[{tag}] K1 launches {counts['window_sum']} != victim batches "
+            f"{vlogic.launched_batches} + the neighbour's batches at its "
+            f"flip {flip['batches']} (other kernels {others})")
+    if nlogic.launched_batches <= flip["batches"]:
+        raise AssertionError(f"[{tag}] the neighbour's host lane made no "
+                             f"batch after the flip")
+    vrows = vsink.sorted()
+    bitwise(vrows, solo_rows, f"{tag} victim vs solo")
+    nrows = check_windows(nsink, template_oracle(nsent["sent"]),
+                          f"{tag} neighbour", rtol=RTOL_F32)
+    v_rate = N_CONTEND / (vsink.end_t - t_v)
+    n_rate = nsent["sent"] / (t_end - t_n)
+    log(f"[{tag}] Server(devices=1), two K1 tenants on {chip}: contended "
+        f"at submit (2 lease rows); submit -> breach "
+        f"{ev_b['t'] - t_n_wall:.3f} s, breach -> demotion "
+        f"{ev_r['t'] - ev_b['t']:.3f} s (replace_lane "
+        f"{ev_r['duration_ms']} ms), demotion -> slo_recovered "
+        f"{ev_s['t'] - ev_r['t']:.3f} s; {arbs} decisions, the first "
+        f"{first['actions'][0]}; victim: {N_CONTEND} events at "
+        f"{v_rate:.1f} tuples/s (solo {solo_rate:.1f}), "
+        f"{len(vrows[0])} windows bitwise its solo run and within "
+        f"{RTOL_F32} of the closed form, {vrecs} paced records in "
+        f"{t_end - t_v:.1f} s ({vrecs / (t_end - t_v):.1f}/s); neighbour: "
+        f"{nsent['sent']} events at {n_rate:.1f} tuples/s, "
+        f"{len(nrows[0])} windows gap-free per key across the flip and "
+        f"within {RTOL_F32} of the closed form ({flip['windows']} before "
+        f"it); K1 launches {counts['window_sum']} = victim "
+        f"{vlogic.launched_batches} + neighbour {flip['batches']} at its "
+        f"flip (then {nlogic.launched_batches - flip['batches']} host "
+        f"batches, no K1); solo K1 {k1_solo} = batches; "
+        f"{time.perf_counter() - t_cell:.1f} s ({card})")
+    return counts["window_sum"] + k1_solo, solo_rows
+
+
+def bench_records(n: int, acc: dict):
+    """bench.py's config 14/20 tenant graph (:1036-1056): n records
+    (key i % 8, id = ts = i // 8, value i % 101) through a map scaling
+    the value by 1.0001 into a sink folding (count, sum)."""
+    import windflow_tpu_torch as wf
+
+    def build(g):
+        state = {"i": 0}
+
+        def src(shipper):
+            i = state["i"]
+            if i >= n:
+                return False
+            shipper.push(wf.BasicRecord(i % 8, i // 8, i // 8,
+                                        float(i % 101)))
+            state["i"] = i + 1
+            return True
+
+        def sink(r):
+            if r is not None:
+                acc["n"] += 1
+                acc["sum"] += r.value
+
+        g.add_source(wf.SourceBuilder(src).build()) \
+            .add(wf.MapBuilder(lambda t: wf.BasicRecord(
+                t.key, t.id, t.ts, t.value * 1.0001)).build()) \
+            .add_sink(wf.SinkBuilder(sink).build())
+
+    return build
+
+
+def latency_row(name: str, records: int, rate: float, e2e) -> dict:
+    e2e = e2e or {}
+    return {"tenant": name, "records": records, "rate": round(rate, 1),
+            "p50_ms": round((e2e.get("p50_us") or 0) / 1e3, 3),
+            "p99_ms": round((e2e.get("p99_us") or 0) / 1e3, 3)}
+
+
+def serve14(card: str, tmp: str) -> None:
+    """[serve14]: bench config 14 (``run_multitenant_contention``,
+    bench.py:1010-1120) on the port: 3 record-plane tenants under one
+    ``Server(capacity=3 * 4096)`` over N14 records, then one tenant
+    uncontended with the arbiter on and off.  Gates: every tenant
+    COMPLETED, the A/B's (count, sum) bitwise identical, zero decisions,
+    no kernel launched."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.serving import ArbiterConfig, Server, TenantSpec
+    t_cell = time.perf_counter()
+    n_tenants = 3
+    per_n = N14 // n_tenants
+
+    def cfg():
+        return serve_config(f"{tmp}/serve14", trace_sample=16)
+
+    reset_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        srv = Server(capacity=n_tenants * 4096, arbiter=ArbiterConfig())
+        try:
+            accs = [{"n": 0, "sum": 0.0} for _ in range(n_tenants)]
+            t0 = time.perf_counter()
+            handles = [srv.submit(f"bench14-t{i}",
+                                  bench_records(per_n, accs[i]),
+                                  TenantSpec(credits=4096, priority=i),
+                                  config=cfg()) for i in range(n_tenants)]
+            for h in handles:
+                if h.wait(SERVE_WAIT_S) != "COMPLETED":
+                    raise AssertionError(f"[serve14] {h.name} {h.state}: "
+                                         f"{h.error!r}")
+            dt = time.perf_counter() - t0
+            rows = [latency_row(h.name, accs[i]["n"], accs[i]["n"] / dt,
+                                json.loads(h.graph.stats.to_json(0, 0))
+                                .get("Latency_e2e"))
+                    for i, h in enumerate(handles)]
+        finally:
+            srv.close()
+
+        def one(arbiter):
+            acc = {"n": 0, "sum": 0.0}
+            s = Server(capacity=1 << 14, arbiter=arbiter)
+            try:
+                t1 = time.perf_counter()
+                h = s.submit("bench14-ab", bench_records(per_n, acc),
+                             TenantSpec(credits=4096), config=cfg())
+                if h.wait(SERVE_WAIT_S) != "COMPLETED":
+                    raise AssertionError(f"[serve14] A/B {h.state}: "
+                                         f"{h.error!r}")
+                secs = time.perf_counter() - t1
+                decisions = len(s.arbiter.decisions) \
+                    if s.arbiter is not None else 0
+            finally:
+                s.close()
+            return acc, decisions, per_n / secs
+
+        acc_on, decisions_on, rate_on = one(ArbiterConfig(interval_s=0.2))
+        acc_off, _, rate_off = one(False)
+    counts = read_counts()
+    if acc_on != acc_off or decisions_on != 0 or any(counts.values()):
+        raise AssertionError(f"[serve14] A/B {acc_on} vs {acc_off}, "
+                             f"{decisions_on} decisions, kernels {counts}")
+    if any(r["records"] != per_n for r in rows):
+        raise AssertionError(f"[serve14] records {rows}")
+    total = sum(r["records"] for r in rows) / dt
+    log(f"[serve14] {n_tenants} tenants x {per_n} records under one "
+        f"Server(capacity={n_tenants * 4096}): total {total:.1f} "
+        f"records/s; {rows}; A/B one tenant: arbiter on {rate_on:.1f}, "
+        f"off {rate_off:.1f} records/s, (count, sum) bitwise identical "
+        f"{acc_on}, 0 decisions; no kernel launched; "
+        f"{time.perf_counter() - t_cell:.1f} s ({card})")
+
+
+FLEET_HOSTED = []  # the tenant graphs this fleet worker built
+
+
+def register_fleet_probe(g) -> None:
+    """Count ``g`` into this fleet worker's exit probe: at exit the
+    worker writes :func:`probe_doc` of every tenant graph it built to
+    ``<WINDFLOW_SERVE_PROBE>/p<pid>.json``."""
+    import atexit
+    out_dir = os.environ.get("WINDFLOW_SERVE_PROBE")
+    if not out_dir:
+        return
+    if not FLEET_HOSTED:
+        atexit.register(write_fleet_probe, out_dir)
+    FLEET_HOSTED.append(g)
+
+
+def write_fleet_probe(out_dir: str) -> None:
+    with open(os.path.join(out_dir, f"p{os.getpid()}.json"), "w") as f:
+        json.dump(probe_doc(FLEET_HOSTED), f)
+
+
+def read_fleet_probes(out_dir: str, tag: str, n_workers: int) -> list:
+    docs = []
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            docs.append(json.load(f))
+    if len(docs) != n_workers:
+        raise AssertionError(f"[{tag}] {len(docs)} worker probes, not "
+                             f"{n_workers}: {docs}")
+    return docs
+
+
+def bench20_build(g):
+    """Worker-side tenant graph of bench config 20 (bench.py:1137-1156)
+    on the port: WINDFLOW_SERVE20_N records.  Fleet workers load it from
+    this file, executed under an alias, so ``main`` does not run
+    there."""
+    bench_records(int(os.environ["WINDFLOW_SERVE20_N"]),
+                  {"n": 0, "sum": 0.0})(g)
+    register_fleet_probe(g)
+
+
+def bench20_config():
+    """bench20's worker config (bench.py:1125-1134): its tenants' device
+    (WINDFLOW_SERVE_DEVICE) and logs (WINDFLOW_SERVE_LOG) set by the
+    fleet's caller."""
+    from windflow_tpu_torch.elastic import ElasticityConfig
+    import windflow_tpu_torch as wf
+    return wf.RuntimeConfig(trace_sample=16,
+                            device=os.environ["WINDFLOW_SERVE_DEVICE"],
+                            log_dir=os.environ["WINDFLOW_SERVE_LOG"],
+                            elasticity=ElasticityConfig(enabled=False))
+
+
+def fleet_k1_build(g):
+    """Worker-side K1 tenant: config 11's template feed over
+    WINDFLOW_FLEETK1_N events through its WinSeqTPU; the sink writes its
+    windows to <WINDFLOW_FLEETK1_OUT>/<tenant>.npz at the end."""
+    from windflow_tpu_torch.operators.basic_ops import Sink
+    from windflow_tpu_torch.operators.batch_ops import BatchSource
+    out = os.path.join(os.environ["WINDFLOW_FLEETK1_OUT"], f"{g.name}.npz")
+    sink = WindowSink()
+
+    def on_item(item):
+        sink(item)
+        if item is None:
+            k, i, v = sink.sorted()
+            np.savez(out, key=k, id=i, value=v)
+
+    g.add_source(BatchSource(
+        template_source(int(os.environ["WINDFLOW_FLEETK1_N"])), 1)) \
+        .add(config11_op()).add_sink(Sink(on_item))
+    register_fleet_probe(g)
+
+
+def run_fleet(tmp: str, tag: str, env: dict, tenants: list,
+              n_workers: int = 2):
+    """Submit ``tenants`` ((name, build, spec) triples) to a FleetServer
+    of ``n_workers`` workers, wait for each and close the fleet.
+    Returns each tenant's worker, its final row, the seconds from the
+    first submit to the last end, the fleet's flight events and the
+    workers' exit probes."""
+    from windflow_tpu_torch.scheduler import FleetServer
+    probe = os.path.join(tmp, f"{tag}_probe")
+    os.makedirs(probe)
+    env = dict(env, WINDFLOW_SERVE_DEVICE=SERVE_DEVICE,
+               WINDFLOW_SERVE_LOG=os.path.join(tmp, f"{tag}_log"),
+               WINDFLOW_SERVE_PROBE=probe)
+    os.environ.update(env)
+    try:
+        fleet = FleetServer(workers=n_workers,
+                            capacity=len(tenants) * 4096,
+                            push_interval_s=0.2,
+                            log_dir=os.path.join(tmp, f"{tag}_workers"))
+        try:
+            t0 = time.perf_counter()
+            placed = {name: fleet.submit(name, build, spec,
+                                         config_fn=bench20_config)["Worker"]
+                      for name, build, spec in tenants}
+            rows = {name: fleet.wait(name, timeout=SERVE_WAIT_S)
+                    for name in placed}
+            secs = time.perf_counter() - t0
+            flight = fleet.stats()["Flight"]
+        finally:
+            fleet.close()
+    finally:
+        for var in env:
+            os.environ.pop(var, None)
+    return placed, rows, secs, flight, read_fleet_probes(probe, tag,
+                                                         n_workers)
+
+
+def check_fleet_probes(tag: str, probes: list, placed: dict) -> None:
+    """Each worker's exit probe: no jax, no reference package, no
+    FlatFAT kernel, K1 launches equal to its engines' batches, a CUDA
+    context exactly where a device lane ran, and its engines those of
+    the tenants placed on it."""
+    for p in probes:
+        device = [e for e in p["engines"] if e["placement"] == "device"]
+        batches = sum(e["batches"] for e in device)
+        others = {k: v for k, v in p["counts"].items() if k != "window_sum"}
+        k1_ok = (p["counts"]["window_sum"] == batches
+                 and p["cuda"] == bool(device)) if SERVE_DEVICE == "cuda" \
+            else p["counts"]["window_sum"] == 0
+        workers = {placed[e["tenant"]] for e in p["engines"]}
+        if p["jax"] or p["reference"] or any(others.values()) or not k1_ok \
+                or len(workers) > 1:
+            raise AssertionError(f"[{tag}] worker probe {p}")
+
+
+def sched20(card: str, tmp: str) -> None:
+    """[sched20]: bench config 20 (``run_global_scheduler``,
+    bench.py:1158-1278) at the bench's count a tenant: N20_TENANTS
+    record tenants placed by ``plan_placement`` over a FleetServer of 2
+    workers, then one tenant in-process with the scheduler plane on and
+    off.  Gates: every worker used, every tenant COMPLETED with
+    ``Edges_balanced``, the A/B identical, ``Sched_wait_s`` 0.0, and
+    each worker's exit probe: no jax, no kernel and no CUDA context (no
+    device lane ran there)."""
+    from windflow_tpu_torch.serving import Server, TenantSpec
+    t_cell = time.perf_counter()
+    n_workers = 2
+    per_n = N20_TENANT
+    names = [f"bench20-t{i}" for i in range(N20_TENANTS)]
+    reset_counts()
+    placed, rows, dt, flight, probes = run_fleet(
+        tmp, "sched20", {"WINDFLOW_SERVE20_N": str(per_n)},
+        [(name, bench20_build, TenantSpec(credits=4096, priority=i % 3))
+         for i, name in enumerate(names)], n_workers)
+    bad = [r for r in rows.values() if r["State"] != "COMPLETED"
+           or not (r.get("Conservation") or {}).get("Edges_balanced")]
+    if len(set(placed.values())) != n_workers or bad:
+        raise AssertionError(f"[sched20] placements {placed}; tenants not "
+                             f"COMPLETED or unbalanced: {bad}")
+    check_fleet_probes("sched20", probes, placed)
+    if any(p["cuda"] or p["engines"] or any(p["counts"].values())
+           for p in probes):
+        raise AssertionError(f"[sched20] a record worker touched the "
+                             f"card: {probes}")
+    per_tenant = [latency_row(name, per_n, per_n / dt,
+                              rows[name].get("Latency_e2e"))
+                  for name in names]
+
+    def one(scheduled):
+        acc = {"n": 0, "sum": 0.0}
+        extra = ({"fair_share": True, "devices": 1, "worker_id": 0}
+                 if scheduled else {})
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            srv = Server(capacity=1 << 14, arbiter=False, **extra)
+            try:
+                h = srv.submit("bench20-ab", bench_records(per_n, acc),
+                               TenantSpec(credits=4096),
+                               config=serve_config(f"{tmp}/sched20",
+                                                   trace_sample=16))
+                if h.wait(SERVE_WAIT_S) != "COMPLETED":
+                    raise AssertionError(f"[sched20] A/B {h.state}: "
+                                         f"{h.error!r}")
+                wait_s = srv.scheduler_block()["Sched_wait_s"] \
+                    if scheduled else None
+            finally:
+                srv.close()
+        return acc, wait_s
+
+    acc_on, wait_on = one(True)
+    acc_off, _ = one(False)
+    counts = read_counts()
+    if acc_on != acc_off or wait_on != 0.0 or any(counts.values()):
+        raise AssertionError(f"[sched20] A/B {acc_on} vs {acc_off}, "
+                             f"Sched_wait_s {wait_on}, kernels {counts}")
+    kinds = collections.Counter(e["kind"] for e in flight)
+    log(f"[sched20] {N20_TENANTS} tenants x {per_n} records over "
+        f"{n_workers} FleetServer workers (placements "
+        f"{sorted(placed.items())}): total "
+        f"{N20_TENANTS * per_n / dt:.1f} records/s in {dt:.1f} s; "
+        f"{per_tenant}; every tenant COMPLETED, Edges_balanced; worker "
+        f"probes: no kernel, no CUDA context, no jax; A/B in-process "
+        f"(count, sum) identical {acc_on}, Sched_wait_s {wait_on}; flight "
+        f"{dict(kinds)}; {time.perf_counter() - t_cell:.1f} s ({card})")
+
+
+def fleet_k1(card: str, tmp: str, solo_rows) -> int:
+    """[fleet K1]: two ``TenantSpec(devices=1)`` tenants, each config
+    11's K1 lane over N_FLEET_K1 events, on a FleetServer of 2 workers.
+    Gates: placed on different workers, each one's windows bitwise
+    [contend K1]'s solo run, each worker's exit probe: K1 launches =
+    its engines' batches, a CUDA context where its device lane ran, no
+    jax.  Returns the workers' K1 launches."""
+    from windflow_tpu_torch.serving import TenantSpec
+    t_cell = time.perf_counter()
+    out = os.path.join(tmp, "fleet_k1")
+    os.makedirs(out)
+    names = ("fleet-k1-a", "fleet-k1-b")
+    placed, rows, secs, _flight, probes = run_fleet(
+        tmp, "fleet_k1", {"WINDFLOW_FLEETK1_N": str(N_FLEET_K1),
+                          "WINDFLOW_FLEETK1_OUT": out},
+        [(name, fleet_k1_build, TenantSpec(credits=4096, devices=1))
+         for name in names])
+    if sorted(placed.values()) != [0, 1]:
+        raise AssertionError(f"[fleet K1] placements {placed}")
+    for name, row in rows.items():
+        if row["State"] != "COMPLETED":
+            raise AssertionError(f"[fleet K1] {name}: {row}")
+        with np.load(os.path.join(out, f"{name}.npz")) as z:
+            got = (z["key"], z["id"], z["value"])
+        bitwise(got, solo_rows, f"fleet K1 {name} vs [contend K1] solo")
+    check_fleet_probes("fleet K1", probes, placed)
+    if sorted(e["tenant"] for p in probes for e in p["engines"]) \
+            != sorted(names) \
+            or any(e["batches"] == 0 for p in probes for e in p["engines"]):
+        raise AssertionError(f"[fleet K1] worker probes {probes}")
+    probe_rows = [(placed[p["engines"][0]["tenant"]],
+                   p["counts"]["window_sum"],
+                   [(e["tenant"], e["batches"]) for e in p["engines"]],
+                   p["cuda"], p["device_name"]) for p in probes]
+    log(f"[fleet K1] two TenantSpec(devices=1) K1 tenants placed on "
+        f"workers {placed}, {N_FLEET_K1} events each in {secs:.1f} s "
+        f"(spawned workers, K1 from the checkout's build): windows bitwise "
+        f"[contend K1]'s solo run; worker probes: {sorted(probe_rows)} "
+        f"(worker, K1 launches, engines and batches, CUDA context, card); "
+        f"jax in no worker; {time.perf_counter() - t_cell:.1f} s ({card})")
+    return sum(p["counts"]["window_sum"] for p in probes)
+
+
+def main_serving(card: str) -> int:
+    """Phase 15's cells; returns the window-sum kernel's launches (this
+    process's and the fleet workers')."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-serve-")
+    try:
+        k1, solo_rows = contend_k1(card, tmp, template_oracle(N_CONTEND))
+        serve14(card, tmp)
+        sched20(card, tmp)
+        k1 += fleet_k1(card, tmp, solo_rows)
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return k1
 
@@ -4724,6 +5505,15 @@ def main() -> int:
     t14 = time.perf_counter()
     launches += main_distributed(card)
     log(f"[smoke] distributed done in {time.perf_counter() - t14:.1f} s")
+
+    # the serving plane and the global scheduler: two tenants' K1 lanes
+    # leased and contended on the card, the neighbour's demoted by the
+    # arbiter; bench configs 14 and 20; two K1 tenants on two fleet
+    # workers; each run with every kernel count set to 0 just before it
+    # and read just after (a fleet worker's: at its exit)
+    t15 = time.perf_counter()
+    launches += main_serving(card)
+    log(f"[smoke] serving done in {time.perf_counter() - t15:.1f} s")
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
     src = "windflow_tpu_torch/ops/cuda/flatfat_query.cu"

@@ -895,3 +895,62 @@ def test_q5_device_lane_across_two_workers_launches_k1_in_worker_1(
     assert sum(int(r.get("Device_launches", 0) or 0)
                for op in merged["Operators"]
                for r in op.get("Replicas") or ()) == engine["batches"]
+
+
+def test_two_k1_tenants_contend_for_the_card_under_leases(tmp_path):
+    """Two tenants' window-sum lanes under ``Server(devices=1)``: the
+    planner leases the card to both (two holders on one lane: the card
+    is contended, and the rows name it), both lanes launch the
+    window-sum kernel once a batch, and each tenant's windows equal the
+    same lane's on the CPU exactly."""
+    import threading
+    import torch_sched_builds as builds
+    from windflow_tpu_torch.elastic import ElasticityConfig
+    from torch_dist_builds import device_engines
+    from windflow_tpu_torch.serving import Server, TenantSpec
+    n = 1 << 16
+    gate = threading.Event()
+
+    def lane(g, device_rows, gated):
+        src = builds.batch_source(n)
+        g.add_source(BatchSource(
+            (lambda ctx: gate.wait(60) and src(ctx)) if gated else src)) \
+            .add(WinSeqTPU("sum", builds.WIN, builds.SLIDE, wf.WinType.TB,
+                           batch_len=128, emit_batches=True,
+                           placement="device")) \
+            .add_sink(Sink(device_rows))
+
+    def cfg(device):
+        return wf.RuntimeConfig(log_dir=str(tmp_path), device=device,
+                                elasticity=ElasticityConfig(enabled=False))
+
+    want, want_sink = builds.window_rows_sink()
+    g = wf.PipeGraph("cpu_lane", wf.Mode.DEFAULT, cfg("cpu"))
+    lane(g, want_sink, gated=False)
+    g.run()
+    rows = {}
+    ws.reset_launch_count()
+    srv = Server(capacity=1 << 16, devices=1, arbiter=False)
+    try:
+        handles = []
+        for prio, name in enumerate(("a", "b")):
+            rows[name], sink = builds.window_rows_sink()
+            handles.append(srv.submit(
+                name, lambda g, s=sink: lane(g, s, gated=True),
+                TenantSpec(credits=1024, priority=prio), config=cfg("cuda")))
+        blk = srv.devices.block()
+        assert blk["Holders"] == 2 and blk["Contended"]
+        assert {r["Chip"] for r in blk["Leases"]} == {"cuda:0"}
+        assert handles[1].graph.placements[0]["lease"]["contended"]
+        gate.set()
+        for h in handles:
+            assert h.wait(120) == "COMPLETED", h.error
+    finally:
+        gate.set()
+        srv.close()
+    engines = [lg for h in handles for lg in device_engines(h.graph)]
+    assert all(lg.device.type == "cuda" for lg in engines)
+    assert ws.launch_count() == sum(lg.launched_batches
+                                    for lg in engines) > 0
+    for name in rows:
+        assert sorted(rows[name]) == sorted(want), name

@@ -50,8 +50,15 @@ def test_guard_walks_the_distributed_plane_and_the_scheduler():
     for name in ("partition", "transport", "wiring", "runtime", "worker",
                  "smoke", "wire", "observe", "identity", "__init__"):
         assert f"windflow_tpu_torch/distributed/{name}.py" in walked
-    for name in ("errors", "__init__"):
+    for name in ("errors", "policy", "leases", "devices", "fleet",
+                 "worker", "__init__"):
         assert f"windflow_tpu_torch/scheduler/{name}.py" in walked
+
+
+def test_guard_walks_the_serving_plane():
+    walked = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for name in ("tenant", "arbiter", "server", "__init__"):
+        assert f"windflow_tpu_torch/serving/{name}.py" in walked
 
 
 def test_guard_sees_every_import_form():
@@ -74,15 +81,23 @@ def test_umbrella_exports_ported_names_and_names_the_rest():
         "windflow_tpu_torch.durability.coordinator"
     assert wf.run_with_epochs.__module__ == \
         "windflow_tpu_torch.durability.recovery"
-    with pytest.raises(AttributeError, match="ROADMAP.md A10h"):
-        wf.Server
+    # the serving plane and the global scheduler are ported
+    assert wf.Server.__module__ == "windflow_tpu_torch.serving.server"
+    assert wf.CrossTenantArbiter.__module__ == \
+        "windflow_tpu_torch.serving.arbiter"
     assert wf.ElasticController.__module__ == \
         "windflow_tpu_torch.elastic.controller"
     assert wf.EventTimeWindow.__module__ == \
         "windflow_tpu_torch.eventtime.windows"
     assert wf.Watermark.__module__ == "windflow_tpu_torch.runtime.queues"
-    with pytest.raises(AttributeError, match="ROADMAP.md A10h"):
-        wf.TenantSpec
+    assert wf.TenantSpec.__module__ == "windflow_tpu_torch.serving.tenant"
+    import windflow_tpu_torch.scheduler as sched
+    assert sched.FleetServer.__module__ == \
+        "windflow_tpu_torch.scheduler.fleet"
+    assert sched.DeviceLeaseRegistry.__module__ == \
+        "windflow_tpu_torch.scheduler.devices"
+    from windflow_tpu_torch._unported import ROADMAP_ITEMS
+    assert list(ROADMAP_ITEMS) == ["mesh"]
     with pytest.raises(AttributeError, match="ROADMAP.md A11"):
         wf.KeyFarmMesh
     # the distributed runtime plane is ported (distributed/)
@@ -112,6 +127,8 @@ def _split_forward_group():
 
 
 @pytest.mark.parametrize("field,value", [
+    # the global-scheduler plane is ported: a graph starts under a real
+    # fair-share lease (made in the test) and runs to its end
     ("sched_lease", object()),
     # the distributed plane is ported: its partition planner refuses,
     # at start, pins that would split a FORWARD group between workers
@@ -121,17 +138,31 @@ def test_unported_planes_raise_at_start(field, value):
     from windflow_tpu_torch.distributed import PartitionError
     from windflow_tpu_torch.operators.basic_ops import Sink
     from windflow_tpu_torch.operators.batch_ops import BatchMap, BatchSource
+    from windflow_tpu_torch.core.tuples import TupleBatch
+    from windflow_tpu_torch.scheduler import FairShareRegistry
     cfg = wf.RuntimeConfig(device="cpu")
+    registry = None
+    if field == "sched_lease":
+        registry = FairShareRegistry()
+        value = registry.lease("x", weight=2.0)
     setattr(cfg, field, value)
+    batches = [TupleBatch({"key": [0, 1], "id": [0, 0], "ts": [0, 0],
+                           "value": [1.0, 2.0]})] * 3
+    got = []
     g = wf.PipeGraph("x", wf.Mode.DEFAULT, config=cfg)
-    g.add_source(BatchSource(lambda ctx: None, 1)).add(
-        BatchMap(lambda b: b)).add_sink(Sink(lambda item: None))
+    g.add_source(BatchSource(
+        lambda ctx: batches.pop() if batches else None, 1)).add(
+        BatchMap(lambda b: b, parallelism=2)).add_sink(Sink(
+            lambda item: item is not None and got.append(len(item))))
     if field == "distributed":
         with pytest.raises(PartitionError, match="conflicting"):
             g.start()
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A10h"):
-            g.start()
+        g.run()
+        assert got == [2, 2, 2]
+        (row,) = registry.block()["Leases"]
+        assert row["Tenant"] == "x" and row["Consumed"] > 0
+        assert row["Sched_wait_s"] == 0.0   # alone: never gated
 
 
 def test_with_slo_starts_and_publishes_the_slo_block():

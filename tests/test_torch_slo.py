@@ -372,6 +372,35 @@ def test_flight_events_carry_monotone_seq(tmp_path):
     _graph_twin(tmp_path, check, n=400)
 
 
+def test_diagnosis_reads_the_card_floor_only_for_device_hops(tmp_path,
+                                                            monkeypatch):
+    """Port-only: the attribution's transport floor (the planner's RTT
+    probe) is read only once a trace carries a device hop.  A traced
+    record graph with the diagnosis plane on never probes the card, so
+    a record-only fleet worker opens no CUDA context; a trace with an
+    ``@device`` hop reads the floor once and splits that hop into
+    device transport and compute."""
+    calls = []
+    monkeypatch.setattr(mod(PORT, "graph.planner"), "rtt_floor_ms",
+                        lambda: calls.append(1) or 1.0)
+    g, rows = slo_graph(PORT, tmp_path, n=400)
+    quiet_run(g)
+    assert len(rows.results) == 400
+    assert g.explain()["Attribution"]["Traces"] > 0 and calls == []
+
+    plane = g.diagnosis
+    t0 = time.perf_counter() - 10.0  # long settled
+    for _ in range(2):
+        ctx = mod(PORT, "telemetry.trace").TraceContext("src", t0)
+        ctx.hop("pipe0/win.0@device", t0 + 0.001, t0 + 0.003)
+        g.stats.trace_records.append((ctx, t0 + 0.004))
+    plane._drain_traces()
+    assert calls == [1]
+    last = plane.attribution._rows[-1]["classes"]
+    assert last["device_transport"] == pytest.approx(1.0)
+    assert last["device_compute"] == pytest.approx(1.0)
+
+
 def _metrics(pkg):
     render_openmetrics = mod(pkg, "telemetry").render_openmetrics
     apps = {1: {"active": True, "report": {

@@ -13,6 +13,8 @@ packages, so it is not compared.
 """
 import importlib
 import threading
+import time
+import warnings
 
 import numpy as np
 
@@ -61,16 +63,19 @@ def cpu_config(pkg, **kw):
     return cfg
 
 
-def record_source(pkg, n):
-    """The diagnosis and SLO tests' record source: key = i % 4, id =
-    i // 4, ts = i, value = float(i)."""
+def record_source(pkg, n, pace_s=0.0, endless=False):
+    """The diagnosis, SLO, serving and scheduler tests' record source:
+    key = i % 4, id = i // 4, ts = i, value = float(i); one record every
+    ``pace_s`` when given, without end when ``endless``."""
     BasicRecord = mod(pkg, "core").BasicRecord
     state = {}
 
     def fn(shipper, ctx):
         i = state.setdefault("i", 0)
-        if i >= n:
+        if not endless and i >= n:
             return False
+        if pace_s:
+            time.sleep(pace_s)
         shipper.push(BasicRecord(i % 4, i // 4, i, float(i)))
         state["i"] = i + 1
         return True
@@ -484,3 +489,83 @@ def assert_ledger_exact(graph, healed=False):
         assert cons["Sources_emitted"] >= rhs, cons
     else:
         assert cons["Sources_emitted"] == rhs, cons
+
+
+# ---------------------------------------------------------------------------
+# the serving plane and the global scheduler (test_torch_serving.py,
+# test_torch_scheduler.py)
+# ---------------------------------------------------------------------------
+
+SERVE_WAIT_S = 120
+
+
+def quiet_cfg(pkg, tmp_path, **kw):
+    """The reference serving tests' tenant config: logs under the test's
+    directory, the elastic controller off; the port's on the CPU."""
+    kw.setdefault("log_dir", str(tmp_path / pkg))
+    kw.setdefault("elasticity", mod(pkg, "elastic").ElasticityConfig(
+        enabled=False))
+    return cpu_config(pkg, **kw)
+
+
+def open_server(pkg, **kw):
+    """``Server(**kw)`` of package ``pkg`` (capacity 2^16 and no arbiter
+    unless given)."""
+    kw.setdefault("capacity", 1 << 16)
+    kw.setdefault("arbiter", False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return mod(pkg, "serving").Server(**kw)
+
+
+def close_server(srv):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        srv.close()
+
+
+def burner_source(pkg, stop_evt):
+    """The noisy neighbour's record source: as fast as it can, until
+    ``stop_evt``."""
+    BasicRecord = mod(pkg, "core").BasicRecord
+    state = {}
+
+    def fn(shipper, ctx):
+        if stop_evt.is_set():
+            return False
+        i = state.setdefault("i", 0)
+        shipper.push(BasicRecord(i % 64, i, i, 1.0))
+        state["i"] = i + 1
+        return True
+
+    return fn
+
+
+def burn_10ms(t):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 0.01:
+        pass
+    return None
+
+
+def wait_for(pred, what, timeout=SERVE_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.2)
+    raise AssertionError(f"{what} within {timeout} s")
+
+
+def recovered_after_a_decision(srv, victim):
+    """True once the arbiter has decided and the victim's SLO recovered
+    after its first ``arbitration`` event: an episode that closes
+    before the arbiter's ``breach_ticks`` elapse is not the one under
+    test, and the starved victim breaches again."""
+    if not srv.arbiter.decisions:
+        return False
+    evs = victim.graph.flight.snapshot()
+    first = next((e["seq"] for e in evs if e["kind"] == "arbitration"),
+                 None)
+    return first is not None and any(
+        e["kind"] == "slo_recovered" and e["seq"] > first for e in evs)

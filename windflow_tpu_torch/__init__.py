@@ -104,6 +104,14 @@ _LAZY = {
     "RIGHT": "windflow_tpu_torch.eventtime",
     "StreamQuery": "windflow_tpu_torch.eventtime",
     "query": "windflow_tpu_torch.eventtime",
+    # multi-tenant serving plane (serving/; docs/SERVING.md)
+    "Server": "windflow_tpu_torch.serving",
+    "TenantSpec": "windflow_tpu_torch.serving",
+    "TenantHandle": "windflow_tpu_torch.serving",
+    "TenantState": "windflow_tpu_torch.serving",
+    "AdmissionError": "windflow_tpu_torch.serving",
+    "ArbiterConfig": "windflow_tpu_torch.serving",
+    "CrossTenantArbiter": "windflow_tpu_torch.serving",
     # resident FFAT lane (operators/tpu/ffat_resident.py)
     "WinSeqFFATResident": "windflow_tpu_torch.operators.tpu.ffat_resident",
 }
@@ -120,9 +128,6 @@ _LAZY.update({name: "windflow_tpu_torch.builders.builders_tpu" for name in (
 
 # names of the reference umbrella that later slices port, by ROADMAP item
 _NOT_YET = {
-    "serving": (
-        "Server", "TenantSpec", "TenantHandle", "TenantState",
-        "AdmissionError", "ArbiterConfig", "CrossTenantArbiter"),
     "mesh": ("KeyFarmMesh", "PaneFarmMesh", "WinMapReduceMesh",
              "make_mesh", "make_multihost_mesh"),
 }

@@ -7,7 +7,6 @@ partial or silent substitute.
 from __future__ import annotations
 
 ROADMAP_ITEMS = {
-    "serving": "ROADMAP.md A10h (serving and the global scheduler)",
     "mesh": "ROADMAP.md A11 (mesh plane)",
 }
 

@@ -33,7 +33,8 @@ from collections import deque
 from typing import Dict, Optional
 
 from .anomaly import RegressionMonitor
-from .attribution import AttributionAccumulator, trace_breakdown
+from .attribution import (DEVICE_HOP_SUFFIX, AttributionAccumulator,
+                          trace_breakdown)
 from .bottleneck import find_bottlenecks
 from .history import GaugeHistory
 from .topology import operator_edges
@@ -138,15 +139,20 @@ class DiagnosisPlane:
             if key in self._seen:
                 continue
             fresh.append((key, ctx, t_end))
+        recs = [(key, ctx.to_dict(t_end)) for key, ctx, t_end in fresh]
         rtt = None
-        if fresh:
+        if any(str(hop[0]).endswith(DEVICE_HOP_SUFFIX)
+               for _key, rec in recs for hop in rec.get("hops") or []
+               if hop):
+            # only a device hop reads the floor: a graph with no device
+            # lane never probes (nor opens) the card
             rtt = self._rtt_floor_ms()
-        for key, ctx, t_end in fresh:
+        for key, rec in recs:
             if len(self._seen_order) == self._seen_order.maxlen:
                 self._seen.discard(self._seen_order[0])
             self._seen.add(key)
             self._seen_order.append(key)
-            self.attribution.add(trace_breakdown(ctx.to_dict(t_end), rtt))
+            self.attribution.add(trace_breakdown(rec, rtt))
 
     def _operator_rows(self):
         """Minimal stats-JSON-shaped operator rows straight from the

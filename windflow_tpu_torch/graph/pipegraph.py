@@ -11,7 +11,6 @@ import threading
 import time as _time
 from typing import List, Optional, Sequence
 
-from .._unported import unported
 from ..core.basic import Mode, RuntimeConfig
 from ..operators.base import Operator
 from ..resilience.cancel import CancelToken
@@ -22,18 +21,6 @@ from ..resilience.policies import DeadLetterStore
 from ..runtime.emitters import SplittingEmitter
 from ..runtime.node import RtNode
 from .multipipe import MultiPipe
-
-
-# RuntimeConfig fields that turn on planes this port does not carry yet
-_UNPORTED_PLANES = (
-    ("sched_lease", "the global-scheduler plane", "serving"),
-)
-
-
-def _refuse_unported_planes(cfg: RuntimeConfig) -> None:
-    for attr, what, item in _UNPORTED_PLANES:
-        if getattr(cfg, attr, None):
-            raise unported(f"RuntimeConfig.{attr} ({what})", item)
 
 
 class _AppNode:
@@ -259,7 +246,6 @@ class PipeGraph:
                 raise RuntimeError(
                     f"MultiPipe {p.name} has no sink; terminate every "
                     "branch before run()")
-        _refuse_unported_planes(self.config)
         self._started = True
         if self.config.tracing:
             from ..monitoring.monitor import MonitoringThread

@@ -343,6 +343,26 @@ def plan_graph(graph) -> List[dict]:
     seen: set = set()
     replica_ids: dict = {}  # per-operator-name counter for stats keys
 
+    # tenant-aware device placement (scheduler/devices.py): under a
+    # device-scheduling Server, every lane resolved to the device --
+    # after its bind to the graph's device -- acquires a lease on the
+    # card from the worker's registry, recorded on the device the lane
+    # is bound to.  Leases are grant-and-record (the graph still runs),
+    # but the grant's contention bit is annotated into the decision and
+    # the arbiter reads the registry to demote a low-priority co-lessee
+    # when a higher-priority tenant breaches on the contended card.  A
+    # lane resolved to the host holds no lease.
+    dev_leases = getattr(graph, "device_leases", None)
+    lease_tenant = getattr(graph, "tenant_name", None) or graph.name
+    lease_prio = getattr(graph, "tenant_priority", 0)
+
+    def _lease(entry: dict, name: str, resident: bool) -> None:
+        if dev_leases is None or entry["placement"] != "device":
+            return
+        entry["lease"] = dev_leases.acquire(
+            lease_tenant, name, priority=lease_prio, resident=resident,
+            chip=entry.get("device"))
+
     for node in graph._all_nodes():
         if isinstance(node.logic, FusedLogic):
             pairs = [(seg.name, seg.logic, seg) for seg in
@@ -376,10 +396,12 @@ def plan_graph(graph) -> List[dict]:
                 replica_ids[name] = rid + 1
                 if holder.stats is None:
                     holder.stats = graph.stats.register(name, str(rid))
-                decisions.append({"placement": "device",
-                                  "reason": "resident ffat: device only",
-                                  "resident": True, "operator": name,
-                                  "device": str(logic.device)})
+                entry = {"placement": "device",
+                         "reason": "resident ffat: device only",
+                         "resident": True, "operator": name,
+                         "device": str(logic.device)}
+                _lease(entry, name, resident=True)
+                decisions.append(entry)
                 continue
             if not isinstance(logic, WinSeqTPULogic):
                 continue
@@ -420,6 +442,15 @@ def plan_graph(graph) -> List[dict]:
             if holder.stats is None:
                 holder.stats = graph.stats.register(name, str(rid))
             entry["operator"] = name
+            # the lease's Resident bit marks NON-demotable lanes: a
+            # custom/FFAT combine has no host program, so the arbiter
+            # must never pick it for a device->host demotion.  A
+            # promoted-resident window engine stays demotable -- its
+            # device state is derivable from the host staging store
+            # and replace_lane drops it losslessly.
+            _lease(entry, name,
+                   resident=not isinstance(
+                       getattr(logic.engine, "kind", None), str))
             decisions.append(entry)
             placed.append((name, logic, entry))
     graph.placements = decisions

@@ -26,6 +26,10 @@ class DashboardServer(threading.Thread):
     def __init__(self, host: str = "127.0.0.1", port: int = 20207):
         super().__init__(name="windflow-dashboard", daemon=True)
         self.server = socket.create_server((host, port))
+        # the accept timeout is set here, before the thread starts: a
+        # server stopped right after start() closes the socket, and a
+        # settimeout in run() would then fail on the closed descriptor
+        self.server.settimeout(0.5)
         self.port = self.server.getsockname()[1]
         self.lock = threading.Lock()
         self.apps: Dict[int, dict] = {}
@@ -83,7 +87,6 @@ class DashboardServer(threading.Thread):
                         self.apps[app_id]["active"] = False
 
     def run(self) -> None:
-        self.server.settimeout(0.5)
         while not self._stop_evt.is_set():
             try:
                 conn, _ = self.server.accept()
@@ -97,7 +100,8 @@ class DashboardServer(threading.Thread):
     def stop(self) -> None:
         self._stop_evt.set()
         self.server.close()
-        self.join(timeout=2)
+        if self.ident is not None:  # never started: nothing to join
+            self.join(timeout=2)
 
     def snapshot(self) -> dict:
         with self.lock:

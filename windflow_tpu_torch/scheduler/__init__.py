@@ -1,26 +1,45 @@
 """Global scheduler: the fleet-level control plane.
 
-Ported so far: :mod:`errors` -- ``SchedulerError``, the structured
-failure the distributed wiring raises when it refuses an elastic
-operator across workers.  Placement, the fair-share and device leases,
-``FleetServer`` and its worker processes wait for ROADMAP.md A10h;
-their names raise an ``AttributeError`` that says so.
+Promotes the serving plane's single-process ``Server`` to a cluster
+scheduler:
+
+* :mod:`policy`  -- pure tenant->worker placement (bin-pack by credit
+  reservation + declared device demand, priority-weighted);
+* :mod:`leases`  -- weighted fair-share executor leases gating the
+  consume loops of co-resident tenants (``Sched_wait_s``);
+* :mod:`devices` -- per-worker leases on the CUDA card that the planner
+  takes for every lane it resolves to the device, and the arbiter reads
+  to demote a low-priority neighbour on a contended card;
+* :mod:`fleet`   -- ``FleetServer``: spawns worker processes, places
+  tenants via the policy against the live ``ClusterObserver`` view,
+  re-places victims when a worker dies;
+* :mod:`worker`  -- the worker-process entry point hosting a
+  fair-share ``Server``
+  (``python -m windflow_tpu_torch.scheduler.worker``);
+* :mod:`errors`  -- ``SchedulerError``, the structured refusal.
 """
 from .errors import SchedulerError
+from .policy import (Placement, PlacementRequest, WorkerCaps,
+                     plan_placement, request_for)
+from .leases import FairShareLease, FairShareRegistry
+from .devices import DeviceLeaseRegistry
 
-__all__ = ["SchedulerError"]
-
-# the reference package's other scheduler names, ported with the
-# serving plane
-_NOT_YET = ("Placement", "PlacementRequest", "WorkerCaps",
-            "plan_placement", "request_for", "FairShareLease",
-            "FairShareRegistry", "DeviceLeaseRegistry", "FleetServer")
+__all__ = [
+    "SchedulerError",
+    "Placement", "PlacementRequest", "WorkerCaps",
+    "plan_placement", "request_for",
+    "FairShareLease", "FairShareRegistry",
+    "DeviceLeaseRegistry",
+    "FleetServer",
+]
 
 
 def __getattr__(name):
-    if name in _NOT_YET:
-        from .._unported import unported
-        raise AttributeError(str(unported(
-            f"windflow_tpu_torch.scheduler.{name}", "serving")))
+    # FleetServer pulls in serving + distributed; keep the import lazy
+    # so `from windflow_tpu_torch.scheduler import plan_placement`
+    # stays cheap.
+    if name == "FleetServer":
+        from .fleet import FleetServer
+        return FleetServer
     raise AttributeError(
         f"module {__name__!r} has no attribute {name!r}")
