@@ -98,7 +98,7 @@ every phase passed):
    parallelism=2) at 32M events, coalesced into one engine (the
    default) and as two replicas behind the key hash.
    farms -- WinFarmTPU(parallelism=2) at 8M events and WinMapReduceTPU
-   (MAP on the card, two stripes; REDUCE on the host) at 2^16 events
+   (MAP on the card, two stripes; REDUCE on the host) at 2^15 events
    of the same law as records (its map emitter routes records, not
    batches).
    custom -- KeyFarmTPU over a torch custom window function (the sum of
@@ -136,7 +136,7 @@ every phase passed):
    bitwise equal, equal to the oracle, launches checked as in main15.
    key_ffat -- KeyFFATTPUBuilder with the same combine at parallelism 2,
    coalesce=False (two replicas, one library), on config 15's stream
-   cut 32x (250,000 events), held as main15 logaddexp.
+   cut 64x (125,000 events), held as main15 logaddexp.
 8. flatfat -- FlatFATTorch, the single tree a user builds, updates and
    queries (the one path left that launches the query-only K2): built
    over 2^17 leaves, queried, updated, queried, exact against float64
@@ -294,13 +294,38 @@ every phase passed):
    equal to its engines' batches, a CUDA context where its device lane
    ran, no jax in any worker.
 
+16. mesh -- the mesh plane (windflow_tpu_torch/parallel/, the mesh
+   operators) on logical shards of the card, every kernel count set to 0
+   just before a cell and read just after.
+   mesh kf4 -- KeyFarmMesh("sum") on make_mesh(8, win_axis=1) (8 key
+   shards on cuda:0) over bench config 4's feed and window at its 32M
+   events as TupleBatches, 1,024 windows a launch: every window equal
+   to the oracle exactly and to [main4 coalesced]'s, one K1 launch a
+   batch for all 8 shards, no other kernel; K1 at the mesh launch
+   against its plain version and the float64 sums, its device time.
+   mesh kf kinds -- the same graph under max and under ('ffat', lift,
+   torch.logaddexp, -inf) at 32M events: one K2r launch a batch (the
+   generated library's for logaddexp), max exact, logaddexp within rtol
+   1e-5 of the float64 oracle; K2r at the mesh launch against its plain
+   version (bitwise, or within 64 ulp), its device time.
+   mesh pf3 -- PaneFarmMesh("sum") on win_axis 2 at config 3's window
+   and on the full 8-ring at slide 512 (4 hops), 32M events each: every
+   window once and exact; the ring is a torch program.
+   mesh wmr -- WinMapReduceMesh("sum") on win_axis 4 at 8M events:
+   exact; a torch program.
+   mesh step -- ShardedWindowEngine.step on the dry run's mesh (8 slots,
+   win_axis 2) at config 4's window and the KF cell's widths: equal to
+   numpy exactly.  The torch forms' (compute_wmr, compute_pf_ring, step)
+   device time a call, device ops a call and bound at their cells'
+   shapes.
+
 Then one JSON line describing each kernel (the window-sum kernel's
 launches: the headline's, phase 5b's, the models', phase 11's,
-phase 13's, phase 14's and phase 15's; the
+phase 13's, phase 14's, phase 15's and phase 16's; the
 three FlatFAT kernels twice: builtin, and compiled with torch.logaddexp,
 each with the launches of its own paths, the fused update+query
-kernel's including phase 12's), the card line, and
-``{"ok": true, "device": {...}}``.
+kernel's including phase 12's, the build+query kernel's phase 16's),
+the card line, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -745,12 +770,17 @@ def find_logic(graph, cls=None):
     return found[0]
 
 
-def run_main(n_events: int, device: str, make_op=None, records=False):
+def run_main(n_events: int, device: str, make_op=None, records=False,
+             materialize=False, closing=None):
     """The headline's stream through the headline's operator, or through
     ``make_op()``: SynthChunks of SOURCE_BATCH events, stamped as they
-    leave the source -- the chunks SyntheticSource(chunked=True) emits
-    -- or, with ``records``, their records, pushed one by one by a
-    record source (65,536 a stamp), for operators on the record plane."""
+    leave the source -- the chunks SyntheticSource(chunked=True) emits;
+    with ``materialize``, their TupleBatches (SyntheticSource(
+    chunked=False)'s), for operators that take batches, not chunks --
+    or, with ``records``, their records, pushed one by one by a record
+    source (65,536 a stamp), for operators on the record plane.
+    ``closing`` as LatencySink takes it (default: the headline's
+    window)."""
     import windflow_tpu_torch as wf
     from windflow_tpu_torch.core.tuples import BasicRecord, SynthChunk
     from windflow_tpu_torch.operators.basic_ops import Sink, Source
@@ -767,8 +797,8 @@ def run_main(n_events: int, device: str, make_op=None, records=False):
             return None
         state["i"] = i + chunk
         stamps.append(time.perf_counter())
-        return SynthChunk(i, min(chunk, n_events - i), N_KEYS, VMOD, 1.0,
-                          0.0)
+        c = SynthChunk(i, min(chunk, n_events - i), N_KEYS, VMOD, 1.0, 0.0)
+        return c.materialize() if materialize else c
 
     def record_source(shipper):
         c = next_chunk()
@@ -780,7 +810,7 @@ def run_main(n_events: int, device: str, make_op=None, records=False):
             shipper.push(BasicRecord(k, t, t, v))
         return True
 
-    sink = LatencySink(stamps, chunk)
+    sink = LatencySink(stamps, chunk, closing)
     g = wf.PipeGraph("chip_smoke", wf.Mode.DEFAULT,
                      config=wf.RuntimeConfig(device=device))
     op = make_op() if make_op is not None else WinSeqTPU(
@@ -864,15 +894,20 @@ def profile_summary(prof, secs: float, n_top: int) -> str:
 # bench.py runs configs 3 and 4 at 32M events (bench.py:2434-2437)
 N34 = 32_000_000
 # [farms]: WinFarmTPU on 8M events of the headline stream; WinMapReduceTPU
-# on 2^16 (its map emitter routes records, not batches: the record plane
+# on 2^15 (its map emitter routes records, not batches: the record plane
 # runs at 1-2e4 tuples/s, so more would outlast the rest of the script)
 N_FARM = 8_000_000
-N_WMR = 1 << 16
+N_WMR = 1 << 15
 N_CUSTOM = 1_000_000
 RECORD_CHUNK = 65_536
 # f32 sums of squares of values < 97 over 4096-tick windows reach 3.8e7,
 # past f32's exact integers: held to the float64 oracle within rtol
 RTOL_SQUARES = RTOL_F32
+
+
+# each farm cell's windows as check_windows returned them ([mesh kf4]
+# holds its windows to config 4's)
+FARM_WINDOWS: dict = {}
 
 
 def sum_of_squares(gwid, cols, mask):
@@ -940,8 +975,10 @@ def run_farm(cell: str, n_events: int, card: str, device="cuda"):
     kernel = (None if custom else
               "flatfat_update_query" if resident else "window_sum")
     launches = check_launches(cell, logics, counts, kernel)
-    windows = len(check_windows(sink, oracle(n_events, 2 if custom else 1),
-                                cell, RTOL_SQUARES if custom else 0.0)[0])
+    FARM_WINDOWS[cell] = check_windows(
+        sink, oracle(n_events, 2 if custom else 1), cell,
+        RTOL_SQUARES if custom else 0.0)
+    windows = len(FARM_WINDOWS[cell][0])
     p50, p99 = (float(np.percentile(sink.lats, q)) * 1e3 for q in (50, 99))
     batches = sum(lg.launched_batches for lg in logics)
     log(f"[{cell}] {n_events} events in {secs:.3f} s = "
@@ -2168,9 +2205,9 @@ def main15_user(card: str) -> dict:
 
 
 # KeyFFATTPUBuilder at parallelism 2 as two replicas: a cut of config
-# 15's stream (1/32 of its events: the two replicas ran 1M events at
-# 89k tuples/s on the H100, 11 s), so the cell adds seconds to the script
-N15_KEYFFAT = N15 // 32
+# 15's stream (1/64 of its events: the two replicas ran 1M events at 89k
+# tuples/s on the H100, 11 s), so the cell adds seconds to the script
+N15_KEYFFAT = N15 // 64
 # [profile15]'s events
 N15_PROFILE = N15 // 4
 
@@ -2207,7 +2244,7 @@ def key_ffat_user(card: str) -> int:
     hold_to_oracle_rtol(got, oracle15_lse(N15_KEYFFAT, SLIDE15), tag,
                         RTOL_F32)
     log(f"[{tag}] KeyFFATTPUBuilder parallelism 2, coalesce=False, "
-        f"{N15_KEYFFAT} events (config 15's stream cut 32x): {secs:.3f} s = "
+        f"{N15_KEYFFAT} events (config 15's stream cut 64x): {secs:.3f} s = "
         f"{N15_KEYFFAT / secs:.1f} tuples/s; {len(got[0])} windows held as "
         f"[main15 {PATH_COMBINE}]; two replicas, one library; {launches} "
         f"generated build+query launches = batches of both replicas "
@@ -5392,6 +5429,517 @@ def main_serving(card: str) -> int:
     return k1
 
 
+# ---------------------------------------------------------------------------
+# 16. mesh: the mesh plane on logical shards of the card
+# ---------------------------------------------------------------------------
+
+# [mesh kf4]: bench config 4's feed and window (bench.py:530-551: 64 keys,
+# TB 4096 / 2048, value e % 97, source batches of 2^20 as TupleBatches)
+# at its 32M events through KeyFarmMesh on 8 logical key shards
+N_MESH = N34
+MESH_BATCH_WINDOWS = 1024
+# the other cells' depth: config 4's, the striped WMR's cut for the
+# script's time (PERF.md §4)
+N_MESH_KINDS = N34
+N_MESH_PF = N34
+N_MESH_WMR = N34 // 4
+# config 3's window has 2 panes of 2048, so its ring is one hop at any
+# epoch size; the 8-ring cell slides by 512 (8 panes a window, 2 panes a
+# shard at 16 panes an epoch): 4 hops
+PF_RING_SLIDE = 512
+PF_RING_EPOCH = 16
+# [mesh step]: the dry run's mesh (__graft_entry__.py:55-60, 8 devices,
+# win_axis 2) at config 4's window and the KF cell's widths
+STEP_T, STEP_STRIPE_B, STEP_PANES = 1 << 19, 16, 8
+# the mesh cells' device (the CPU only to rehearse the phase)
+MESH_DEVICE = "cuda"
+
+
+def record_calls(engine, name: str, into: dict) -> None:
+    """Keep the arguments of ``engine``'s last ``name`` call: the launch
+    shape the cell gave it."""
+    fn = getattr(engine, name)
+
+    def wrapped(*args):
+        into[name] = args
+        return fn(*args)
+
+    setattr(engine, name, wrapped)
+
+
+def mesh_oracle(n_events: int, win: int, slide: int, kind: str = "sum"):
+    """(keys, ids, values) of every window of the headline's law (key k,
+    ts t, value (t*64 + k) % 97) under TB windows ``win`` / ``slide``
+    folded by ``kind`` ('sum', 'max', 'logaddexp'), float64, partial
+    tail windows flushed at EOS: blocks of gcd(win, slide) ticks folded,
+    then each window's blocks."""
+    M = n_events // N_KEYS
+    pane = int(np.gcd(win, slide))
+    wpp, spp = win // pane, slide // pane
+    n_blocks = -(-M // pane)
+    n_win = (M - 1) // slide + 1
+    # block n_blocks is the neutral: windows past the stream's end
+    idx = np.minimum(np.arange(n_win)[:, None] * spp + np.arange(wpp),
+                     n_blocks)
+    t = np.arange(n_blocks * pane)
+    neutral = 0.0 if kind == "sum" else -np.inf
+    vals = []
+    with np.errstate(invalid="ignore"):
+        for k in range(N_KEYS):
+            v = ((t * N_KEYS + k) % VMOD).astype(np.float64)
+            v[M:] = neutral
+            b = v.reshape(n_blocks, pane)
+            if kind == "sum":
+                blocks = b.sum(1)
+            elif kind == "max":
+                blocks = b.max(1)
+            else:
+                m = b.max(1)
+                blocks = m + np.log(np.exp(b - m[:, None]).sum(1))
+            w = np.append(blocks, neutral)[idx]
+            vals.append(w.sum(1) if kind == "sum" else w.max(1)
+                        if kind == "max" else np.logaddexp.reduce(w, 1))
+    return (np.repeat(np.arange(N_KEYS), n_win),
+            np.tile(np.arange(n_win), N_KEYS), np.concatenate(vals))
+
+
+def queued_ms(fn, reps: int = 50) -> float:
+    """Device ms a call from CUDA events around ``reps`` calls queued
+    behind a sleep kernel, so the card never waits for the host between
+    them (each call's device time and the gap between launches)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def kernel_timed(fn):
+    """timed(fn), with the device time from queued_ms where
+    torch.profiler saw no device time (it missed K2r in a run of phase
+    16 alone, and a sparse mv and compute_wmr in a run of the whole
+    script)."""
+    t = timed(fn)
+    return t if t[0] is not None else (queued_ms(fn), t[1])
+
+
+def flat_extents(starts, ends, stride: int):
+    """[S, B] per-shard extents as one flat pair into the [S, stride]
+    buffer laid end to end (compute_kf's one-launch layout)."""
+    off = np.arange(starts.shape[0], dtype=np.int64)[:, None] * stride
+    return ((starts + off).reshape(-1), (ends + off).reshape(-1))
+
+
+def mesh_cell(tag: str, make_op, n: int, cls, closing=None):
+    """One mesh graph on the card through PipeGraph -> source (the
+    headline law as TupleBatches, stamped) -> mesh operator -> Sink,
+    every kernel count set to 0 just before and read just after.
+    Returns (logic, counts, user counts, sink, seconds)."""
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    reset_counts()
+    g, sink, secs = run_main(n, MESH_DEVICE, make_op, materialize=True,
+                             closing=closing)
+    counts, users = read_counts(), dict(fq.user_launch_counts())
+    logic = find_logic(g, cls)
+    if logic.engine.device.type != MESH_DEVICE:
+        raise AssertionError(f"[{tag}] engine on {logic.engine.device}")
+    return logic, counts, users, sink, secs
+
+
+def mesh_line(tag: str, n: int, secs: float, sink, logic) -> str:
+    p50, p99 = (float(np.percentile(sink.lats, q)) * 1e3 for q in (50, 99))
+    return (f"[{tag}] {n} events in {secs:.3f} s = {n / secs:.1f} "
+            f"tuples/s; window latency p50 {p50:.3f} ms, p99 {p99:.3f} ms; "
+            f"{logic.launched_batches} batches")
+
+
+
+def k1_at_mesh_shape(tag: str, args, card: str) -> str:
+    """K1 at the cell's last launch (every shard's row laid end to end):
+    exact against the float64 sums on the launch's own values, and on
+    integer values drawn so that every prefix stays below 2^24 (as phase
+    3 draws them) exact against its plain version too; device time, the
+    bound, the plain version's and a sparse CSR mv's."""
+    from windflow_tpu_torch.ops.cuda import window_sum as ws
+    values, starts, ends = args
+    S, T = values.shape
+    s, e = flat_extents(starts, ends, T)
+    dev = torch.device(MESH_DEVICE)
+    se = pack(s, e, dev)
+    hint = int((e - s).max())
+    v = torch.from_numpy(np.ascontiguousarray(values.reshape(-1))).to(dev)
+    ints = np.random.default_rng(16).integers(
+        0, max(2, (1 << 24) // (S * T)), S * T).astype(np.float32)
+    vi = torch.from_numpy(ints).to(dev)
+    for name, x, host in (("launch", v, values.reshape(-1)),
+                          ("bounded", vi, ints)):
+        k = ws.window_sums(x, se, hint).cpu().numpy()
+        ref = float64_sums(host, s, e)
+        if not np.array_equal(k, ref):
+            raise AssertionError(f"[{tag}] K1 at the mesh shape ({name} "
+                                 f"values) not exact: err "
+                                 f"{np.abs(k - ref).max()}")
+    p = ws.window_sums_plain(vi, se).cpu().numpy()
+    if not np.array_equal(p, ref):
+        raise AssertionError(f"[{tag}] K1's plain version at the mesh shape "
+                             f"not exact: err {np.abs(p - ref).max()}")
+    t_k = kernel_timed(lambda: ws.window_sums(v, se, hint))
+    t_p = timed(lambda: ws.window_sums_plain(v, se), reps=20)
+    csr = csr_of(S * T, s, e, dev)
+    t_l = kernel_timed(lambda: torch.mv(csr, v))
+    bms, by = bound_ms(*work_of(S * T, s, e))
+    del csr
+    return (f"K1 at the mesh launch (S={S} x T_pad={T}, {len(s)} "
+            f"extents, widest {hint}, {ws.form_for(hint)} form) exact on "
+            f"the launch's values and, with its plain version, on bounded "
+            f"integers; device ms per launch (wall): {fmt(t_k)}, plain "
+            f"{fmt(t_p)}, sparse mv {fmt(t_l)}, bound {bms:.4g} ms ({by}) "
+            f"({card})")
+
+
+def k2r_at_mesh_shape(tag: str, args, comb, neutral: float, opc: int,
+                      transcendental: bool, card: str) -> str:
+    """K2r at the cell's last launch (one tree over every shard's row)
+    against its plain version (bitwise, or within ULP_BOUND for a
+    transcendental combine); device time, the bound, the plain
+    version's; no library call folds under max or logaddexp."""
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    from windflow_tpu_torch.ops.cuda.window_sum import next_pow2
+    values, starts, ends = args
+    S, T = values.shape
+    stride = next_pow2(T)
+    n = max(fq.BUILD_QUERY_MIN_LEAVES, next_pow2(S) * stride)
+    leaves = np.full(n, neutral, np.float32)
+    leaves[: S * stride].reshape(S, stride)[:, :T] = values
+    s, e = flat_extents(starts, ends, stride)
+    dev = torch.device(MESH_DEVICE)
+    lv = torch.from_numpy(leaves).to(dev)
+    se = pack(s, e, dev)
+    k = fq.flatfat_build_query(lv, se, comb, neutral).cpu().numpy()
+    p = fq.flatfat_build_query_plain(lv, se, comb, neutral).cpu().numpy()
+    bitwise, ulps = hold_user(k, p, transcendental, f"{tag} K2r")
+    t_k = kernel_timed(lambda: fq.flatfat_build_query(lv, se, comb,
+                                                      neutral))
+    t_p = timed(lambda: fq.flatfat_build_query_plain(lv, se, comb, neutral),
+                reps=10)
+    bms, by = bound_ms(4 * n + 12 * len(s),
+                       (n - 1 + walk_nodes(n, None, s, e)[1]) * opc)
+    return (f"K2r at the mesh launch (S={S} x T_pad={T} in a tree of {n} "
+            f"leaves, {len(s)} extents) "
+            f"{'bitwise' if bitwise else f'{ulps} ulp from'} its plain "
+            f"version; device ms per launch (wall): {fmt(t_k)}, plain "
+            f"{fmt(t_p)}, bound {bms:.4g} ms ({by}), no library call "
+            f"({card})")
+
+
+def torch_form_reading(fn, nbytes: int, ops: int, reps: int = 20) -> dict:
+    """A torch form's device ms a call (torch.profiler; queued_ms where
+    it saw no device time), the device ops (kernels and copies) a call
+    launches and the costliest of them, from the same profiler run (none
+    where it saw none), and its bound."""
+    profs: list = []
+    t = timed(fn, reps=reps, profile_out=profs)
+    if t[0] is None:
+        t = (queued_ms(fn), t[1])
+    rows = sorted(((getattr(e, "self_device_time_total", 0), e.count, e.key)
+                   for e in profs[0].key_averages()), reverse=True)
+    rows = [r for r in rows if r[0] > 0]
+    bms, by = bound_ms(nbytes, ops)
+    return {"t": t, "launches": sum(r[1] for r in rows) / reps,
+            "top": "; ".join(f"{k[:40]} {us / reps:.2f} us"
+                             for us, _n, k in rows[:3]),
+            "bound_ms": bms, "bound_by": by}
+
+
+def form_text(name: str, r: dict) -> str:
+    return (f"{name} {fmt(r['t'])} device ms a call (wall), "
+            f"{r['launches']:g} device ops a call (costliest: {r['top']}), "
+            f"bound {r['bound_ms']:.4g} ms ({r['bound_by']})")
+
+
+def mesh_kf4(card: str) -> int:
+    """[mesh kf4]: KeyFarmMesh("sum") on 8 logical key shards of the card
+    at config 4's size: every window equal to the float64 oracle exactly
+    and to [main4 coalesced]'s (KeyFarmTPU on the same feed), K1's
+    launches equal to the batches, no other kernel."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.operators.tpu.mesh_farm import (
+        KeyFarmMesh, KeyFarmMeshLogic)
+    from windflow_tpu_torch.parallel.mesh import make_mesh
+    rec: dict = {}
+
+    def make():
+        op = KeyFarmMesh(make_mesh(8, win_axis=1, device=MESH_DEVICE), WIN,
+                         SLIDE, wf.WinType.TB,
+                         batch_windows=MESH_BATCH_WINDOWS)
+        record_calls(op.engine, "compute_kf", rec)
+        return op
+
+    logic, counts, _u, sink, secs = mesh_cell("mesh kf4", make, N_MESH,
+                                              KeyFarmMeshLogic)
+    launches = check_launches("mesh kf4", logic, counts, "window_sum")
+    got = check_windows(sink, oracle(N_MESH), "mesh kf4")
+    farm = FARM_WINDOWS.get("main4 coalesced")
+    if farm is not None and not all(np.array_equal(a, b)
+                                    for a, b in zip(got, farm)):
+        raise AssertionError("[mesh kf4] windows differ from KeyFarmTPU's")
+    k1 = k1_at_mesh_shape("mesh kf4", rec["compute_kf"], card)
+    log(f"{mesh_line('mesh kf4', N_MESH, secs, sink, logic)}, {launches} "
+        f"K1 launches, other kernels 0; {len(got[0])} windows equal to the "
+        f"oracle exactly"
+        + (" and to [main4 coalesced]'s (KeyFarmTPU)" if farm is not None
+           else "") + f"; {k1}")
+    return launches
+
+
+def mesh_kinds(card: str) -> tuple:
+    """[mesh kf kinds]: the KF graph under max and under an FFAT spec
+    ('ffat', lift, torch.logaddexp, -inf): K2r's launches equal the
+    batches (logaddexp's all from its generated library); max exact,
+    logaddexp within rtol 1e-5 of the float64 oracle, K2r at the mesh
+    shape within ULP_BOUND of its plain version.  Returns K2r's builtin
+    and user-combine launches."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.operators.tpu.mesh_farm import (
+        KeyFarmMesh, KeyFarmMeshLogic)
+    from windflow_tpu_torch.parallel.mesh import make_mesh
+    lse, lse_neutral, lse_ops, _t = user_combines()[PATH_COMBINE]
+    out = {}
+    for label, spec, comb, neutral, opc, trans in (
+            ("max", "max", torch.maximum, -np.inf, 1, False),
+            (PATH_COMBINE, ("ffat", lambda v: v, lse, lse_neutral), lse,
+             lse_neutral, lse_ops, True)):
+        tag = f"mesh kf {label}"
+        rec: dict = {}
+
+        def make(spec=spec, rec=rec):
+            op = KeyFarmMesh(make_mesh(8, win_axis=1, device=MESH_DEVICE),
+                             WIN, SLIDE, wf.WinType.TB,
+                             batch_windows=MESH_BATCH_WINDOWS, kind=spec)
+            record_calls(op.engine, "compute_kf", rec)
+            return op
+
+        logic, counts, users, sink, secs = mesh_cell(tag, make, N_MESH_KINDS,
+                                                     KeyFarmMeshLogic)
+        if trans:
+            out["user"] = check_user_launches(tag, logic, counts, users,
+                                              "flatfat_build_query")
+            want = mesh_oracle(N_MESH_KINDS, WIN, SLIDE, "logaddexp")
+            got = check_windows(sink, want, tag, rtol=RTOL_F32)
+            held = (f"within rtol {RTOL_F32} of the float64 oracle "
+                    f"({ulp_distance(got[2], want[2])} ulp at most)")
+        else:
+            out["builtin"] = check_launches(tag, logic, counts,
+                                            "flatfat_build_query")
+            got = check_windows(sink, mesh_oracle(N_MESH_KINDS, WIN, SLIDE,
+                                                  "max"), tag)
+            held = "equal to the oracle exactly"
+        k2r = k2r_at_mesh_shape(tag, rec["compute_kf"], comb, neutral, opc,
+                                trans, card)
+        log(f"{mesh_line(tag, N_MESH_KINDS, secs, sink, logic)}, "
+            f"{logic.launched_batches} K2r launches, other kernels 0; "
+            f"{len(got[0])} windows {held}; {k2r}")
+    return out["builtin"], out["user"]
+
+
+def mesh_pf3(card: str) -> dict:
+    """[mesh pf3]: PaneFarmMesh("sum") on make_mesh(8, win_axis=2) at
+    config 3's window and on a full 8-ring (win_axis=8) whose windows
+    span 4 hops: every window once, exact against the oracle, no hand
+    kernel (the ring is a torch program).  Returns the ring's launch
+    arguments of the 8-ring cell."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.operators.tpu.pane_mesh import (
+        PaneFarmMesh, PaneFarmMeshLogic)
+    from windflow_tpu_torch.parallel.mesh import make_mesh
+    rec: dict = {}
+    for win_axis, slide, epoch in ((2, SLIDE, 64),
+                                   (8, PF_RING_SLIDE, PF_RING_EPOCH)):
+        tag = f"mesh pf3 win_axis={win_axis}"
+        calls: dict = {}
+
+        def make(win_axis=win_axis, slide=slide, epoch=epoch, calls=calls):
+            op = PaneFarmMesh(make_mesh(8, win_axis=win_axis,
+                                        device=MESH_DEVICE), WIN, slide,
+                              wf.WinType.TB, panes_per_epoch=epoch)
+            record_calls(op.engine, "compute_pf_ring", calls)
+            calls["engine"] = op.engine
+            return op
+
+        logic, counts, _u, sink, secs = mesh_cell(
+            tag, make, N_MESH_PF, PaneFarmMeshLogic,
+            closing=lambda ids, keys, s=slide: (ids * s + WIN - 1) * N_KEYS
+            + keys)
+        check_launches(tag, logic, counts, None)
+        got = check_windows(sink, mesh_oracle(N_MESH_PF, WIN, slide), tag)
+        pane_vals, pane_len = calls["compute_pf_ring"]
+        eng = calls["engine"]
+        wpp = max(1, eng.win_len // pane_len)
+        p_loc = pane_vals.shape[1] // win_axis
+        hops = min(win_axis - 1, -(-(wpp - 1) // p_loc))
+        log(f"{mesh_line(tag, N_MESH_PF, secs, sink, logic)} (ring "
+            f"launches), no hand kernel; {len(got[0])} windows once each, "
+            f"equal to the oracle exactly; window {WIN} / slide {slide}: "
+            f"{wpp} panes a window, {p_loc} a shard, {hops} hop(s); last "
+            f"launch {pane_vals.shape[0]} rows x {pane_vals.shape[1]} panes "
+            f"({card})")
+        rec[win_axis] = calls
+    return rec
+
+
+def mesh_wmr(card: str) -> dict:
+    """[mesh wmr]: WinMapReduceMesh("sum") on make_mesh(8, win_axis=4):
+    exact against the oracle, no hand kernel (the stripes' folds and
+    their combine over 'win' are a torch program)."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.operators.tpu.wmr_mesh import (
+        WinMapReduceMesh, WinMapReduceMeshLogic)
+    from windflow_tpu_torch.parallel.mesh import make_mesh
+    calls: dict = {}
+
+    def make():
+        op = WinMapReduceMesh(make_mesh(8, win_axis=4, device=MESH_DEVICE),
+                              WIN, SLIDE, wf.WinType.TB,
+                              batch_windows=MESH_BATCH_WINDOWS)
+        record_calls(op.engine, "compute_wmr", calls)
+        calls["engine"] = op.engine
+        return op
+
+    logic, counts, _u, sink, secs = mesh_cell("mesh wmr", make, N_MESH_WMR,
+                                              WinMapReduceMeshLogic)
+    check_launches("mesh wmr", logic, counts, None)
+    got = check_windows(sink, oracle(N_MESH_WMR), "mesh wmr")
+    stripes = calls["compute_wmr"][0]
+    log(f"{mesh_line('mesh wmr', N_MESH_WMR, secs, sink, logic)}, no hand "
+        f"kernel; {len(got[0])} windows equal to the oracle exactly; last "
+        f"launch stripes {list(stripes.shape)} ({card})")
+    return calls
+
+
+def mesh_step(card: str):
+    """[mesh step]: ShardedWindowEngine.step on the dry run's mesh (8
+    slots, win_axis 2) at config 4's window and the KF cell's widths, on
+    integer data (every prefix below 2^24): KF, WMR and PF outputs equal
+    numpy's float64 exactly; no hand kernel.  Returns the engine and its
+    device inputs."""
+    from windflow_tpu_torch.parallel.mesh import make_mesh
+    from windflow_tpu_torch.parallel.sharded import ShardedWindowEngine
+    eng = ShardedWindowEngine(make_mesh(8, win_axis=2, device=MESH_DEVICE),
+                              WIN, SLIDE)
+    K, W = eng.n_key_shards, eng.n_win_shards
+    rows = N_KEYS
+    rng = np.random.default_rng(16)
+    values = rng.integers(0, 32, (K, STEP_T)).astype(np.float32)
+    B = (STEP_T - WIN) // SLIDE + 1
+    starts = np.tile(np.arange(B, dtype=np.int32) * SLIDE, (K, 1))
+    ends = starts + np.int32(WIN)
+    stripes = rng.integers(0, VMOD, (rows, W, STEP_STRIPE_B, WIN // W)
+                           ).astype(np.float32)
+    panes = rng.integers(0, VMOD, (rows, W, STEP_PANES, SLIDE)
+                         ).astype(np.float32)
+    dev = torch.device(MESH_DEVICE)
+    args = tuple(torch.from_numpy(a).to(dev)
+                 for a in (values, starts, ends, stripes, panes))
+    reset_counts()
+    kf, wmr, pf = (t.cpu().numpy() for t in eng.step(*args))
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[mesh step] kernels {counts} on a torch "
+                             f"program")
+    c = np.concatenate([np.zeros((K, 1)), np.cumsum(values, 1,
+                                                    dtype=np.float64)], 1)
+    want_kf = np.take_along_axis(c, ends, 1) - np.take_along_axis(c, starts,
+                                                                  1)
+    partials = panes.astype(np.float64).sum(-1).reshape(rows, -1)
+    wpp, spp = WIN // SLIDE, 1
+    n_win = (partials.shape[1] - wpp) // spp + 1
+    want_pf = np.stack([partials[:, w * spp: w * spp + wpp].sum(1)
+                        for w in range(n_win)], 1)
+    for name, g_, w_ in (("kf", kf, want_kf),
+                         ("wmr", wmr[:, 0, :],
+                          stripes.astype(np.float64).sum((1, 3))),
+                         ("pf", pf, want_pf)):
+        if not np.array_equal(g_, w_):
+            raise AssertionError(f"[mesh step] {name} differs from numpy "
+                                 f"(err {np.abs(g_ - w_).max()})")
+    log(f"[mesh step] mesh {eng.mesh.shape}, KF [{K}, {STEP_T}] x {B} "
+        f"windows, stripes {list(stripes.shape)}, panes "
+        f"{list(panes.shape)}: KF, WMR and PF equal to numpy exactly; no "
+        f"hand kernel ({card})")
+    return eng, args
+
+
+def mesh_forms(card: str, wmr_calls: dict, pf_calls: dict, step) -> dict:
+    """The mesh plane's torch forms at their cells' shapes: device ms a
+    call, device ops a call, bound (inputs read and outputs written once;
+    one f32 op an element folded)."""
+    dev = torch.device(MESH_DEVICE)
+    eng = wmr_calls["engine"]
+    stripes = torch.from_numpy(wmr_calls["compute_wmr"][0]).to(dev)
+    R, W, B, L = stripes.shape
+    forms = {"compute_wmr": torch_form_reading(
+        lambda: eng.compute_wmr(stripes), 4 * (R * W * B * L + R * B),
+        R * W * B * L)}
+    ring = pf_calls["engine"]
+    pane_vals, pane_len = pf_calls["compute_pf_ring"]
+    pv = torch.from_numpy(pane_vals).to(dev)
+    K, P, pl = pv.shape
+    wpp = max(1, ring.win_len // pane_len)
+    spp = max(1, ring.slide_len // pane_len)
+    n_out = P // spp
+    forms["compute_pf_ring"] = torch_form_reading(
+        lambda: ring.compute_pf_ring(pv, pane_len),
+        4 * (K * P * pl + K * n_out), K * P * pl + K * n_out * wpp)
+    seng, args = step
+    v, s, e, st, pn = args
+    Ks, T = v.shape
+    Bs = s.shape[1]
+    Rr, Wr, B2, L2 = st.shape
+    P2, pl2 = pn.shape[2], pn.shape[3]
+    n_win = (Wr * P2 - WIN // SLIDE) + 1
+    forms["step"] = torch_form_reading(
+        lambda: seng.step(*args),
+        4 * (Ks * T + 3 * Ks * Bs + Rr * Wr * B2 * L2 + Rr * B2
+             + Rr * Wr * P2 * pl2 + Rr * n_win),
+        Ks * T + Rr * Wr * B2 * L2 + Rr * Wr * P2 * pl2
+        + Rr * n_win * (WIN // SLIDE))
+    log(f"[mesh forms] torch programs on the card at their cells' shapes: "
+        f"{form_text('compute_wmr', forms['compute_wmr'])} (stripes "
+        f"[{R}, {W}, {B}, {L}]); "
+        f"{form_text('compute_pf_ring', forms['compute_pf_ring'])} ("
+        f"[{K}, {P}, {pl}], 8-ring); {form_text('step', forms['step'])} "
+        f"({card})")
+    return forms
+
+
+def main_mesh(card: str) -> dict:
+    """Phase 16's cells; returns the kernels' launches: K1 (window_sum),
+    K2r builtin (max) and K2r under the user combine (logaddexp)."""
+    walls = {}
+
+    def cell(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    k1 = cell("kf4", mesh_kf4, card)
+    k2r, k2r_user = cell("kinds", mesh_kinds, card)
+    pf = cell("pf3", mesh_pf3, card)
+    wmr = cell("wmr", mesh_wmr, card)
+    step = cell("step", mesh_step, card)
+    cell("forms", mesh_forms, card, wmr, pf[8], step)
+    log(f"[mesh] seconds a cell, checks and readings included: {walls}")
+    return {"window_sum": k1, "flatfat_build_query": k2r, "user": k2r_user}
+
+
 def kernel_entry(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -5514,6 +6062,17 @@ def main() -> int:
     t15 = time.perf_counter()
     launches += main_serving(card)
     log(f"[smoke] serving done in {time.perf_counter() - t15:.1f} s")
+
+    # the mesh plane: KeyFarmMesh at config 4's size on 8 logical key
+    # shards of the card (K1), under max and logaddexp (K2r), the pane
+    # farm's ring, the striped WMR and the fused step; each cell with
+    # every kernel count set to 0 just before it and read just after
+    t16 = time.perf_counter()
+    mesh = main_mesh(card)
+    launches += mesh["window_sum"]
+    launches15["flatfat_build_query"] += mesh["flatfat_build_query"]
+    user15["flatfat_build_query"] += mesh["user"]
+    log(f"[smoke] mesh done in {time.perf_counter() - t16:.1f} s")
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
     src = "windflow_tpu_torch/ops/cuda/flatfat_query.cu"

@@ -954,3 +954,79 @@ def test_two_k1_tenants_contend_for_the_card_under_leases(tmp_path):
                                     for lg in engines) > 0
     for name in rows:
         assert sorted(rows[name]) == sorted(want), name
+
+
+# ---------------------------------------------------------------------------
+# the mesh plane: logical shards on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["sum", "mean", "max", "min", "logaddexp"])
+def test_mesh_compute_kf_launches_one_kernel_a_call(kind):
+    """compute_kf on CUDA tensors never takes a plain path: one K1
+    launch a call for sums and means, one K2r launch for max/min/FFAT
+    folds, for all 8 shards; the windows equal the CPU engine's (K2r
+    bitwise for max/min, logaddexp and sums within rtol 1e-5)."""
+    from windflow_tpu_torch.parallel.mesh import make_mesh
+    from windflow_tpu_torch.parallel.sharded import ShardedWindowEngine
+    rng = np.random.default_rng(61)
+    S, T, B = 8, 1 << 12, 300
+    values = rng.normal(size=(S, T)).astype(np.float32)
+    starts = rng.integers(0, T - 512, (S, B)).astype(np.int32)
+    ends = (starts + rng.integers(0, 513, (S, B))).astype(np.int32)
+    spec = (("ffat", None, torch.logaddexp, -np.inf)
+            if kind == "logaddexp" else kind)
+    eng = ShardedWindowEngine(make_mesh(S, device="cuda"), 64, 32, spec)
+    assert eng.device.type == "cuda"
+    ws.reset_launch_count()
+    fq.reset_build_query_launch_count()
+    got = eng.compute_kf(values, starts, ends)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    tree = kind not in ("sum", "mean")
+    assert (ws.launch_count(), fq.build_query_launch_count()) == \
+        ((0, 1) if tree else (1, 0))
+    want = ShardedWindowEngine(make_mesh(S, device="cpu"), 64, 32,
+                               spec).compute_kf(values, starts, ends)
+    if kind in ("max", "min"):
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_key_farm_mesh_on_the_card_launches_k1_per_batch():
+    """KeyFarmMesh("sum") on 8 logical shards of the card: the windows
+    equal the same graph on the CPU mesh, and K1's launches equal the
+    logic's batches (no other kernel)."""
+    from windflow_tpu_torch.operators.tpu.mesh_farm import (
+        KeyFarmMesh, KeyFarmMeshLogic)
+    from windflow_tpu_torch.parallel.mesh import make_mesh
+
+    def run(device):
+        rows = []
+        idx = [np.arange(i, i + 4096) for i in range(0, 1 << 17, 4096)]
+        batches = [TupleBatch({"key": e % 16, "id": e // 16, "ts": e // 16,
+                               "value": (e % 97).astype(np.float64)})
+                   for e in idx]
+        it = iter(batches)
+        g = wf.PipeGraph("mesh", wf.Mode.DEFAULT)
+        g.add_source(BatchSource(lambda ctx: next(it, None))).add(
+            KeyFarmMesh(make_mesh(8, device=device), 256, 128,
+                        wf.WinType.TB, batch_windows=64)).add_sink(
+            Sink(lambda b: b is not None and rows.extend(zip(
+                b.key.tolist(), b.id.tolist(), b["value"].tolist()))))
+        g.run()
+        logic = next(lg for n in g._all_nodes()
+                     for lg in ([sg.logic for sg in n.logic.segments]
+                                if isinstance(n.logic, FusedLogic)
+                                else [n.logic])
+                     if isinstance(lg, KeyFarmMeshLogic))
+        return rows, logic
+
+    ws.reset_launch_count()
+    fq.reset_build_query_launch_count()
+    got, logic = run("cuda")
+    assert ws.launch_count() == logic.launched_batches > 0
+    assert fq.build_query_launch_count() == 0
+    want, _ = run("cpu")
+    assert got == want

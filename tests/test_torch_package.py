@@ -7,6 +7,7 @@ import ast
 import os
 import pathlib
 import threading
+import types
 
 import pytest
 
@@ -55,6 +56,43 @@ def test_guard_walks_the_distributed_plane_and_the_scheduler():
         assert f"windflow_tpu_torch/scheduler/{name}.py" in walked
 
 
+def test_guard_walks_the_mesh_plane():
+    walked = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for path in ("parallel/__init__", "parallel/mesh", "parallel/sharded",
+                 "operators/tpu/mesh_farm", "operators/tpu/pane_mesh",
+                 "operators/tpu/wmr_mesh"):
+        assert f"windflow_tpu_torch/{path}.py" in walked
+
+
+def test_umbrella_exports_every_name_of_the_reference():
+    """Every name the reference umbrella exports (eagerly, or lazily
+    through its ``__getattr__`` tables) resolves in the port's: nothing
+    is left unported."""
+    import windflow_tpu
+    import windflow_tpu_torch as wf
+    tree = ast.parse((REPO / "windflow_tpu" / "__init__.py").read_text())
+    getattr_fn = next(n for n in tree.body
+                      if isinstance(n, ast.FunctionDef)
+                      and n.name == "__getattr__")
+    lazy = set()
+    for node in ast.walk(getattr_fn):
+        if isinstance(node, ast.Dict):
+            lazy |= {k.value for k in node.keys
+                     if isinstance(k, ast.Constant)}
+        elif isinstance(node, ast.Tuple):
+            lazy |= {e.value for e in node.elts
+                     if isinstance(e, ast.Constant)
+                     and isinstance(e.value, str)}
+    assert {"KeyFarmMesh", "make_mesh", "KeyFFATTPUBuilder"} <= lazy
+    # the names it binds itself (not its submodules, which appear as
+    # attributes only once something imports them)
+    eager = {n for n in dir(windflow_tpu) if not n.startswith("_")
+             and n != "annotations" and not isinstance(
+                 getattr(windflow_tpu, n), types.ModuleType)}
+    missing = [n for n in sorted(eager | lazy) if not hasattr(wf, n)]
+    assert not missing, missing
+
+
 def test_guard_walks_the_serving_plane():
     walked = {str(p.relative_to(REPO)) for p in _port_sources()}
     for name in ("tenant", "arbiter", "server", "__init__"):
@@ -96,10 +134,15 @@ def test_umbrella_exports_ported_names_and_names_the_rest():
         "windflow_tpu_torch.scheduler.fleet"
     assert sched.DeviceLeaseRegistry.__module__ == \
         "windflow_tpu_torch.scheduler.devices"
-    from windflow_tpu_torch._unported import ROADMAP_ITEMS
-    assert list(ROADMAP_ITEMS) == ["mesh"]
-    with pytest.raises(AttributeError, match="ROADMAP.md A11"):
-        wf.KeyFarmMesh
+    # the mesh plane is ported (parallel/, the mesh operators): no name
+    # of the reference umbrella is left to raise on
+    for name, module in (("KeyFarmMesh", "operators.tpu.mesh_farm"),
+                         ("PaneFarmMesh", "operators.tpu.pane_mesh"),
+                         ("WinMapReduceMesh", "operators.tpu.wmr_mesh"),
+                         ("make_mesh", "parallel.mesh"),
+                         ("make_multihost_mesh", "parallel.mesh")):
+        assert getattr(wf, name).__module__ == \
+            f"windflow_tpu_torch.{module}"
     # the distributed runtime plane is ported (distributed/)
     assert wf.merge_stats.__module__ == \
         "windflow_tpu_torch.distributed.observe"

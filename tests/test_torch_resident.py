@@ -657,16 +657,22 @@ def test_ffat_rebuild_lane_matches_reference_and_oracle(op_name, name):
 
 
 def test_unported_farms_raise_naming_the_roadmap_item():
-    """The device farms are ported (tests/test_torch_farms.py); the mesh
-    farms, the one farm family left, name their ROADMAP item."""
+    """Every farm family is ported: the device farms
+    (tests/test_torch_farms.py) and the mesh farms, which the umbrella
+    resolves to the port's mesh operator modules (tests/test_torch_mesh*)."""
     import windflow_tpu_torch as wf
     farms = _mod("windflow_tpu_torch", "operators.tpu.farms_tpu")
     for name in ("KeyFarmTPU", "WinFarmTPU", "PaneFarmTPU",
                  "WinMapReduceTPU"):
         assert getattr(farms, name).__module__ == farms.__name__
-    for name in ("KeyFarmMesh", "PaneFarmMesh", "WinMapReduceMesh"):
-        with pytest.raises(AttributeError, match="ROADMAP.md A11"):
-            getattr(wf, name)
+    for name, module in (("KeyFarmMesh", "mesh_farm"),
+                         ("PaneFarmMesh", "pane_mesh"),
+                         ("WinMapReduceMesh", "wmr_mesh")):
+        cls = getattr(wf, name)
+        assert cls.__module__ == \
+            f"windflow_tpu_torch.operators.tpu.{module}"
+        assert cls is getattr(_mod("windflow_tpu_torch",
+                                   f"operators.tpu.{module}"), name)
 
 
 def test_ffat_strategy_builds_the_ffat_operator():

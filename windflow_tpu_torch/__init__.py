@@ -6,10 +6,10 @@ hand-written Hopper kernel (``ops/cuda/window_sum.cu``), FlatFAT range
 queries (the FFAT kinds, the resident FFAT forest and the resident pane
 lane) another (``ops/cuda/flatfat_query.cu``), and the engine's other
 programs (max/min, custom window functions) are torch code on CUDA
-tensors.  The port goes slice by slice (ROADMAP.md queue A); this
-umbrella exports the names the ported slices provide, and a name of the
-reference package that is not ported yet raises an ``AttributeError``
-naming its ROADMAP item.
+tensors.  The mesh plane (``parallel/``, the mesh operators) runs a
+('key', 'win') mesh of logical shards on one card, and across processes
+through ``torch.distributed``.  This umbrella exports the reference
+package's names, imported lazily.
 
     import windflow_tpu_torch as wf
     g = wf.PipeGraph("app", wf.Mode.DEFAULT)
@@ -23,7 +23,6 @@ naming its ROADMAP item.
 A device window function is a builtin name or a torch callable
 ``fn(gwid, cols, mask) -> 0-d tensor``, vmapped over the windows.
 """
-from ._unported import ROADMAP_ITEMS
 from .core import (Mode, WinType, OptLevel, RoutingMode, Pattern, WinEvent,
                    OrderingMode, Role, WinOperatorConfig, RuntimeConfig,
                    DurabilityConfig, ElasticSpec, BasicRecord, TupleBatch,
@@ -114,6 +113,12 @@ _LAZY = {
     "CrossTenantArbiter": "windflow_tpu_torch.serving",
     # resident FFAT lane (operators/tpu/ffat_resident.py)
     "WinSeqFFATResident": "windflow_tpu_torch.operators.tpu.ffat_resident",
+    # mesh-scale operators + mesh construction (the mesh plane)
+    "KeyFarmMesh": "windflow_tpu_torch.operators.tpu.mesh_farm",
+    "PaneFarmMesh": "windflow_tpu_torch.operators.tpu.pane_mesh",
+    "WinMapReduceMesh": "windflow_tpu_torch.operators.tpu.wmr_mesh",
+    "make_mesh": "windflow_tpu_torch.parallel.mesh",
+    "make_multihost_mesh": "windflow_tpu_torch.parallel.mesh",
 }
 # the fluent builders (builders/): host operators, then device operators
 _LAZY.update({name: "windflow_tpu_torch.builders.builders" for name in (
@@ -126,21 +131,10 @@ _LAZY.update({name: "windflow_tpu_torch.builders.builders_tpu" for name in (
     "PaneFarmTPUBuilder", "WinMapReduceTPUBuilder",
     "WinSeqFFATTPUBuilder", "KeyFFATTPUBuilder")})
 
-# names of the reference umbrella that later slices port, by ROADMAP item
-_NOT_YET = {
-    "mesh": ("KeyFarmMesh", "PaneFarmMesh", "WinMapReduceMesh",
-             "make_mesh", "make_multihost_mesh"),
-}
-
 
 def __getattr__(name):
     from importlib import import_module
     if name in _LAZY:
         return getattr(import_module(_LAZY[name]), name)
-    for item, names in _NOT_YET.items():
-        if name in names:
-            raise AttributeError(
-                f"windflow_tpu_torch.{name} is not ported yet: "
-                f"{ROADMAP_ITEMS[item]}")
     raise AttributeError(f"module 'windflow_tpu_torch' has no attribute "
                          f"{name!r}")

@@ -109,7 +109,8 @@ def config_pane_farm_tpu(graph, n_events=1_000_000, n_keys=32,
 def config_key_farm_tpu(graph, n_events=1_000_000, n_keys=64,
                         win=4096, slide=2048, batch=4096, parallelism=4):
     """Config #4 (single-host form): key-sharded device windows (the
-    across-chips form is the mesh plane, ROADMAP.md A11)."""
+    across-shards form is the mesh plane's
+    ``operators/tpu/mesh_farm.KeyFarmMesh``)."""
     from ..operators.basic_ops import Sink
     from ..operators.batch_ops import BatchSource
     from ..operators.tpu.farms_tpu import KeyFarmTPU

@@ -108,8 +108,8 @@ class KeyFarmTPU(_TPUWinOp):
     therefore lowers to ONE engine handling every key per launch (the
     engine batches many keys natively; the double-buffer protocol of
     win_seq_gpu.hpp:267-297 rides one launch stream).  Key-partitioned
-    scale-out across chips is the mesh plane's job
-    (operators/tpu/mesh_farm.KeyFarmMesh).  ``coalesce=False`` keeps
+    scale-out across shards is the mesh plane's job
+    (``operators/tpu/mesh_farm.KeyFarmMesh``).  ``coalesce=False`` keeps
     the literal N-replica farm (the reference's per-GPU structure)."""
 
     def __init__(self, win_kind, win_len, slide_len, win_type,

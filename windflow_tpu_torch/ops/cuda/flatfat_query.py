@@ -51,7 +51,7 @@ into a scratch array of this call, answers every window of the packed
 int32 extents ``se [2, B]`` and returns f32 ``[B]``, 0 for a window with
 ``end <= start``.  It replaces the reference's jitted ``_ffat_program``
 / ``_ffat_pallas_program`` (windflow_tpu/ops/window_compute.py:224,
-:282).  The kernel on a CUDA tensor (or ``unported``),
+:282).  The kernel on a CUDA tensor,
 :func:`flatfat_build_query_plain` (:func:`build_tree`, the plain query,
 the reference's ``where``) on a CPU tensor, its own count in
 ``build_query_launch_count()``.
