@@ -318,14 +318,58 @@ every phase passed):
    numpy exactly.  The torch forms' (compute_wmr, compute_pf_ring, step)
    device time a call, device ops a call and bound at their cells'
    shapes.
+17. feed -- the feed and placement plane (windflow_tpu_torch/ingest/,
+   graph/planner.py, graph/device_step.py, graph/replanner.py), every
+   kernel count set to 0 just before a cell and read just after, every
+   engine on cuda:0 but on the lanes that are host by design.
+   feed2b -- bench config 2b (bench.py:2330-2337): the headline graph
+   at 16M events, source batch 2^17, launch delay 5 ms: exact, K1 =
+   batches; tuples/s, p50/p99.
+   feed2f -- config 2f (:2343-2346): the headline's 64M events as
+   materialised TupleBatches: exact, K1 = batches.
+   ingest2g, ingest2h -- configs 2g and 2h (:291-322, :2352-2377): a
+   16M-event replay trace of random f32 values through
+   SourceBuilder.from_replay (microbatch 2^19, credits 2^21, a 50 ms
+   latency target for the AIMD controller, pane pre-reduction) at
+   LEVEL0 and LEVEL2: within rtol 1e-5 of the float64 oracle, nothing
+   shed, K1 = batches; vs_feed, fused_delta, the controller's final
+   batch and the credit waits.
+   planner2j -- config 2j (:407-460, :2390-2434): 64M events through
+   FeedSource(feeders=2) into WinSeqTPU(placement=p,
+   adaptive_batch=True) for p in auto, device, host: within rtol 1e-5
+   on every lane, K1 = Device_launches on a lane on the card, none on
+   the host lane; the planner's decision and inputs, the three rates,
+   auto_not_worse (read, not asserted), device_time_ms, the final batch
+   and its resizes.
+   step19 -- config 19 (:1936-2010) at 2M events (a quarter of the
+   bench's): WinSeqTPU("sum", 1024, 16, CB, batch_len 16, value_of), 8
+   keys, source batch 8192, the device step off and on interleaved,
+   three reps: bitwise equal and exact every rep, the lane's kernel
+   (the fused update+query kernel: the planner promotes the lane onto
+   the resident pane lane) = batches = Device_launches, at most 2
+   launches an ingest chunk with the step on; best-of-3 rates, p50/p99.
+   profile19 -- each config-19 lane once more at 500k events under
+   torch.profiler: idle share, launches, device time a launch, and the
+   host's seconds in the source, the engine's ingest, the step's flush,
+   the hand-off to the dispatcher, the launch, the D2H wait and the sink.
+   replan15 -- config 15_replan_shift (:1835-1933), last: the cost
+   model pinned (RTT floor 0.001 ms, host 20M tuples/s, device compute
+   0) and restored after, a paced stream of 1,500-event batches every
+   4 ms into WinSeqTPU("sum", 1024, 32, CB, batch_len 64, placement
+   auto) with the re-planner on: the lane starts on cuda:0 and is
+   flipped device -> host (a replacement flight event), no
+   conservation_violation, every window once and equal to the integer
+   oracle across the flip, the lane's kernel launched as often as the
+   batches up to the flip; the flip's evidence and duration.
 
 Then one JSON line describing each kernel (the window-sum kernel's
 launches: the headline's, phase 5b's, the models', phase 11's,
-phase 13's, phase 14's, phase 15's and phase 16's; the
+phase 13's, phase 14's, phase 15's, phase 16's and phase 17's; the
 three FlatFAT kernels twice: builtin, and compiled with torch.logaddexp,
 each with the launches of its own paths, the fused update+query
-kernel's including phase 12's, the build+query kernel's phase 16's),
-the card line, and ``{"ok": true, "device": {...}}``.
+kernel's including phase 12's and phase 17's config 19 and
+15_replan_shift, the build+query kernel's phase 16's), the card line,
+and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -741,9 +785,13 @@ class LatencySink:
             self.keys.append(keys)
             self.ids.append(ids)
             self.vals.append(vals)
-            chunk = np.minimum(self.closing(ids, keys) // self.chunk,
-                               len(self.stamps) - 1)
-            self.lats.extend((now - np.asarray(self.stamps)[chunk]).tolist())
+            self.lats.extend((now - self.births(self.closing(ids, keys)))
+                             .tolist())
+
+    def births(self, closing: np.ndarray) -> np.ndarray:
+        """Emit stamps of the chunks holding events ``closing``."""
+        chunk = np.minimum(closing // self.chunk, len(self.stamps) - 1)
+        return np.asarray(self.stamps)[chunk]
 
 
 def device_logics(graph, cls=None):
@@ -771,9 +819,9 @@ def find_logic(graph, cls=None):
 
 
 def run_main(n_events: int, device: str, make_op=None, records=False,
-             materialize=False, closing=None):
+             materialize=False, closing=None, source_batch=SOURCE_BATCH):
     """The headline's stream through the headline's operator, or through
-    ``make_op()``: SynthChunks of SOURCE_BATCH events, stamped as they
+    ``make_op()``: SynthChunks of ``source_batch`` events, stamped as they
     leave the source -- the chunks SyntheticSource(chunked=True) emits;
     with ``materialize``, their TupleBatches (SyntheticSource(
     chunked=False)'s), for operators that take batches, not chunks --
@@ -789,7 +837,7 @@ def run_main(n_events: int, device: str, make_op=None, records=False,
 
     stamps: list = []
     state = {"i": 0}
-    chunk = RECORD_CHUNK if records else SOURCE_BATCH
+    chunk = RECORD_CHUNK if records else source_batch
 
     def next_chunk():
         i = state["i"]
@@ -2948,13 +2996,15 @@ class WindowSink:
         return keys[order], ids[order], vals[order]
 
 
-def config11_op():
-    """bench.py:1307-1310: the headline feed's engine."""
+def config11_op(**kw):
+    """bench.py:1307-1310: the headline feed's engine (``kw``: more
+    WinSeqTPU arguments)."""
     import windflow_tpu_torch as wf
     from windflow_tpu_torch.operators.tpu.win_seq_tpu import WinSeqTPU
     return WinSeqTPU("sum", WIN, SLIDE, wf.WinType.TB,
                      batch_len=DEVICE_BATCH, emit_batches=True,
-                     max_buffer_elems=MAX_BUFFER, inflight_depth=INFLIGHT)
+                     max_buffer_elems=MAX_BUFFER, inflight_depth=INFLIGHT,
+                     **kw)
 
 
 def durable_config(path, interval_s, plan=None, **kw):
@@ -5553,11 +5603,15 @@ def mesh_cell(tag: str, make_op, n: int, cls, closing=None):
     return logic, counts, users, sink, secs
 
 
-def mesh_line(tag: str, n: int, secs: float, sink, logic) -> str:
+def feed_line(tag: str, n: int, secs: float, sink) -> str:
     p50, p99 = (float(np.percentile(sink.lats, q)) * 1e3 for q in (50, 99))
     return (f"[{tag}] {n} events in {secs:.3f} s = {n / secs:.1f} "
-            f"tuples/s; window latency p50 {p50:.3f} ms, p99 {p99:.3f} ms; "
-            f"{logic.launched_batches} batches")
+            f"tuples/s; window latency p50 {p50:.3f} ms, p99 {p99:.3f} ms")
+
+
+def mesh_line(tag: str, n: int, secs: float, sink, logic) -> str:
+    return (f"{feed_line(tag, n, secs, sink)}; {logic.launched_batches} "
+            f"batches")
 
 
 
@@ -5940,6 +5994,663 @@ def main_mesh(card: str) -> dict:
     return {"window_sum": k1, "flatfat_build_query": k2r, "user": k2r_user}
 
 
+# ---------------------------------------------------------------------------
+# 17. feed: the feed and placement plane (bench configs 2b, 2f, 2g, 2h,
+#     2j, 19 and 15_replan_shift)
+# ---------------------------------------------------------------------------
+
+# bench.py:2330-2337: config 2b, the headline graph at 16M events with
+# source batches of 2^17 and a 5 ms launch delay
+N2B = N_EVENTS // 4
+SOURCE2B = SOURCE_BATCH // 8
+DELAY2B_MS = 5.0
+# bench.py:2343-2346: config 2f, the headline's events as TupleBatches
+N2F = N_EVENTS
+# bench.py:291-322, :2352-2377: configs 2g (LEVEL0) and 2h (LEVEL2), a
+# replay trace of random f32 values through the ingest plane
+N2G = N_EVENTS // 4
+INGEST_MICROBATCH = 1 << 19
+INGEST_CREDITS = 1 << 21
+INGEST_LATENCY_MS = 50.0
+# bench.py:407-460, :2390-2434: config 2j, two feeders through the planner
+N2J = N_EVENTS
+FEEDERS2J = 2
+# bench.py:1936-2010, :2585-2594: config 19, the device step on/off, at
+# a quarter of the bench's N_EVENTS // 8: its step-off lane runs about
+# 170k tuples/s on the card, 53 s a run at 8M events (PERF.md §4)
+N19 = N_EVENTS // 32
+WIN19, SLIDE19, KEYS19, SOURCE19, BATCH19 = 1024, 16, 8, 8192, 16
+REPS19 = 3
+# [profile19]'s depth: a quarter of the cell's, for a readable trace
+N19_PROFILE = N19 // 4
+# bench.py:1835-1933: config 15_replan_shift
+REPLAN_PINS = {"WINDFLOW_RTT_FLOOR_MS": "0.001",
+               "WINDFLOW_HOST_RATE_TPS": "20000000",
+               "WINDFLOW_DEVICE_COMPUTE_MS": "0"}
+N15R, SOURCE15R, PACE15R_S, TAIL15R = 1_200_000, 1500, 0.004, 25
+WIN15R, SLIDE15R, KEYS15R, BATCH15R = 1024, 32, 4, 64
+# the feed cells' device (the CPU only to rehearse the phase)
+FEED_DEVICE = "cuda"
+
+
+def feed_card() -> str:
+    """The device name a feed cell's engine must be bound to."""
+    return "cuda:0" if FEED_DEVICE == "cuda" else FEED_DEVICE
+
+
+def feed_engine(tag: str, g, host: bool = False):
+    """The graph's one window engine: on ``feed_card()``, or on the host
+    lane where the cell is host by design."""
+    logic = find_logic(g)
+    if host:
+        if logic.resolved_placement != "host":
+            raise AssertionError(f"[{tag}] engine on "
+                                 f"{logic.resolved_placement}, not host")
+    elif str(logic.device) != feed_card():
+        raise AssertionError(f"[{tag}] engine device {logic.device}")
+    return logic
+
+
+def periodic_oracle(period: np.ndarray, M: int, win: int, slide: int):
+    """(keys, ids, sums) of every window of the series ``period[k, t % P]``
+    (t < M, float64) under windows ``win`` / ``slide`` over t, partial
+    tail windows flushed at EOS, sorted by key then id."""
+    K, P = period.shape
+    partial = np.concatenate([np.zeros((K, 1)), np.cumsum(period, 1)], 1)
+
+    def prefix(n):
+        return (n // P) * partial[:, -1:] + partial[:, n % P]
+
+    n_win = (M - 1) // slide + 1
+    a = np.arange(n_win) * slide
+    sums = prefix(np.minimum(a + win, M)) - prefix(a)
+    return (np.repeat(np.arange(K), n_win), np.tile(np.arange(n_win), K),
+            sums.reshape(-1))
+
+
+def law_period(n_keys: int, vmod: int) -> np.ndarray:
+    """[keys, vmod] period of the law value(event t*keys + k) = e % vmod."""
+    t = np.arange(vmod)
+    return ((t[None, :] * n_keys + np.arange(n_keys)[:, None])
+            % vmod).astype(np.float64)
+
+
+def feed_cell(tag: str, n: int, card: str, **kw):
+    """Configs 2b and 2f: the headline graph, every kernel count set to 0
+    just before and read just after; every window equal to the oracle
+    exactly, K1's launches equal to the batches.  Returns (K1 launches,
+    tuples/s)."""
+    reset_counts()
+    g, sink, secs = run_main(n, FEED_DEVICE, **kw)
+    counts = read_counts()
+    logic = feed_engine(tag, g)
+    launches = check_launches(tag, logic, counts, "window_sum")
+    got = check_windows(sink, oracle(n), tag)
+    log(f"{feed_line(tag, n, secs, sink)}; {len(got[0])} windows equal to "
+        f"the oracle exactly; {launches} K1 launches = batches, native "
+        f"lane {logic._native is not None} ({card})")
+    return launches, n / secs
+
+
+class IngestLatencySink(LatencySink):
+    """bench.py's _IngestLatencySink: birth = the replay source's stamp of
+    the ship that carried the window's closing tuple (its cumulative raw
+    tuples emitted)."""
+
+    def __init__(self, stamps_fn):
+        super().__init__([])
+        self.stamps_fn = stamps_fn  # the source's logic exists once wired
+
+    def births(self, closing: np.ndarray) -> np.ndarray:
+        stamps = self.stamps_fn()
+        cums = np.asarray([s[0] for s in stamps])
+        ts = np.asarray([s[1] for s in stamps])
+        return ts[np.minimum(np.searchsorted(cums, closing, side="right"),
+                             len(cums) - 1)]
+
+
+def ingest_trace(n: int):
+    """bench.py:307-312: key e % 64, id = ts = e // 64, random f32 values
+    (default_rng(0))."""
+    from windflow_tpu_torch.core.tuples import TupleBatch
+    arange = np.arange(n, dtype=np.int64)
+    ids = arange // N_KEYS
+    vals = np.random.default_rng(0).random(n).astype(np.float32)
+    return TupleBatch({"key": arange % N_KEYS, "id": ids, "ts": ids,
+                       "value": vals}), vals
+
+
+def ingest_cell(tag: str, level: str, trace, want, card: str) -> dict:
+    """Configs 2g / 2h: the replay trace through SourceBuilder.from_replay
+    (microbatch 2^19, credits 2^21, the AIMD controller on a 50 ms
+    target, pane pre-reduction) into the headline's WinSeqTPU at
+    ``level``: windows within rtol 1e-5 of the float64 oracle, nothing
+    shed, K1's launches equal to the batches."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.operators.basic_ops import Sink
+    src = wf.SourceBuilder.from_replay(trace, speedup=None, chunk=None) \
+        .with_microbatch(INGEST_MICROBATCH) \
+        .with_credits(INGEST_CREDITS).build()
+    cfg = wf.RuntimeConfig(device=FEED_DEVICE,
+                           latency_target_ms=INGEST_LATENCY_MS,
+                           opt_level=getattr(wf.OptLevel, level))
+    g = wf.PipeGraph(f"chip_smoke_{tag}", wf.Mode.DEFAULT, config=cfg)
+    sink = IngestLatencySink(lambda: src.logics[0].emit_stamps)
+    g.add_source(src).add(config11_op()).add_sink(Sink(sink))
+    reset_counts()
+    t0 = time.perf_counter()
+    g.run()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    logic = feed_engine(tag, g)
+    launches = check_launches(tag, logic, counts, "window_sum")
+    got = check_windows(sink, want, tag, rtol=RTOL_F32)
+    shed = src.shed_count()
+    if shed:
+        raise AssertionError(f"[{tag}] {shed} tuples shed")
+    m = src.logics[0].metrics()
+    pre = src.logics[0].coalescer.pre_reduce is not None
+    log(f"{feed_line(tag, N2G, secs, sink)}; {len(got[0])} windows within "
+        f"rtol {RTOL_F32} of the float64 oracle; 0 shed; {launches} K1 "
+        f"launches = batches; pane pre-reduction {pre}; "
+        f"controller_batch_final {m['batch_size']}, credit_waits "
+        f"{m['credit_waits']} ({card})")
+    return {"rate": N2G / secs, "k1": launches, "batch": m["batch_size"],
+            "waits": m["credit_waits"]}
+
+
+def lane_stats(g) -> dict:
+    """The engine replica's device timing from the stats JSON (bench.py
+    :446-454): launches, Device_time_ms, bytes a launch."""
+    dev = {}
+    for o in json.loads(g.stats.to_json())["Operators"]:
+        for r in o["Replicas"]:
+            if r.get("Device_launches"):
+                dev = {"launches": r["Device_launches"],
+                       "device_time_ms": r["Device_time_ms"],
+                       "bytes_per_launch": r.get("Device_bytes_per_launch")}
+    return dev
+
+
+def planner_lane(placement: str, want, card: str) -> dict:
+    """Config 2j at ``placement``: FeedSource(chunk_fn, feeders=2) (its
+    columns from the shared arena) into WinSeqTPU(placement=...,
+    adaptive_batch=True); windows within rtol 1e-5 of the oracle; K1's
+    launches equal to Device_launches on a lane resolved to the card,
+    no kernel on the host lane."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.ingest.feed import FeedSource
+    from windflow_tpu_torch.operators.basic_ops import Sink
+    tag = f"planner2j {placement}"
+    sb = SOURCE_BATCH
+    n_chunks = N2J // sb  # whole chunks only, as bench.py:430
+    stamps = [0.0] * n_chunks
+    pool = np.random.default_rng(0).random(sb).astype(np.float32)
+
+    def chunk_fn(i, take):
+        if i >= n_chunks:
+            return None
+        idx = take(sb, np.int64)
+        idx[:] = np.arange(i * sb, (i + 1) * sb)
+        keys = np.mod(idx, N_KEYS, out=take(sb, np.int64))
+        ids = np.floor_divide(idx, N_KEYS, out=idx)
+        vals = take(sb, np.float32)
+        vals[:] = pool
+        stamps[i] = time.perf_counter()
+        return keys, ids, ids, vals
+
+    g = wf.PipeGraph(f"chip_smoke_2j_{placement}", wf.Mode.DEFAULT,
+                     config=wf.RuntimeConfig(device=FEED_DEVICE))
+    sink = LatencySink(stamps, sb)
+    g.add_source(FeedSource(chunk_fn, feeders=FEEDERS2J)) \
+        .add(config11_op(placement=placement, adaptive_batch=True)) \
+        .add_sink(Sink(sink))
+    reset_counts()
+    t0 = time.perf_counter()
+    g.run()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    (entry,) = g.placements
+    host = entry["placement"] == "host"
+    logic = feed_engine(tag, g, host=host)
+    dev = lane_stats(g)
+    if host:
+        if any(counts.values()):
+            raise AssertionError(f"[{tag}] kernels {counts} on the host "
+                                 f"lane")
+        launches = 0
+    else:
+        launches = check_launches(tag, logic, counts, "window_sum")
+        if dev.get("launches") != launches:
+            raise AssertionError(f"[{tag}] K1 {launches} != "
+                                 f"Device_launches {dev.get('launches')}")
+    got = check_windows(sink, want, tag, rtol=RTOL_F32)
+    resizes = (list(logic._adaptive.resizes) if logic._adaptive is not None
+               else [])
+    decision = {k: entry[k] for k in (
+        "placement", "reason", "rtt_floor_ms", "host_rate_tps",
+        "device_rate_tps", "device_compute_ms", "tuples_per_launch",
+        "bytes_per_launch") if k in entry}
+    log(f"{feed_line(tag, n_chunks * sb, secs, sink)}; {len(got[0])} "
+        f"windows within rtol {RTOL_F32} of the oracle; lane "
+        f"{entry['placement']}; "
+        f"{launches} K1 launches"
+        + ("" if host else " = Device_launches") + f"; the planner: "
+        f"{json.dumps(decision)}; device_time_ms "
+        f"{dev.get('device_time_ms')}, launches {dev.get('launches')}, "
+        f"bytes a launch {dev.get('bytes_per_launch')}; final_batch_len "
+        f"{logic.batch_len}, batch_resizes {resizes} ({card})")
+    return {"rate": n_chunks * sb / secs, "k1": launches,
+            "placement": entry["placement"]}
+
+
+def planner2j(card: str) -> tuple:
+    """Config 2j's three lanes at equal N; auto_not_worse read, not
+    asserted.  Returns (K1 launches, the auto lane's tuples/s)."""
+    from windflow_tpu_torch.graph import planner
+    n_keys_period = SOURCE_BATCH // N_KEYS
+    pool = np.random.default_rng(0).random(SOURCE_BATCH).astype(np.float32)
+    n = N2J // SOURCE_BATCH * SOURCE_BATCH
+    want = periodic_oracle(pool.astype(np.float64)
+                           .reshape(n_keys_period, N_KEYS).T,
+                           n // N_KEYS, WIN, SLIDE)
+    lanes = {p: planner_lane(p, want, card)
+             for p in ("auto", "device", "host")}
+    rates = {p: round(r["rate"], 1) for p, r in lanes.items()}
+    ok = rates["auto"] >= 0.9 * min(rates["device"], rates["host"])
+    log(f"[planner2j] lane rates {json.dumps(rates)}; "
+        f"auto resolved {lanes['auto']['placement']}; auto_not_worse {ok} "
+        f"(auto >= 0.9 x min(device, host)); planner inputs: RTT floor "
+        f"{planner.rtt_floor_ms():.4f} ms, host rate "
+        f"{planner.host_rate_tps():.1f} tuples/s, device compute "
+        f"{planner.device_compute_ms_per_launch():.4f} ms a launch "
+        f"({card})")
+    return sum(r["k1"] for r in lanes.values()), rates["auto"]
+
+
+class DictSink:
+    """bench.py's config-19 sink: each window's value by (key, id), how
+    many times it arrived, and its latency from the stamp of the source
+    batch holding its closing tuple (id * slide + win - 1 of its key)."""
+
+    def __init__(self, stamps, win, slide, n_keys, chunk):
+        self.stamps, self.win, self.slide = stamps, win, slide
+        self.n_keys, self.chunk = n_keys, chunk
+        self.lock = threading.Lock()
+        self.results, self.counts, self.lats = {}, {}, []
+
+    def __call__(self, r):
+        if r is None:
+            return
+        now = time.perf_counter()
+        with self.lock:
+            k = (r.key, r.id)
+            self.results[k] = r.value
+            self.counts[k] = self.counts.get(k, 0) + 1
+            closing = (r.id * self.slide + self.win - 1) * self.n_keys + r.key
+            ci = min(closing // self.chunk, len(self.stamps) - 1)
+            if ci >= 0:
+                self.lats.append(now - self.stamps[ci])
+
+    def check(self, want, tag: str) -> int:
+        """Every window once and equal to ``want`` exactly."""
+        if self.counts and max(self.counts.values()) != 1:
+            raise AssertionError(f"[{tag}] duplicate windows")
+        keys, ids, vals = want
+        got = np.array([self.results.get((int(k), int(i)), np.nan)
+                        for k, i in zip(keys, ids)])
+        if len(self.results) != len(keys) or not np.array_equal(got, vals):
+            raise AssertionError(f"[{tag}] {len(self.results)} windows, "
+                                 f"oracle {len(keys)}; "
+                                 f"{int(np.sum(got != vals))} differ")
+        return len(keys)
+
+
+def lane_kernel(logic) -> str:
+    """The kernel a device lane launches: the fused update+query kernel
+    on the resident pane lane the planner promotes it to, K1 else."""
+    return ("flatfat_update_query" if logic._resident is not None
+            else "window_sum")
+
+
+def run19(step: bool, n: int, clock=None):
+    """One config-19 lane (bench.py:1960-2000): BatchSource of the law
+    (key e % 8, id = ts = e // 8, value e % 97) -> WinSeqTPU("sum",
+    1024, 16, CB, batch_len 16, value_of) -> Sink, with the device step
+    on or off.  ``clock`` (a HostClock) times the source and the sink.
+    Returns (graph, sink, seconds)."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.core.tuples import TupleBatch
+    from windflow_tpu_torch.operators.basic_ops import Sink
+    from windflow_tpu_torch.operators.batch_ops import BatchSource
+    from windflow_tpu_torch.operators.tpu.win_seq_tpu import WinSeqTPU
+    stamps: list = []
+    state = {"i": 0}
+
+    def batch():
+        i = state["i"]
+        if i >= n:
+            return None
+        state["i"] = i + SOURCE19
+        stamps.append(time.perf_counter())
+        idx = np.arange(i, min(i + SOURCE19, n))
+        return TupleBatch({"key": idx % KEYS19, "id": idx // KEYS19,
+                           "ts": idx // KEYS19,
+                           "value": (idx % VMOD).astype(np.float64)})
+
+    sink = DictSink(stamps, WIN19, SLIDE19, KEYS19, SOURCE19)
+    src_fn, sink_fn = batch, sink
+    if clock is not None:
+        src_fn, sink_fn = clock.wrap("source", batch), clock.wrap("sink",
+                                                                  sink)
+    g = wf.PipeGraph("chip_smoke19", wf.Mode.DEFAULT,
+                     config=wf.RuntimeConfig(device=FEED_DEVICE,
+                                             device_step=step))
+    op = WinSeqTPU("sum", WIN19, SLIDE19, wf.WinType.CB,
+                   batch_len=BATCH19, max_buffer_elems=MAX_BUFFER,
+                   inflight_depth=INFLIGHT, value_of=lambda t: t.value)
+    g.add_source(BatchSource(src_fn)).add(op).add_sink(Sink(sink_fn))
+    t0 = time.perf_counter()
+    g.run()
+    return g, sink, time.perf_counter() - t0
+
+
+def step19_lane(step: bool, want, card: str) -> dict:
+    """One gated config-19 run: every window once and exact, the lane's
+    kernel launched once a batch and as often as Device_launches, the
+    step engaged exactly when on with at most 2 launches an ingest
+    chunk (its own counters and Device_launches)."""
+    tag = f"step19 {'on' if step else 'off'}"
+    reset_counts()
+    g, sink, secs = run19(step, N19)
+    counts = read_counts()
+    logic = feed_engine(tag, g)
+    kernel = lane_kernel(logic)
+    launches = check_launches(tag, logic, counts, kernel)
+    dev = lane_stats(g)
+    if dev.get("launches") != launches:
+        raise AssertionError(f"[{tag}] {kernel} {launches} != "
+                             f"Device_launches {dev.get('launches')}")
+    sink.check(want, tag)
+    chunks, boundary, n_steps = step_info(g)
+    if bool(n_steps) != step:
+        raise AssertionError(f"[{tag}] {n_steps} step nodes")
+    if step and not (chunks > 0 and boundary <= 2 * chunks
+                     and launches <= 2 * chunks):
+        raise AssertionError(f"[{tag}] {chunks} chunks, {boundary} "
+                             f"boundary launches, {launches} launches")
+    return {"g": g, "sink": sink, "rate": N19 / secs, "kernel": kernel,
+            "launches": launches, "chunks": chunks}
+
+
+def step19(card: str) -> dict:
+    """Config 19: step off and on interleaved, REPS19 reps, bitwise equal
+    in every rep; best-of-3 rates.  Returns the launches by kernel."""
+    want = periodic_oracle(law_period(KEYS19, VMOD), N19 // KEYS19, WIN19,
+                           SLIDE19)
+    best = {False: 0.0, True: 0.0}
+    launches = collections.Counter()
+    for rep in range(REPS19):
+        runs = {step: step19_lane(step, want, card) for step in (False, True)}
+        if runs[False]["sink"].results != runs[True]["sink"].results:
+            raise AssertionError(f"[step19] rep {rep}: step on and off "
+                                 f"differ")
+        for step, r in runs.items():
+            best[step] = max(best[step], r["rate"])
+            launches[r["kernel"]] += r["launches"]
+        on = runs[True]
+        log(f"[step19] rep {rep}: off {runs[False]['rate']:.1f} tuples/s "
+            f"({runs[False]['launches']} {runs[False]['kernel']} "
+            f"launches), on {on['rate']:.1f} tuples/s ({on['launches']} "
+            f"{on['kernel']} launches, {on['chunks']} chunks = "
+            f"{on['launches'] / on['chunks']:.3f} a chunk); bitwise equal, "
+            f"{len(want[0])} windows exact ({card})")
+    lats = on["sink"].lats
+    p50, p99 = (float(np.percentile(lats, q)) * 1e3 for q in (50, 99))
+    log(f"[step19] best of {REPS19}: step on {best[True]:.1f}, off "
+        f"{best[False]:.1f} tuples/s (speedup "
+        f"{best[True] / best[False]:.3f}); launches a chunk "
+        f"{on['launches'] / on['chunks']:.3f}; step lane window latency "
+        f"p50 {p50:.3f} ms, p99 {p99:.3f} ms ({card})")
+    return launches
+
+
+class HostClock:
+    """Seconds spent in named callables, summed over every thread that
+    called them (a callable running inside another counts in both)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.secs = collections.Counter()
+        self.calls = collections.Counter()
+
+    def wrap(self, name: str, fn):
+        def clocked(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                with self.lock:
+                    self.secs[name] += dt
+                    self.calls[name] += 1
+        return clocked
+
+    def patch(self, name: str, cls, attr: str):
+        """Time ``cls.attr`` for every instance; returns the undo."""
+        orig = cls.__dict__[attr]
+        setattr(cls, attr, self.wrap(name, orig))
+        return lambda: setattr(cls, attr, orig)
+
+    def text(self) -> str:
+        return ", ".join(f"{n} {self.secs[n]:.3f} s in {self.calls[n]} "
+                         f"calls" for n in self.secs)
+
+
+def profile19(card: str) -> None:
+    """[profile19] one run of each config-19 lane at N19_PROFILE events
+    under torch.profiler (CUDA activity): the card's idle share, the
+    launches, device time a launch, and the host's time in the source,
+    the engine's ingest (svc), the step's boundary flush, the hand-off
+    to the dispatcher (_submit, inside svc or the flush), the launch
+    (engine compute on the dispatcher thread), the wait for the D2H
+    copy (the handle's block) and the sink."""
+    from windflow_tpu_torch.graph.device_step import DeviceStepLogic
+    from windflow_tpu_torch.operators.tpu.win_seq_tpu import WinSeqTPULogic
+    from windflow_tpu_torch.ops import window_compute as wc
+    want = periodic_oracle(law_period(KEYS19, VMOD),
+                           N19_PROFILE // KEYS19, WIN19, SLIDE19)
+    for step in (False, True):
+        tag = f"profile19 {'on' if step else 'off'}"
+        clock = HostClock()
+        undo = [clock.patch("svc", WinSeqTPULogic, "svc"),
+                clock.patch("step flush", DeviceStepLogic, "_flush_boundary"),
+                clock.patch("dispatch", WinSeqTPULogic, "_submit"),
+                clock.patch("launch", wc.WindowComputeEngine, "compute"),
+                clock.patch("launch", wc._ResidentPaneLaunch, "compute"),
+                clock.patch("D2H wait", wc.DeviceBatchHandle, "block")]
+        act = torch.profiler.ProfilerActivity
+        try:
+            # CPU activity only to rehearse the phase without a card
+            with torch.profiler.profile(activities=[
+                    act.CUDA if FEED_DEVICE == "cuda" else act.CPU]) as p:
+                g, sink, secs = run19(step, N19_PROFILE, clock)
+        finally:
+            for u in undo:
+                u()
+        sink.check(want, tag)
+        logic = feed_engine(tag, g)
+        launches = lane_stats(g).get("launches", 0)
+        busy = device_busy_ms(p)
+        chunks, _b, _n = step_info(g)
+        log(f"[{tag}] {N19_PROFILE} events, wall {secs:.3f} s, "
+            f"{N19_PROFILE / secs:.1f} tuples/s; {launches} launches "
+            f"({lane_kernel(logic)})"
+            + (f", {chunks} chunks" if step else "")
+            + f"; device busy {busy:.3f} ms = {busy / max(1, launches):.5f} "
+            f"ms a launch, idle {100 - 100 * busy / (secs * 1e3):.3f}%; "
+            f"host: {clock.text()}; {profile_summary(p, secs, 4)} ({card})")
+
+
+def replan15(card: str) -> dict:
+    """[replan15] config 15_replan_shift (bench.py:1835-1933), with the
+    cost model pinned (RTT floor 0.001 ms, host 20M tuples/s, device
+    compute 0) and restored after: a paced stream of 1,500-event
+    batches every 4 ms into WinSeqTPU("sum", 1024, 32, CB, batch_len 64,
+    inflight 1, placement auto, value_of) with the online re-planner on
+    (replan_ticks 2), until 25 batches after the flip or 1.2M events.
+    Gates: the lane starts on the card, a replacement flight event
+    device -> host, no conservation_violation, every window once and
+    equal to the integer oracle on both sides of the flip, and the
+    lane's kernel launched as often as the batches up to the flip
+    (read inside the flip's quiesce) and not after.  Returns the
+    launches by kernel."""
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.core.tuples import TupleBatch
+    from windflow_tpu_torch.operators.basic_ops import Sink
+    from windflow_tpu_torch.operators.batch_ops import BatchSource
+    from windflow_tpu_torch.operators.tpu.win_seq_tpu import WinSeqTPU
+    tag = "replan15"
+    saved = {k: os.environ.get(k) for k in REPLAN_PINS}
+    os.environ.update(REPLAN_PINS)
+    try:
+        cfg = wf.RuntimeConfig(device=FEED_DEVICE, replan=True,
+                               replan_ticks=2, diagnosis_interval_s=0.15,
+                               audit_interval_s=0.1)
+        g = wf.PipeGraph("chip_smoke15r", wf.Mode.DEFAULT, config=cfg)
+        state = {"i": 0, "tail": 0}
+        stamps: list = []
+
+        def batch():
+            i = state["i"]
+            if any(e["kind"] == "replacement" for e in g.flight.snapshot()):
+                state["tail"] += 1
+            if i >= N15R or state["tail"] > TAIL15R:
+                return None
+            state["i"] = i + SOURCE15R
+            time.sleep(PACE15R_S)
+            stamps.append(time.perf_counter())
+            idx = np.arange(i, i + SOURCE15R)
+            return TupleBatch({"key": idx % KEYS15R, "id": idx // KEYS15R,
+                               "ts": idx // KEYS15R,
+                               "value": (idx % 7).astype(np.float64)})
+
+        sink = DictSink(stamps, WIN15R, SLIDE15R, KEYS15R, SOURCE15R)
+        op = WinSeqTPU("sum", WIN15R, SLIDE15R, wf.WinType.CB,
+                       batch_len=BATCH15R, inflight_depth=1,
+                       placement="auto", value_of=lambda t: t.value)
+        g.add_source(BatchSource(batch)).add(op).add_sink(Sink(sink))
+        reset_counts()
+        t0 = time.perf_counter()
+        g.start()
+        logic = find_logic(g)
+        flip: dict = {}
+        orig = logic.apply_placement
+
+        def spy(placement, rtt_floor_ms=None):
+            # inside replace_lane's quiesce: no batch in flight, so the
+            # engine's batches so far are its device launches
+            if placement == "host" and "batches" not in flip:
+                flip.update(batches=logic.launched_batches,
+                            kernel=lane_kernel(logic),
+                            counts=read_counts(), device=str(logic.device))
+            return orig(placement, rtt_floor_ms=rtt_floor_ms)
+
+        logic.apply_placement = spy
+        g.wait_end()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    events = g.flight.snapshot()
+    flips = [e for e in events if e["kind"] == "replacement"]
+    (entry,) = [p for p in g.placements if "win_seq_tpu" in p["operator"]]
+    if entry.get("device") != feed_card():
+        raise AssertionError(f"[{tag}] the lane started on "
+                             f"{entry.get('device')}, not {feed_card()}")
+    if not flips or (flips[0].get("old"), flips[0].get("new")) != (
+            "device", "host"):
+        last = lane_stats(g)
+        raise AssertionError(
+            f"[{tag}] no device -> host flip after {state['i']} events in "
+            f"{secs:.3f} s: flight {[e['kind'] for e in events][-20:]}; "
+            f"Device_time_ms {last.get('device_time_ms')} over "
+            f"{last.get('launches')} launches ({card})")
+    if any(e["kind"] == "conservation_violation" for e in events):
+        raise AssertionError(f"[{tag}] conservation violated across the "
+                             f"flip")
+    fed = state["i"]
+    n_win = sink.check(periodic_oracle(law_period(KEYS15R, 7),
+                                       fed // KEYS15R, WIN15R, SLIDE15R),
+                       tag)
+    kernel = flip["kernel"]
+    if flip["device"] != feed_card() or counts[kernel] != flip["batches"] \
+            or flip["batches"] <= 0 \
+            or any(c for k, c in counts.items() if k != kernel):
+        raise AssertionError(f"[{tag}] {kernel} launches {counts}, "
+                             f"{flip['batches']} batches on "
+                             f"{flip['device']} at the flip")
+    ev = flips[0].get("evidence") or {}
+    log(f"[{tag}] {fed} events in {secs:.3f} s = {fed / secs:.1f} tuples/s; "
+        f"flipped device -> host ({flips[0].get('trigger')}) in "
+        f"{flips[0].get('duration_ms')} ms, evidence measured_ms "
+        f"{ev.get('measured_ms')}, device_compute_ms "
+        f"{ev.get('device_compute_ms')}, device_rate_tps "
+        f"{ev.get('device_rate_tps')} against host_rate_tps "
+        f"{ev.get('host_rate_tps')}; {n_win} windows once each and equal "
+        f"to the oracle across the flip, no conservation_violation; "
+        f"{flip['batches']} {kernel} launches on {flip['device']} up to "
+        f"the flip, {logic.launched_batches - flip['batches']} host "
+        f"batches after ({card})")
+    return {kernel: flip["batches"]}
+
+
+def main_feed(card: str) -> dict:
+    """Phase 17's cells, each with every kernel
+    count set to 0 just before it and read just after; [replan15] last,
+    since the re-planner records its measured device compute in-process
+    and every later 'auto' decision would read it.  Returns the
+    launches by kernel."""
+    walls = {}
+    launches = collections.Counter()
+
+    def cell(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    k1, _rate = cell("2b", feed_cell, "feed2b", N2B, card,
+                     make_op=lambda: config11_op(
+                         max_batch_delay_ms=DELAY2B_MS),
+                     source_batch=SOURCE2B)
+    launches["window_sum"] += k1
+    k1, rate2f = cell("2f", feed_cell, "feed2f", N2F, card,
+                      materialize=True)
+    launches["window_sum"] += k1
+    trace, vals = ingest_trace(N2G)
+    want = periodic_oracle(vals.astype(np.float64).reshape(-1, N_KEYS).T,
+                           N2G // N_KEYS, WIN, SLIDE)
+    g2g = cell("2g", ingest_cell, "ingest2g", "LEVEL0", trace, want, card)
+    g2h = cell("2h", ingest_cell, "ingest2h", "LEVEL2", trace, want, card)
+    del trace, vals, want
+    launches["window_sum"] += g2g["k1"] + g2h["k1"]
+    log(f"[ingest2g] vs_feed {g2g['rate'] / rate2f:.3f} (2g / 2f); "
+        f"[ingest2h] fused_delta {g2h['rate'] / g2g['rate']:.3f} (2h / 2g) "
+        f"({card})")
+    k1, _auto = cell("2j", planner2j, card)
+    launches["window_sum"] += k1
+    launches.update(cell("19", step19, card))
+    cell("profile19", profile19, card)
+    launches.update(cell("15r", replan15, card))
+    log(f"[feed] seconds a cell, checks and readings included: {walls}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -6073,6 +6784,18 @@ def main() -> int:
     launches15["flatfat_build_query"] += mesh["flatfat_build_query"]
     user15["flatfat_build_query"] += mesh["user"]
     log(f"[smoke] mesh done in {time.perf_counter() - t16:.1f} s")
+
+    # the feed and placement plane: bench configs 2b, 2f (K1), the
+    # ingest plane at 2g and 2h (K1), the planner's parallel feed at 2j
+    # (auto, device: K1; host: none), the device step at 19 and the
+    # re-planner at 15_replan_shift (the lanes' own kernel up to the
+    # flip); each cell with every kernel count set to 0 just before it
+    # and read just after
+    t17 = time.perf_counter()
+    feed = main_feed(card)
+    launches += feed["window_sum"]
+    launches15["flatfat_update_query"] += feed["flatfat_update_query"]
+    log(f"[smoke] feed done in {time.perf_counter() - t17:.1f} s")
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
     src = "windflow_tpu_torch/ops/cuda/flatfat_query.cu"

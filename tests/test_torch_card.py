@@ -1030,3 +1030,149 @@ def test_key_farm_mesh_on_the_card_launches_k1_per_batch():
     assert fq.build_query_launch_count() == 0
     want, _ = run("cpu")
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# the feed and placement plane (chip_smoke.py phase 17) at small sizes
+# ---------------------------------------------------------------------------
+
+def _one_engine(g):
+    (logic,) = _device_logics(g)
+    return logic
+
+
+def _window_rows(rows):
+    """A sink callback appending (key, id, value) of result batches and
+    records."""
+    def sink(item):
+        if item is None:
+            return
+        if isinstance(item, TupleBatch):
+            rows.extend(zip(item.key.tolist(), item.id.tolist(),
+                            item["value"].tolist()))
+        else:
+            rows.append((item.key, item.id, item.value))
+    return sink
+
+
+def _feed_graph(device):
+    """FeedSource with 2 feeders (the arena's columns of the law key e %
+    16, id = ts = e // 16, value e % 97) into WinSeqTPU("sum", TB 256 /
+    128) with size-based launch triggers."""
+    from windflow_tpu_torch.ingest.feed import FeedSource
+    sb, n_chunks = 8192, 32
+
+    def chunk_fn(i, take):
+        if i >= n_chunks:
+            return None
+        idx = take(sb, np.int64)
+        idx[:] = np.arange(i * sb, (i + 1) * sb)
+        keys = np.mod(idx, 16, out=take(sb, np.int64))
+        vals = np.mod(idx, 97, out=take(sb, np.int64)).astype(np.float64)
+        ids = np.floor_divide(idx, 16, out=idx)
+        return keys, ids, ids, vals
+
+    rows = []
+    g = wf.PipeGraph("feed", wf.Mode.DEFAULT,
+                     config=wf.RuntimeConfig(device=device))
+    g.add_source(FeedSource(chunk_fn, feeders=2)).add(
+        WinSeqTPU("sum", 256, 128, wf.WinType.TB, batch_len=512,
+                  emit_batches=True, max_batch_delay_ms=1e9)).add_sink(
+        Sink(_window_rows(rows)))
+    g.run()
+    return g, sorted(rows)
+
+
+def _replay_graph(device):
+    """A replay source with pane pre-reduction at the ingest edge (the
+    law key e % 4, id = ts = e // 4, value e % 31) into WinSeqTPU("sum",
+    TB 2048 / 1024)."""
+    n = 1 << 18
+    ar = np.arange(n, dtype=np.int64)
+    trace = TupleBatch({"key": ar % 4, "id": ar // 4, "ts": ar // 4,
+                        "value": (ar % 31).astype(np.float64)})
+    src = wf.SourceBuilder.from_replay(trace, speedup=None,
+                                       chunk=4096).build()
+    rows = []
+    g = wf.PipeGraph("replay", wf.Mode.DEFAULT,
+                     config=wf.RuntimeConfig(device=device))
+    g.add_source(src).add(WinSeqTPU("sum", 2048, 1024, wf.WinType.TB,
+                                    emit_batches=True)).add_sink(
+        Sink(_window_rows(rows)))
+    g.run()
+    assert src.logics[0].coalescer.pre_reduce is not None
+    return g, sorted(rows)
+
+
+@pytest.mark.parametrize("graph", ["feed_source", "replay_prereduce"])
+def test_feed_lane_on_the_card_launches_k1_per_batch(graph):
+    """A FeedSource with two feeders, and a replay source whose pane
+    partials are pre-reduced at the ingest edge, into K1 on the card:
+    windows exact (integer values) and equal to the CPU run, K1's
+    launches equal to the engine's batches, no other kernel."""
+    run = {"feed_source": _feed_graph, "replay_prereduce": _replay_graph}[
+        graph]
+    _g, want = run("cpu")
+    ws.reset_launch_count()
+    fq.reset_fused_launch_count()
+    g, got = run("cuda")
+    logic = _one_engine(g)
+    assert logic.device.type == "cuda"
+    assert ws.launch_count() == logic.launched_batches > 0
+    assert fq.fused_launch_count() == 0
+    assert got == want and got
+
+
+def _step19(device, step):
+    """Config 19's shape at 2^18 events: WinSeqTPU("sum", 1024, 16, CB,
+    batch_len 16, value_of) behind a BatchSource of 8,192-event batches
+    (key e % 8, id = ts = e // 8, value e % 97), device step on or
+    off."""
+    n, sb = 1 << 18, 8192
+    batches = iter(range(0, n, sb))
+
+    def source():
+        i = next(batches, None)
+        if i is None:
+            return None
+        idx = np.arange(i, min(i + sb, n))
+        return TupleBatch({"key": idx % 8, "id": idx // 8, "ts": idx // 8,
+                           "value": (idx % 97).astype(np.float64)})
+
+    rows = []
+    g = wf.PipeGraph("step19", wf.Mode.DEFAULT,
+                     config=wf.RuntimeConfig(device=device,
+                                             device_step=step))
+    g.add_source(BatchSource(source)).add(
+        WinSeqTPU("sum", 1024, 16, wf.WinType.CB, batch_len=16,
+                  max_buffer_elems=1 << 21, inflight_depth=8,
+                  value_of=lambda t: t.value)).add_sink(
+        Sink(_window_rows(rows)))
+    g.run()
+    return g, sorted(rows)
+
+
+def test_device_step_config19_on_the_card_on_and_off_bitwise():
+    """Config 19's shape with the device step on and off on the card:
+    bitwise equal, equal to the CPU run; the planner promotes the lane
+    onto the resident pane lane, so the fused update+query kernel
+    launches once a batch (K1 none), at most 2 launches an ingest chunk
+    with the step on."""
+    from windflow_tpu_torch.graph.device_step import DeviceStepLogic
+    _g, want = _step19("cpu", True)
+    got = {}
+    for step in (False, True):
+        ws.reset_launch_count()
+        fq.reset_fused_launch_count()
+        g, got[step] = _step19("cuda", step)
+        logic = _one_engine(g)
+        assert logic.device.type == "cuda" and logic._resident is not None
+        assert fq.fused_launch_count() == logic.launched_batches > 0
+        assert ws.launch_count() == 0
+        steps = [n.logic for n in g._all_nodes()
+                 if isinstance(n.logic, DeviceStepLogic)]
+        assert bool(steps) == step
+        if step:
+            chunks = sum(s.chunks_in for s in steps)
+            assert 0 < logic.launched_batches <= 2 * chunks
+    assert got[True] == got[False] == want

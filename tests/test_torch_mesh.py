@@ -374,3 +374,29 @@ def test_pairwise_fold_takes_numpy_and_torch(n):
     np.testing.assert_array_equal(
         pairwise_fold(x, np.maximum, -np.inf), x.max(-1))
 
+
+
+@pytest.mark.parametrize("kind", ["sum", "mean"])
+def test_compute_kf_at_config4_feed_matches_the_reference(kind):
+    """compute_kf's sums and means on the CPU at config 4's feed (value
+    e % 97) as [8, 2^18] rows, windows 4096 / 2048: each row scanned on
+    its own, as the reference's per-row cumsum, within the reference
+    test's rtol 1e-5 of the reference's compute_kf on its 8-device mesh
+    (a scan over all rows laid end to end missed it by 3.6e-5)."""
+    S, T, win, slide = 8, 1 << 18, 4096, 2048
+    values = (np.arange(S * T) % 97).astype(np.float32).reshape(S, T)
+    w = np.arange((T - 1) // slide + 1)
+    starts = np.broadcast_to(w * slide, (S, len(w))).astype(np.int32)
+    ends = np.minimum(starts + win, T).astype(np.int32)
+    got = {}
+    for pkg in PACKAGES:
+        eng = _engine(pkg, make_mesh(pkg, 1), win, slide, kind)
+        got[pkg] = _np(eng.compute_kf(values, starts, ends))
+    c = np.concatenate([np.zeros((S, 1)),
+                        np.cumsum(values, 1, dtype=np.float64)], 1)
+    want = np.take_along_axis(c, ends, 1) - np.take_along_axis(c, starts, 1)
+    if kind == "mean":
+        want = want / (ends - starts)
+    assert got[PORT].shape == (S, len(w)) and got[PORT].dtype == np.float32
+    np.testing.assert_allclose(got[PORT], got[PACKAGES[0]], rtol=1e-5)
+    np.testing.assert_allclose(got[PORT], want, rtol=1e-5)

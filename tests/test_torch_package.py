@@ -64,6 +64,24 @@ def test_guard_walks_the_mesh_plane():
         assert f"windflow_tpu_torch/{path}.py" in walked
 
 
+def test_guard_walks_the_feed_plane():
+    walked = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for path in ("ingest/sources", "ingest/credits", "ingest/controller",
+                 "ingest/coalesce", "ingest/feed", "ingest/wiring",
+                 "ingest/admission", "ingest/codec", "graph/planner",
+                 "graph/fuse", "graph/device_step", "graph/replanner"):
+        assert f"windflow_tpu_torch/{path}.py" in walked
+
+
+def test_card_tests_import_neither_jax_nor_the_reference():
+    """tests/test_torch_card.py runs where the card is, with no JAX."""
+    path = REPO / "tests" / "test_torch_card.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(line, mod) for line, mod in _imported_modules(tree)
+           if mod.split(".")[0] in ("jax", "jaxlib", "windflow_tpu")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
 def test_umbrella_exports_every_name_of_the_reference():
     """Every name the reference umbrella exports (eagerly, or lazily
     through its ``__getattr__`` tables) resolves in the port's: nothing

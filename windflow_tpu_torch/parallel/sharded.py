@@ -25,10 +25,9 @@ stacked shard axis; across processes the key rows are computed where
 they live and ``all_gather``ed (``torch.distributed``).  The WMR, ring
 and fused-step programs are torch code on the mesh's device.
 
-On the CPU the kernels' plain versions run (``device="cpu"``).  K1's
-takes its f32 prefix scan over all of the process's rows laid end to
-end, so its rounding grows with S * T where the reference's per-row
-cumsum grows with T; the kernel sums each extent directly.
+On the CPU (``device="cpu"``) sums and means take one f32 prefix scan a
+row, as the reference's per-row cumsum; max/min/FFAT folds run K2r's
+plain version.  On the card K1 sums each extent directly.
 """
 from __future__ import annotations
 
@@ -116,6 +115,18 @@ def _offset_extents(starts: torch.Tensor, ends: torch.Tensor,
         torch.int32).contiguous()
 
 
+def _row_scan_sums(v: torch.Tensor, starts: torch.Tensor,
+                   ends: torch.Tensor) -> torch.Tensor:
+    """[S, B] window sums of a CPU ``[S, T]`` buffer, one f32 prefix scan
+    a row as the reference's ``kf_shard`` (a scan over every row laid
+    end to end would carry the whole buffer's magnitude into each
+    window).  ``end <= start``: an empty window, 0."""
+    c = torch.cat([v.new_zeros(v.shape[0], 1), torch.cumsum(v, 1)], 1)
+    s = starts.long()
+    e = torch.maximum(ends.long(), s)
+    return c.gather(1, e) - c.gather(1, s)
+
+
 class ShardedWindowEngine:
     """Key-sharded window engine over a mesh (the distributed twin of
     WindowComputeEngine).  Its device is the mesh's.
@@ -183,8 +194,11 @@ class ShardedWindowEngine:
             out = (e - s).to(torch.float32)
         elif self.kind in ("sum", "mean"):
             S, T = v.shape
-            out = window_sums(v.reshape(-1), _offset_extents(s, e, T),
-                              max_extent).reshape(S, -1)
+            if v.device.type == "cpu":
+                out = _row_scan_sums(v, s, e)
+            else:
+                out = window_sums(v.reshape(-1), _offset_extents(s, e, T),
+                                  max_extent).reshape(S, -1)
             if self.kind == "mean":
                 out = out / torch.clamp(e - s, min=1)
         else:
