@@ -553,6 +553,21 @@ def timed(fn, reps: int = 50, warmup: int = 5, profile_out=None):
     return (busy / reps if busy > 0 else None), float(np.median(times))
 
 
+def device_timed(fn):
+    """(device ms a call, its source, wall ms a call): timed(fn)'s
+    torch.profiler device time, or queued_ms(fn) -- CUDA events around
+    calls queued behind a sleep kernel -- where the profiler saw none
+    (ROADMAP B4)."""
+    dev, wall = timed(fn)
+    if dev is not None:
+        return dev, "profiler", wall
+    return queued_ms(fn), "events", wall
+
+
+def fmt_sourced(t) -> str:
+    return f"{t[0]:.5f} ({t[1]}; wall {t[2]:.4f})"
+
+
 def user_timing(t_k, t_p, work) -> dict:
     """A user-combine kernel's JSON numbers: its device ms per call and
     its plain version's (the call's wall where the profiler saw no
@@ -1223,9 +1238,14 @@ def pieces(n: int, keys, starts, ends):
     return k2, s2, e2, wraps, B
 
 
+# the single tree of [kernel K2]'s "single" shape
+SINGLE_N = 1 << 20
+
+
 def k2_shapes(rng):
     """name -> (K, n, rows or None, starts, ends) at the main paths'
-    launch shapes, a deployment-size forest and edges."""
+    launch shapes, a deployment-size forest, a single tree at a real
+    batch and edges."""
     shapes = {}
     # rebuild lane: one tree over the 8 keys' series, 512 windows each
     per_key = WIN15 + (B_PAD15 // KEYS15 - 1) * SLIDE15
@@ -1245,6 +1265,14 @@ def k2_shapes(rng):
     s = rng.integers(0, RES_N, B)
     shapes["deploy"] = (4096, RES_N, rng.integers(0, 4096, B), s,
                         np.minimum(s + rng.integers(1, WIN15 + 1, B), RES_N))
+    # FlatFATTorch's query at a real batch (rows None, the path
+    # [flatfat] takes): one tree of 2^20 leaves, 65,536 windows of 1 to
+    # 4,096 leaves; its own generator, so a caller that takes only the
+    # rebuild shape draws what it drew before
+    one = np.random.default_rng(2)
+    s = one.integers(0, SINGLE_N - WIN15, B)
+    shapes["single"] = (1, SINGLE_N, None, s,
+                        s + one.integers(1, WIN15 + 1, B))
     shapes["edges16"] = (1, 16, None, np.array([0, 3, 0, 15, 16, 7, 9]),
                          np.array([0, 3, 16, 16, 16, 16, 4]))
     shapes["edges2"] = (1, 2, None, np.array([0, 0, 1, 2, 1]),
@@ -1307,19 +1335,39 @@ def range_csr(n_cols: int, n: int, rows, starts, ends, device):
             size=(len(starts), n_cols))
 
 
+def float64_ranges(leaves: np.ndarray, rows, starts, ends) -> np.ndarray:
+    """The float64 sums of leaves [K, n] over [starts, ends) of rows
+    (None: one tree), extents clamped to [0, n] as the kernel clamps
+    them; 0 for an empty extent."""
+    K, n = leaves.shape
+    c = np.zeros((K, n + 1))
+    c[:, 1:] = np.cumsum(leaves.astype(np.float64), axis=1)
+    r = 0 if rows is None else np.asarray(rows, np.int64)
+    s = np.clip(np.asarray(starts, np.int64), 0, n)
+    e = np.clip(np.asarray(ends, np.int64), 0, n)
+    return np.where(e > s, c[r, e] - c[r, s], 0.0)
+
+
 def check_k2(device, card: str) -> dict:
+    """The query kernel against its plain version at every shape of
+    k2_shapes: bitwise for add, max, min and the arithmetic user
+    combines, within ULP_BOUND ulp for logaddexp, add on integer leaves
+    exact against float64 too; device times of every combine, the plain
+    version's, the sparse mv's, the bound, the share of it and the
+    launch floor (edges2)."""
     from windflow_tpu_torch.ops.cuda import flatfat_query as fq
     rng = np.random.default_rng(1)
     out = {}
     worst_err = 0.0
     tally = UserTally()
+    summary = []
     for name, (K, n, rows, starts, ends) in k2_shapes(rng).items():
         r_d = None if rows is None else torch.from_numpy(
             np.asarray(rows, np.int32)).to(device)
         s_d = torch.from_numpy(np.asarray(starts, np.int32)).to(device)
         e_d = torch.from_numpy(np.asarray(ends, np.int32)).to(device)
-        ints = torch.from_numpy(
-            rng.integers(0, 97, (K, n)).astype(np.float32)).to(device)
+        ints_np = rng.integers(0, 97, (K, n)).astype(np.float32)
+        ints = torch.from_numpy(ints_np).to(device)
         f32 = torch.from_numpy(
             rng.random((K, n), dtype=np.float32)).to(device)
         times = []
@@ -1331,25 +1379,23 @@ def check_k2(device, card: str) -> dict:
                                            neutral)
                 torch.cuda.synchronize()
                 k, p = k.cpu().numpy(), p.cpu().numpy()
-                if integer or cname in ("max", "min"):
-                    if not np.array_equal(k, p):
-                        raise AssertionError(
-                            f"[kernel K2] {name} {cname}: not exact, err "
-                            f"{np.nanmax(np.abs(k - p))}")
-                else:
-                    np.testing.assert_allclose(
-                        k, p, rtol=RTOL_F32, atol=1e-6,
-                        err_msg=f"[kernel K2] {name} {cname} f32")
+                if k.tobytes() != p.tobytes():
+                    raise AssertionError(
+                        f"[kernel K2] {name} {cname}"
+                        f"{' integer' if integer else ''}: not bitwise "
+                        f"equal to the plain version, err "
+                        f"{np.nanmax(np.abs(k - p))}")
+                if integer and not np.array_equal(
+                        k, float64_ranges(ints_np, rows, starts, ends)):
+                    raise AssertionError(f"[kernel K2] {name} add: not "
+                                         f"exact against float64")
                 fin = np.isfinite(p)
-                if not np.array_equal(fin, np.isfinite(k)):
-                    raise AssertionError(f"[kernel K2] {name} {cname}: "
-                                         f"non-finite results differ")
                 if fin.any():
                     worst_err = max(worst_err, float(
                         np.abs(k[fin] - p[fin]).max()))
-            t_k = timed(lambda: fq.flatfat_query(tree, r_d, s_d, e_d, comb,
-                                                 neutral))
-            times.append(f"{cname} {fmt(t_k)}")
+            t_k = device_timed(lambda: fq.flatfat_query(
+                tree, r_d, s_d, e_d, comb, neutral))
+            times.append(f"{cname} {fmt_sourced(t_k)}")
             if cname == "add":
                 add_tree, add_k = tree, t_k
         # the user combines, each through its own generated library
@@ -1363,13 +1409,13 @@ def check_k2(device, card: str) -> dict:
             k, p = k.cpu().numpy(), p.cpu().numpy()
             tally.add(uname, *hold_user(k, p, trans,
                                         f"kernel K2 {name} {uname}"), k, p)
-            t_u = timed(lambda: fq.flatfat_query(tree, r_d, s_d, e_d, comb,
-                                                 neutral))
-            times.append(f"{uname} {fmt(t_u)}")
+            t_u = device_timed(lambda: fq.flatfat_query(
+                tree, r_d, s_d, e_d, comb, neutral))
+            times.append(f"{uname} {fmt_sourced(t_u)}")
             if name == "rebuild" and uname == PATH_COMBINE:
                 t_up = timed(lambda: fq.flatfat_query_plain(
                     tree, r_d, s_d, e_d, comb, neutral), reps=20)
-                user_entry = user_timing(t_u, t_up, walk_work(
+                user_entry = user_timing(t_u[::2], t_up, walk_work(
                     n, rows, starts, ends, opc))
                 times.append(f"{uname} plain {fmt(t_up)}, bound "
                              f"{user_entry['bound_ms']:.4g} ms "
@@ -1379,7 +1425,8 @@ def check_k2(device, card: str) -> dict:
             add_tree, r_d, s_d, e_d, torch.add, 0.0), reps=20)
         nbytes, ops = walk_work(n, rows, starts, ends, 1)
         bms, bound_by = bound_ms(nbytes, ops)
-        ms, plain_ms = (d if d is not None else w for d, w in (add_k, t_p))
+        ms = add_k[0]
+        plain_ms = t_p[0] if t_p[0] is not None else t_p[1]
         lib_ms, lib_txt = None, "none"
         if name != "edges2":
             csr = range_csr(K * n, n, rows, starts, ends, device)
@@ -1395,16 +1442,25 @@ def check_k2(device, card: str) -> dict:
             del csr
         log(f"[kernel K2] {name}: K={K} n={n} B={len(starts)} "
             f"max_extent={int(np.max(np.asarray(ends) - np.asarray(starts)))}"
-            f"; exact on integers and max/min, rtol {RTOL_F32} on f32; user "
-            f"combines bitwise (logaddexp within {ULP_BOUND} ulp); "
-            f"device ms per call (wall ms per call): kernel "
+            f"; bitwise equal to the plain version for add, max, min and "
+            f"the arithmetic user combines (logaddexp within {ULP_BOUND} "
+            f"ulp), add on integer leaves exact against float64; device ms "
+            f"per call (source; wall ms per call): kernel "
             f"{'; '.join(times)}; plain (add) {fmt(t_p)}; sparse mv (add) "
             f"{lib_txt}, range max/min: no library call; bound {bms:.4g} "
             f"ms ({bound_by}; {nbytes} B, {ops} combines) ({card})")
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                      "bound_by": bound_by, "library_ms": lib_ms}
+        summary.append((name, add_k, bms, bound_by))
         del ints, f32, add_tree
         torch.cuda.empty_cache()
+    floor = out["edges2"]["ms"]
+    log("[kernel K2] add, device ms per call against the bound and the "
+        "launch floor (edges2): " + "; ".join(
+            f"{name} {t[0]:.5f} ({t[1]}), bound {bms:.4g} ms ({by}), "
+            f"share of bound {100 * bms / t[0]:.2f} %, "
+            f"{t[0] / floor:.2f}x the floor"
+            for name, t, bms, by in summary) + f" ({card})")
     log(f"[kernel K2] user combines against the plain version over every "
         f"shape: {tally.line()} ({card})")
     out["max_abs_err"] = worst_err
@@ -5572,12 +5628,11 @@ def queued_ms(fn, reps: int = 50) -> float:
 
 
 def kernel_timed(fn):
-    """timed(fn), with the device time from queued_ms where
-    torch.profiler saw no device time (it missed K2r in a run of phase
-    16 alone, and a sparse mv and compute_wmr in a run of the whole
-    script)."""
-    t = timed(fn)
-    return t if t[0] is not None else (queued_ms(fn), t[1])
+    """(device ms, wall ms) a call from device_timed (torch.profiler
+    missed K2r in a run of phase 16 alone, and a sparse mv and
+    compute_wmr in a run of the whole script)."""
+    ms, _source, wall = device_timed(fn)
+    return ms, wall
 
 
 def flat_extents(starts, ends, stride: int):

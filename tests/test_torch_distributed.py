@@ -54,6 +54,7 @@ def _legacy_path(pkg):
     b = _batch(pkg, 0, 100)
     rt = legacy.decode_batch(legacy.encode_batch(b)[8:])
     assert np.array_equal(rt.key, b.key)
+    legacy._warned = False  # warn-once is per process
     with pytest.warns(DeprecationWarning):
         assert legacy.MsgDecoder is wire.MsgDecoder
     assert legacy.encode_batch is wire.encode_batch

@@ -17,6 +17,11 @@ each step alike) and for add on random f32, where both sides combine
 the same pairs in the same order -- the tests still state ``rtol=1e-5``
 for those two, the bound the port promises.
 
+The plain query is held at n = 2^7, 2^8 and 2^9 (level counts either
+side of the kernel's chunk of walk steps) against both, at 2^16 and
+2^17 against ``FlatFATJax`` alone, and over a forest whose row ids
+include ones outside it (NaN there).
+
 The user combines no kernel builds in (``tests/torch_graphs.py``:
 a product, ``logaddexp``, a NaN-skipping max written with ``where``, and
 ``left_weighted``, which the kernels compile from its torch ops like any
@@ -84,24 +89,60 @@ def _extents(rng, n, B):
     return starts, ends
 
 
-@pytest.mark.parametrize("integer", [True, False], ids=["int", "f32"])
-@pytest.mark.parametrize("name", list(COMBINES))
-def test_plain_query_matches_pallas_and_xla(name, integer):
+def _query_cases():
+    """(name, integer, n, K): every combine at n = 2^8 (under the ids
+    these cases had before n varied), 2^7 and 2^9 -- level counts either
+    side of the kernel's chunk of walk steps; add and left_weighted at
+    2^16 and 2^17 (against FlatFATJax alone: the interpreted Pallas
+    kernel would walk those trees for minutes); and a forest of K = 3
+    trees whose row ids include ones outside it."""
+    cases = []
+    for name in COMBINES:
+        for integer in (True, False):
+            base = f"{name}-{'int' if integer else 'f32'}"
+            cases.append(pytest.param(name, integer, 256, 0, id=base))
+            cases += [pytest.param(name, integer, n, 0, id=f"{base}-n{n}")
+                      for n in (128, 512)]
+            if name in ("add", "left_weighted"):
+                cases += [pytest.param(name, integer, n, 0,
+                                       id=f"{base}-n{n}")
+                          for n in (1 << 16, 1 << 17)]
+            cases.append(pytest.param(name, integer, 256, 3,
+                                      id=f"{base}-forest"))
+    return cases
+
+
+@pytest.mark.parametrize("name,integer,n,K", _query_cases())
+def test_plain_query_matches_pallas_and_xla(name, integer, n, K):
     ref_c, port_c, neutral, exact = COMBINES[name]
+    exact = exact and (integer or name != "add")
     rng = np.random.default_rng(list(COMBINES).index(name))
-    n, B = 256, 64
-    leaves = _values(name, rng, n, integer)
-    f = FlatFATJax(ref_c, neutral, n)
-    f.build(leaves)
-    tree = np.array(f.tree)
+    B = 64
+    trees, refs = [], []
+    for _ in range(max(K, 1)):
+        leaves = _values(name, rng, n, integer)
+        f = FlatFATJax(ref_c, neutral, n)
+        f.build(leaves)
+        trees.append(np.array(f.tree))
+        refs.append(f)
     starts, ends = _extents(rng, n, B)
-    want = f.query_ranges(starts, ends)
-    pallas = flatfat_query_ranges(tree, starts, ends, ref_c, neutral)
-    got = fq.flatfat_query_plain(torch.from_numpy(tree), None,
-                                 _i32(starts), _i32(ends), port_c,
-                                 neutral).numpy()
-    _check(got, want, exact and (integer or name != "add"))
-    _check(got, pallas, exact and (integer or name != "add"))
+    rows = rng.integers(-1, K + 1, B) if K else np.zeros(B, np.int64)
+    want = np.full(B, np.nan, np.float32)
+    pallas = want.copy()
+    for r, (tree, f) in enumerate(zip(trees, refs)):
+        sel = rows == r
+        want[sel] = f.query_ranges(starts[sel], ends[sel])
+        if n <= 512:
+            pallas[sel] = flatfat_query_ranges(tree, starts[sel], ends[sel],
+                                               ref_c, neutral)
+    got = fq.flatfat_query_plain(torch.from_numpy(np.stack(trees)),
+                                 _i32(rows) if K else None, _i32(starts),
+                                 _i32(ends), port_c, neutral).numpy()
+    if K:  # both kinds of row outside the forest are drawn
+        assert (rows < 0).any() and (rows >= K).any()
+    _check(got, want, exact)
+    if n <= 512:
+        _check(got, pallas, exact)
 
 
 @pytest.mark.parametrize("name", list(COMBINES))

@@ -17,12 +17,22 @@
 //
 // Design: one thread per window, as in the reference's
 // ComputeResults_Kernel (flatfat_gpu.hpp:92-135).  Each thread walks the
-// tree bottom-up for levels + 1 steps with separate left and right
-// accumulators, so a non-commutative combine keeps oldest -> newest
-// order.  A node is loaded only when its branch is taken (the Pallas
-// kernel's unconditional load of node max(hi - 1, 0) would read outside
-// a row here); extents are clamped to [0, n] and an out-of-range row id
+// tree bottom-up with separate left and right accumulators, so a
+// non-commutative combine keeps oldest -> newest order.  The nodes the
+// walk takes follow from (start, end) alone, in closed form (see the
+// kernel), and no step j with 2^j > end - start takes one.  So a thread
+// issues the predicated loads of up to kWalkChunk = 16 steps -- every
+// node of a window shorter than 2^16 leaves -- before its first
+// combine, one memory latency for the lot where the one-node-a-step walk
+// paid one a node, and then folds them in the plain version's order
+// (left = op(left, l_j), then right = op(r_j, right), for ascending j,
+// from the neutral), so every combine gives the plain version's bits.  A
+// node is loaded only when its step takes it (the Pallas kernel's
+// unconditional load of node max(hi - 1, 0) would read outside a row
+// here); extents are clamped to [0, n] and an out-of-range row id
 // writes NaN, so no input makes the kernel read outside the forest.
+// Blocks hold 128 threads, halved (down to a warp) while the grid would
+// leave SMs idle, so a few thousand windows still spread over the card.
 //
 // The combine is a compile-time functor: a Python callable cannot run
 // in a CUDA kernel.  Built as it stands, this file instantiates every
@@ -34,13 +44,16 @@
 // instantiates the kernels for UserOp alone, op code 3, in a library of
 // that combine's own -- as the Pallas kernel traces the JAX combine in.
 //
-// Bound: memory latency.  Per window the walk reads at most 2 (levels+1)
-// scattered nodes (one 4-byte load per 32-byte sector) and does as many
-// combines; the least bytes are the extents, row ids and output plus
-// each distinct node the windows need, read once.  Windows over one key
-// share their upper nodes, which the 50 MB L2 holds.  Coalescing the
-// walk (a warp per window group, shared-memory staging of hot upper
-// levels) is later work.
+// Bound: bytes, far below what sets the time.  The least a launch must
+// move is the extents, row ids and output plus each distinct node the
+// windows take, read once (3.2 MB, 0.96 us at 3.35 TB/s, for 65,536
+// windows of up to 4,096 leaves over a 4,096 x 8,192 forest).  A few
+// thousand windows cost the launch and one round trip.  A large batch
+// is held by the scattered loads themselves: each node is a 32-byte
+// sector of its own, so that forest's windows pull 598 k loads from
+// 414 k distinct sectors (13 MB of sectors in 39 MB of lines, not
+// 3.2 MB), and 65,536 windows over one 2^20-leaf tree make 689 k loads
+// that L2 serves, at the pace of the SMs' load units.
 //
 // Second entry, wf_flatfat_update_query: the resident lanes' whole step
 // in one launch.  It replaces the reference's fused XLA program
@@ -112,7 +125,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kQueryThreads = 128;    // the query kernel's largest block
+constexpr int kQueryMinThreads = 32;  // and its smallest
+constexpr int kWalkChunk = 16;        // walk steps whose loads go out at once
+constexpr int kQueryDevices = 64;
 
 struct AddOp {
   __device__ __forceinline__ float operator()(float a, float b) const {
@@ -120,15 +136,18 @@ struct AddOp {
   }
 };
 
+// torch.maximum / torch.minimum as their CUDA kernels compute them: a
+// NaN operand is returned as it is, else fmaxf / fminf (which order -0
+// below +0; a select on a > b would return b for zeros of either sign)
 struct MaxOp {
   __device__ __forceinline__ float operator()(float a, float b) const {
-    return (a > b || isnan(a)) ? a : b;
+    return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
   }
 };
 
 struct MinOp {
   __device__ __forceinline__ float operator()(float a, float b) const {
-    return (a < b || isnan(a)) ? a : b;
+    return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
   }
 };
 
@@ -164,15 +183,16 @@ int with_op(int64_t op, Fn&& fn) {
 }
 
 template <typename Op>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kQueryThreads)
 flatfat_query_kernel(const float* __restrict__ tree, int64_t n_leaves,
-                     int levels, int64_t n_rows,
+                     int64_t n_rows,
                      const int32_t* __restrict__ rows,
                      const int32_t* __restrict__ starts,
                      const int32_t* __restrict__ ends,
                      float* __restrict__ out, int64_t n_windows,
                      float neutral) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t b =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= n_windows) return;
   const Op op;
   int64_t row = rows != nullptr ? rows[b] : 0;
@@ -189,33 +209,73 @@ flatfat_query_kernel(const float* __restrict__ tree, int64_t n_leaves,
     return;
   }
   const float* t = tree + row * 2 * n_leaves;
-  int64_t lo = s + n_leaves;
-  int64_t hi = e + n_leaves;
+  // The walk in closed form: while step j has lo_j < hi_j, its bounds
+  // are lo_j = ceil(lo / 2^j) and hi_j = floor(hi / 2^j) (a taken left
+  // node rounds lo up, a taken right node rounds hi down, an untaken
+  // bound is even), and once lo_j >= hi_j no later step takes a node.
+  // So each step's nodes and flags follow from (lo, hi) alone, with no
+  // chain through the steps before it; and no step j with 2^j > e - s
+  // takes one.
+  const uint32_t lo = static_cast<uint32_t>(s + n_leaves);  // n <= 2^30
+  const uint32_t hi = static_cast<uint32_t>(e + n_leaves);
+  const int steps = 32 - __clz(static_cast<uint32_t>(e - s));
   float left = neutral;
   float right = neutral;
-  for (int step = 0; step <= levels; ++step) {
-    if (lo < hi && (lo & 1)) {
-      left = op(left, __ldg(t + lo));
-      ++lo;
+  for (int base = 0; base < steps; base += kWalkChunk) {
+    float lv[kWalkChunk], rv[kWalkChunk];
+    unsigned tl = 0, tr = 0;  // bit k: step base + k takes its node
+#pragma unroll
+    for (int k = 0; k < kWalkChunk; ++k) {
+      const int j = base + k;
+      if (j == steps) break;
+      const uint32_t l = ((lo - 1) >> j) + 1;
+      const uint32_t h = hi >> j;
+      const bool take_l = l < h && (l & 1u);
+      const bool take_r = l + take_l < h && (h & 1u);
+      lv[k] = take_l ? __ldg(t + l) : 0.0f;
+      rv[k] = take_r ? __ldg(t + (h - 1)) : 0.0f;
+      tl |= static_cast<unsigned>(take_l) << k;
+      tr |= static_cast<unsigned>(take_r) << k;
     }
-    if (lo < hi && (hi & 1)) {
-      --hi;
-      right = op(__ldg(t + hi), right);
+#pragma unroll
+    for (int k = 0; k < kWalkChunk; ++k) {
+      if (base + k == steps) break;
+      if (tl >> k & 1u) left = op(left, lv[k]);
+      if (tr >> k & 1u) right = op(rv[k], right);
     }
-    lo >>= 1;
-    hi >>= 1;
   }
   out[b] = op(left, right);
 }
 
+// SMs of the current device, read once per device (0 on an error)
+int query_sms() {
+  static int sms[kQueryDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 ||
+      dev >= kQueryDevices)
+    return 0;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    sms[dev] = 0;
+  return sms[dev];
+}
+
 template <typename Op>
-int launch(const float* tree, int64_t n_leaves, int levels, int64_t n_rows,
+int launch(const float* tree, int64_t n_leaves, int64_t n_rows,
            const int32_t* rows, const int32_t* starts, const int32_t* ends,
            float* out, int64_t n_windows, float neutral,
            cudaStream_t stream) {
-  const int64_t blocks = (n_windows + kThreads - 1) / kThreads;
-  flatfat_query_kernel<Op><<<static_cast<unsigned>(blocks), kThreads, 0,
-                             stream>>>(tree, n_leaves, levels, n_rows, rows,
+  // the largest block (down to kQueryMinThreads) whose grid reaches
+  // every SM
+  const int64_t sms = query_sms();
+  int threads = kQueryThreads;
+  while (threads > kQueryMinThreads &&
+         (n_windows + threads - 1) / threads < sms)
+    threads /= 2;
+  const int64_t blocks = (n_windows + threads - 1) / threads;
+  flatfat_query_kernel<Op><<<static_cast<unsigned>(blocks), threads, 0,
+                             stream>>>(tree, n_leaves, n_rows, rows,
                                        starts, ends, out, n_windows,
                                        neutral);
   return static_cast<int>(cudaGetLastError());
@@ -537,9 +597,10 @@ int launch_build_query(const float* leaves, int n, int levels,
 }  // namespace
 
 // op: 0 add, 1 max, 2 min (this file as it stands), 3 the user combine
-// (built with WF_USER_COMBINE_BODY).  `rows` may be null (one tree).
-// Launches on `stream`; returns the cudaError_t of the launch (0 = ok),
-// or -1 for an op code this build does not hold.
+// (built with WF_USER_COMBINE_BODY).  `rows` may be null (one tree);
+// n_leaves = 2^levels, at most 2^30.  Launches on `stream`; returns
+// the cudaError_t of the launch (0 = ok), -1 for an op code this build
+// does not hold, -2 for sizes the kernel does not take.
 extern "C" int wf_flatfat_query(const float* tree, int64_t n_leaves,
                                 int64_t levels, int64_t n_rows,
                                 const int32_t* rows, const int32_t* starts,
@@ -547,10 +608,11 @@ extern "C" int wf_flatfat_query(const float* tree, int64_t n_leaves,
                                 int64_t n_windows, float neutral, int64_t op,
                                 cudaStream_t stream) {
   if (n_windows <= 0) return 0;
-  const int lv = static_cast<int>(levels);
+  if (levels < 0 || levels > 30 || n_leaves != int64_t{1} << levels)
+    return -2;
   return with_op(op, [&](auto o) {
-    return launch<decltype(o)>(tree, n_leaves, lv, n_rows, rows, starts,
-                               ends, out, n_windows, neutral, stream);
+    return launch<decltype(o)>(tree, n_leaves, n_rows, rows, starts, ends,
+                               out, n_windows, neutral, stream);
   });
 }
 

@@ -11,7 +11,8 @@ separate left and right accumulators, so a non-commutative ``combine``
 keeps oldest -> newest order; ``combine`` and ``neutral`` form a monoid.
 
 * On a CUDA tensor it launches ``flatfat_query.cu`` (one thread per
-  window; built with nvcc for ``sm_90a`` into ``windflow_tpu_torch/
+  window, sixteen walk steps' loads in flight at once; trees of up to
+  2^30 leaves; built with nvcc for ``sm_90a`` into ``windflow_tpu_torch/
   _build/`` on first use and bound through ctypes) on the current
   stream.  The kernel's combine is compiled in.  ``torch.add``,
   ``torch.maximum`` and ``torch.minimum`` (and the builtin names
@@ -506,6 +507,10 @@ def _check(tree: torch.Tensor, rows: Optional[torch.Tensor],
         raise ValueError("tree and extents must be contiguous")
 
 
+# the query kernel's largest tree: its walk indexes a row in 32 bits
+QUERY_MAX_LEAVES = 1 << 30
+
+
 def flatfat_query(tree: torch.Tensor, rows: Optional[torch.Tensor],
                   starts: torch.Tensor, ends: torch.Tensor, combine: Any,
                   neutral: float) -> torch.Tensor:
@@ -519,12 +524,15 @@ def flatfat_query(tree: torch.Tensor, rows: Optional[torch.Tensor],
                                    neutral)
     if tree.device.type != "cuda":
         raise ValueError(f"unsupported device {tree.device}")
+    two_n = tree.shape[-1]
+    if two_n // 2 > QUERY_MAX_LEAVES:
+        raise ValueError(f"the query kernel takes trees of at most "
+                         f"{QUERY_MAX_LEAVES} leaves, not {two_n // 2}")
     k = resolve_combine(combine)
     n_windows = starts.shape[0]
     out = torch.empty(n_windows, dtype=torch.float32, device=tree.device)
     if n_windows == 0:
         return out
-    two_n = tree.shape[-1]
     n_rows = tree.numel() // two_n
     with torch.cuda.device(tree.device):
         stream = torch.cuda.current_stream(tree.device).cuda_stream
