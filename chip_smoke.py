@@ -78,6 +78,17 @@ every phase passed):
    query kernel that ran before the fused kernel.  Then the fused
    kernel's launch floor: one forest row of 2048 leaves, one run of one
    leaf, one window.
+3b. signed zeros -- +0/-0 with NaN through every path that folds max
+   or min on the card, each max and min, held bit for bit against a
+   numpy oracle of the reference's rule (jnp's order: -0 below +0, NaN
+   propagating; in compute_wmr the reduce over 'win' as the reference's
+   lax.pmax/pmin fold the shards in order, passing NaN over): the
+   window engine's sparse table at Q7's launch shape; compute_wmr at
+   [mesh wmr]'s stripes and compute_pf_ring on [mesh pf3]'s 8-ring
+   (their reductions); the resident pane carry's launch (K2f); K2, K2f
+   and K2r under the builtin names "max" and "min", which must launch
+   the shared library (no user library).  One line a path; then the
+   two mesh forms under max and min timed beside sum at those shapes.
 4. main    -- the headline graph, bench.py config 2 (64M events, 64
    keys, TB window 4096 / slide 2048, source batch 2^20, device batch
    4096, buffer 2^21, 8 in flight, 10 ms delay), through PipeGraph ->
@@ -1945,6 +1956,289 @@ def check_fused(device, card: str) -> dict:
     user_entry["max_abs_err"] = tally.rows[PATH_COMBINE][2]
     out["user"] = user_entry
     return out
+
+
+# ---------------------------------------------------------------------------
+# 3b. signed zeros under max and min (ROADMAP C12)
+# ---------------------------------------------------------------------------
+
+ZERO_DEVICE = "cuda"
+
+
+def zero_leaves(rng, shape, kind: str, zero_rate: float,
+                n_nan: int = 0) -> np.ndarray:
+    """f32 values whose max (min) is often a zero of either sign: values
+    that lose to a zero under ``kind`` (-1 or -2 for max, 1 or 2 for
+    min), a share ``zero_rate`` of them +0 or -0 in equal measure, and
+    NaN at ``n_nan`` random places."""
+    v = (rng.integers(1, 3, shape) * (-1 if kind == "max" else 1)).astype(
+        np.float32)
+    z = rng.random(shape) < zero_rate
+    v[z] = np.where(rng.random(int(z.sum())) < 0.5, np.float32(0.0),
+                    np.float32(-0.0))
+    if n_nan:
+        v.reshape(-1)[rng.integers(0, v.size, n_nan)] = np.nan
+    return v
+
+
+def order_key(x) -> np.ndarray:
+    """int64 keys of f32 values in XLA's order of max and min: the bits
+    of a value with its sign bit clear, else minus its magnitude's bits
+    minus one, so -0 sorts just below +0."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.int64)
+    return np.where(b >> 31, -(b & 0x7FFFFFFF) - 1, b)
+
+
+def xla_fold(x: np.ndarray, kind: str, axis: int = -1) -> np.ndarray:
+    """The reference's ``jnp.max`` / ``jnp.min`` along ``axis``: NaN
+    propagates, -0 orders below +0."""
+    x = np.asarray(x, np.float32)
+    k = order_key(x)
+    idx = (k.argmax if kind == "max" else k.argmin)(axis=axis)
+    out = np.take_along_axis(x, np.expand_dims(idx, axis), axis)
+    return np.where(np.isnan(x).any(axis), np.float32(np.nan),
+                    out.squeeze(axis)).astype(np.float32)
+
+
+def xla_ranges(values: np.ndarray, starts, ends, kind: str,
+               empty: float) -> np.ndarray:
+    """:func:`xla_fold` over ``values[s:e]`` for each extent, ``empty``
+    where ``e <= s``."""
+    out = np.full(len(starts), empty, np.float32)
+    for i, (s, e) in enumerate(zip(starts, ends)):
+        if e > s:
+            out[i] = xla_fold(values[s:e], kind, 0)
+    return out
+
+
+def shard_fold(x: np.ndarray, kind: str, axis: int) -> np.ndarray:
+    """The reference's ``lax.pmax`` / ``lax.pmin`` over the shards on
+    ``axis`` (as its host devices run it): the shards in order from the
+    neutral, each taken only when strictly greater (less), so a tie
+    keeps the earlier shard's zero and NaN is passed over."""
+    acc = np.full(np.delete(x.shape, axis),
+                  -np.inf if kind == "max" else np.inf, np.float32)
+    for i in range(x.shape[axis]):
+        xi = np.take(x, i, axis)
+        acc = np.where(xi > acc if kind == "max" else xi < acc, xi, acc)
+    return acc.astype(np.float32)
+
+
+def hold_bits(got, want: np.ndarray, tag: str) -> str:
+    """``got`` bit for bit ``want`` (a NaN facing a NaN); the results'
+    mix of zeros and NaN as text."""
+    got = np.asarray(got, np.float32)
+    nan = np.isnan(want)
+    bad = np.isnan(got) != nan
+    bad[~nan] |= got[~nan].view(np.uint32) != want[~nan].view(np.uint32)
+    if got.shape != want.shape or bad.any():
+        raise AssertionError(
+            f"[signed zeros] {tag}: {int(bad.sum())} of {want.size} "
+            f"results differ from the reference's rule")
+    zero = ~nan & (want == 0)
+    return (f"{want.size} results, {int(zero.sum())} zeros "
+            f"({int(np.signbit(want[zero]).sum())} of them -0), "
+            f"{int(nan.sum())} NaN")
+
+
+def random_extents(rng, T: int, B: int, max_w: int):
+    starts = rng.integers(0, T - 1, B)
+    ends = np.minimum(starts + rng.integers(0, max_w + 1, B), T)
+    return starts.astype(np.int32), ends.astype(np.int32)
+
+
+def zero_sparse_table(kind: str, dev) -> str:
+    """The max and min kinds' sparse table through the window engine at
+    Q7's launch shape (T_pad 2048, B_pad 2048), extents of 0..64."""
+    from windflow_tpu_torch.ops.window_compute import WindowComputeEngine
+    rng = np.random.default_rng(40)
+    T, B = 2000, 1500
+    vals = zero_leaves(rng, T, kind, 0.1, n_nan=2)
+    starts, ends = random_extents(rng, T, B, 64)
+    got = WindowComputeEngine(kind, device=dev).compute(
+        {"value": vals.astype(np.float64)}, starts, ends,
+        np.arange(B)).block()
+    return hold_bits(got, xla_ranges(vals, starts, ends, kind, 0.0),
+                     f"sparse_table {kind}")
+
+
+def zero_wmr(kind: str, dev):
+    """compute_wmr (``_fold``'s reduction over each stripe, then the
+    reference's pmax / pmin over 'win') at [mesh wmr]'s stripes
+    [64, 4, 8, 1024]; returns the line and the engine and stripes."""
+    from windflow_tpu_torch.parallel.mesh import make_mesh
+    from windflow_tpu_torch.parallel.sharded import ShardedWindowEngine
+    rng = np.random.default_rng(41)
+    stripes = zero_leaves(rng, (64, 4, 8, 1024), kind, 0.003, n_nan=8)
+    eng = ShardedWindowEngine(make_mesh(8, win_axis=4, device=dev), WIN,
+                              SLIDE, kind)
+    x = torch.from_numpy(stripes).to(dev)
+    got = eng.compute_wmr(x).cpu().numpy()
+    want = shard_fold(xla_fold(stripes, kind, -1), kind, 1)
+    return hold_bits(got, want, f"compute_wmr {kind}"), eng, x
+
+
+def zero_pf_ring(kind: str, dev):
+    """compute_pf_ring (``_fold`` over each pane, then over each
+    window's panes after the ring hops) on [mesh pf3]'s 8-ring, panes
+    [64, 16, 4], windows of 2 panes sliding by 1."""
+    from windflow_tpu_torch.parallel.mesh import make_mesh
+    from windflow_tpu_torch.parallel.sharded import ShardedWindowEngine
+    rng = np.random.default_rng(42)
+    panes = zero_leaves(rng, (64, 16, 4), kind, 0.2, n_nan=3)
+    eng = ShardedWindowEngine(make_mesh(8, win_axis=8, device=dev), WIN,
+                              SLIDE, kind)
+    x = torch.from_numpy(panes).to(dev)
+    got = eng.compute_pf_ring(x, SLIDE).cpu().numpy()
+    partials = xla_fold(panes, kind, -1)
+    P, wpp = partials.shape[1], WIN // SLIDE
+    want = np.zeros((panes.shape[0], P), np.float32)
+    for g in range(P - wpp + 1):
+        want[:, g] = xla_fold(partials[:, g: g + wpp], kind, -1)
+    return hold_bits(got, want, f"compute_pf_ring {kind}"), eng, x
+
+
+def zero_carry(kind: str, dev) -> str:
+    """The resident pane carry's launch (K2f with the carry's combine)
+    at its lane's step: 8 keys' 512-pane runs, 256 windows of 16 panes
+    a key, in one forest of 2048-pane rows."""
+    from windflow_tpu_torch.ops.window_compute import ResidentPaneCarry
+    rng = np.random.default_rng(43)
+    K, P, Q, wpp = 8, 512, 256, 16
+    carry = ResidentPaneCarry(kind, wpp, initial_keys=K, device=dev)
+    panes = zero_leaves(rng, (K, P), kind, 0.05, n_nan=2)
+    for k in range(K):
+        carry.row_of(k)
+    q_rows = np.repeat(np.arange(K), Q).astype(np.int32)
+    starts = rng.integers(0, P - wpp, K * Q)
+    ends = starts + rng.integers(1, wpp + 1, K * Q)
+    launch = carry.launch_engine()
+    with launch.launch_context():
+        handle = launch.compute(
+            {"run_rows": np.arange(K, dtype=np.int32),
+             "run_starts": np.zeros(K, np.int64),
+             "run_lens": np.full(K, P, np.int32),
+             "value": panes.reshape(-1), "q_rows": q_rows},
+            starts, ends, np.arange(K * Q))
+    got = handle.block()
+    want = np.concatenate([
+        xla_ranges(panes[k], starts[q_rows == k], ends[q_rows == k], kind,
+                   0.0) for k in range(K)])
+    return hold_bits(got, want, f"resident pane carry {kind}")
+
+
+def zero_flatfat(kind: str, dev) -> dict:
+    """K2, K2f and K2r under the builtin name ``kind``: a forest query,
+    an update+query step and a rebuild, each against the rule."""
+    from windflow_tpu_torch.ops import minmax
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    from windflow_tpu_torch.ops.flatfat_torch import pack_step, step_inputs
+    rng = np.random.default_rng(44)
+    neutral = -np.inf if kind == "max" else np.inf
+    comb = minmax.maximum if kind == "max" else minmax.minimum
+    lines = {}
+    # K2: a forest of 4 rows of 2^14 leaves, 4096 windows of 0..256
+    K, n, B = 4, 1 << 14, 4096
+    leaves = zero_leaves(rng, (K, n), kind, 0.02, n_nan=2)
+    rows = rng.integers(0, K, B)
+    starts, ends = random_extents(rng, n, B, 256)
+    forest = forest_of(torch.from_numpy(leaves).to(dev), comb)
+    got = fq.flatfat_query(
+        forest, *(torch.from_numpy(a.astype(np.int32)).to(dev)
+                  for a in (rows, starts, ends)), kind, neutral)
+    want = np.concatenate([[xla_ranges(leaves[r], [s], [e], kind,
+                                       neutral)[0]]
+                           for r, s, e in zip(rows, starts, ends)])
+    lines["K2"] = hold_bits(got.cpu().numpy(), want, f"K2 {kind}")
+    # K2f: a 1024-leaf run into each row from leaf 512, then 4096
+    # windows of 0..256 over the updated rows
+    vals = zero_leaves(rng, K * 1024, kind, 0.02, n_nan=1)
+    runs = (np.arange(K), np.full(K, 512), np.full(K, 1024))
+    buf, sizes = pack_step(n, K, *runs, vals, rows, starts, ends,
+                           pinned=dev == "cuda")
+    after = leaves.copy()
+    after[:, 512:1536] = vals.reshape(K, 1024)
+    got = fq.flatfat_update_query(forest, step_inputs(buf.to(dev), sizes),
+                                  kind, neutral)
+    want = np.concatenate([[xla_ranges(after[r], [s], [e], kind,
+                                       neutral)[0]]
+                           for r, s, e in zip(rows, starts, ends)])
+    lines["K2f"] = hold_bits(got.cpu().numpy(), want, f"K2f {kind}")
+    # K2r: one tree of 2^16 leaves, 4096 windows of 0..256
+    n = 1 << 16
+    leaves = zero_leaves(rng, n, kind, 0.02, n_nan=2)
+    starts, ends = random_extents(rng, n, B, 256)
+    se = torch.from_numpy(np.stack([starts, ends])).to(dev)
+    got = fq.flatfat_build_query(torch.from_numpy(leaves).to(dev), se, kind,
+                                 neutral)
+    lines["K2r"] = hold_bits(got.cpu().numpy(),
+                             xla_ranges(leaves, starts, ends, kind, 0.0),
+                             f"K2r {kind}")
+    return lines
+
+
+def signed_zeros(card: str) -> None:
+    """Phase 3b: +0/-0 and NaN through every path that folds max or min
+    on the card, each held bit for bit against a numpy oracle of the
+    reference's rule (``jnp``'s order, -0 below +0, NaN propagating;
+    ``lax.pmax``'s shard fold over 'win' in compute_wmr).  K2, K2f and
+    K2r run under the builtin names and must launch the shared library
+    (no user library); the torch forms of the mesh under max are timed
+    at their cells' shapes beside sum."""
+    from windflow_tpu_torch.ops.cuda import flatfat_query as fq
+    dev = ZERO_DEVICE
+    users = dict(fq.user_launch_counts())
+    before = (fq.launch_count(), fq.fused_launch_count(),
+              fq.build_query_launch_count())
+    forms = {}
+    for kind in ("max", "min"):
+        log(f"[signed zeros] sparse_table {kind}: "
+            f"{zero_sparse_table(kind, dev)}; bits equal the rule")
+        text, eng, x = zero_wmr(kind, dev)
+        log(f"[signed zeros] compute_wmr {kind} (stripes [64, 4, 8, "
+            f"1024]): {text}; bits equal the rule")
+        forms[f"compute_wmr {kind}"] = (eng, x, None)
+        text, eng, x = zero_pf_ring(kind, dev)
+        log(f"[signed zeros] compute_pf_ring {kind} (panes [64, 16, 4], "
+            f"8-ring): {text}; bits equal the rule")
+        forms[f"compute_pf_ring {kind}"] = (eng, x, SLIDE)
+        log(f"[signed zeros] resident pane carry {kind}: "
+            f"{zero_carry(kind, dev)}; bits equal the rule")
+        for entry, text in zero_flatfat(kind, dev).items():
+            log(f"[signed zeros] {entry} {kind!r}: {text}; bits equal the "
+                f"rule")
+    after = (fq.launch_count(), fq.fused_launch_count(),
+             fq.build_query_launch_count())
+    # K2 once, K2f twice (the carry, the step), K2r once, a kind
+    expect = (2, 4, 2) if dev == "cuda" else (0, 0, 0)
+    if tuple(a - b for a, b in zip(after, before)) != expect \
+            or fq.user_launch_counts() != users:
+        raise AssertionError(
+            f"[signed zeros] launches K2/K2f/K2r {after} from {before} "
+            f"(want +{expect}), user libraries {fq.user_launch_counts()} "
+            f"from {users}")
+    if dev == "cuda":
+        from windflow_tpu_torch.parallel.sharded import ShardedWindowEngine
+        readings = []
+        for name, (eng, x, pane_len) in forms.items():
+            method = name.split()[0]
+            args = (x,) if pane_len is None else (x, pane_len)
+            summed = getattr(ShardedWindowEngine(eng.mesh, WIN, SLIDE,
+                                                 "sum"), method)
+            folded = getattr(eng, method)
+            if pane_len is None:  # the stripes, the windows
+                n_out = x.shape[0] * x.shape[2]
+                ops = x.numel()
+            else:  # the panes, each window's wpp partials
+                n_out = x.shape[0] * x.shape[1]
+                ops = x.numel() + n_out * (WIN // SLIDE)
+            nbytes = 4 * (x.numel() + n_out)
+            r = torch_form_reading(lambda: folded(*args), nbytes, ops)
+            s = torch_form_reading(lambda: summed(*args), nbytes, ops)
+            readings.append(f"{form_text(name, r)}; under sum "
+                            f"{fmt(s['t'])} ms, {s['launches']:g} ops")
+        log(f"[signed zeros] the mesh forms under max and min at these "
+            f"shapes: {'; '.join(readings)} ({card})")
 
 
 # ---------------------------------------------------------------------------
@@ -6734,6 +7028,9 @@ def main() -> int:
     k2 = check_k2(device, card)
     k2r = check_k2r(device, card)
     log(f"[smoke] kernels checked at {time.perf_counter() - t_start:.1f} s")
+    # signed zeros under max and min through every path that folds them
+    # (its K2/K2f/K2r launches are not the main path's)
+    signed_zeros(card)
 
     reset_counts()
     g, sink, secs = run_main(N_EVENTS, "cuda")

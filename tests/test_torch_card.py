@@ -54,8 +54,9 @@ from windflow_tpu_torch.operators.tpu.farms_tpu import (KeyFarmTPU,
                                                         PaneFarmTPU)
 from windflow_tpu_torch.runtime.node import ChainedLogic, FusedLogic
 
-from torch_graphs import (PORT, USER_EXACT, USER_RTOL, left_weighted,
-                          q5_oracle, q7_oracle, user_combines, user_values)
+from torch_graphs import (PORT, USER_EXACT, USER_RTOL, assert_same_bits,
+                          left_weighted, q5_oracle, q7_oracle, signed_zeros,
+                          user_combines, user_values)
 
 pytestmark = pytest.mark.cuda
 
@@ -168,6 +169,58 @@ def test_kernel_matches_plain(name, n):
     else:
         np.testing.assert_array_equal(got.view(np.uint32),
                                       want.view(np.uint32))
+
+
+def _zero_call(path, kind, device):
+    """One max or min call of ``path`` on ``device`` over +0/-0 values
+    with NaN (the same draw on every device), as numpy."""
+    from windflow_tpu_torch.parallel.mesh import make_mesh
+    from windflow_tpu_torch.parallel.sharded import ShardedWindowEngine
+    rng = np.random.default_rng(["sparse_table", "wmr", "pf_ring",
+                                 "kf"].index(path))
+    if path == "sparse_table":  # the engine's max/min kinds
+        T, B = 3000, 2000
+        vals = signed_zeros(rng, T, kind, n_nan=3).astype(np.float64)
+        starts = rng.integers(0, T - 64, B)
+        ends = starts + rng.integers(0, 65, B)
+        return WindowComputeEngine(kind, device=device).compute(
+            {"value": vals}, starts, ends, np.arange(B)).block()
+    if path == "kf":  # K2r over 8 shards' rows laid end to end
+        S, T, B = 8, 1 << 10, 300
+        values = signed_zeros(rng, (S, T), kind, n_nan=3)
+        starts = rng.integers(0, T - 64, (S, B)).astype(np.int32)
+        ends = (starts + rng.integers(0, 65, (S, B))).astype(np.int32)
+        eng = ShardedWindowEngine(make_mesh(S, device=device), 64, 32, kind)
+        return eng.compute_kf(values, starts, ends).cpu().numpy()
+    if path == "wmr":  # _fold over the stripes, pmax / pmin over 'win'
+        eng = ShardedWindowEngine(make_mesh(8, win_axis=4, device=device),
+                                  8, 4, kind)
+        stripes = signed_zeros(rng, (16, 4, 32, 64), kind, n_nan=3,
+                               zero_rate=0.03)
+        return eng.compute_wmr(stripes).cpu().numpy()
+    eng = ShardedWindowEngine(make_mesh(8, win_axis=4, device=device), 32,
+                              8, kind)
+    panes = signed_zeros(rng, (16, 32, 4), kind, n_nan=3, zero_rate=0.1)
+    return eng.compute_pf_ring(panes, 4).cpu().numpy()
+
+
+@pytest.mark.parametrize("path", ["sparse_table", "wmr", "pf_ring", "kf"])
+@pytest.mark.parametrize("kind", ["max", "min"])
+def test_signed_zero_folds_on_the_card_match_the_cpu(kind, path):
+    """Max and min over +0/-0 values with NaN on CUDA: the engine's
+    sparse table, ``_fold`` in compute_wmr and compute_pf_ring and
+    compute_kf's K2r, bit for bit the same call on the CPU (which the
+    CPU twins hold against the reference, ROADMAP C12); K2r under the
+    builtin kind launches the shared library, no user library."""
+    users = dict(fq.user_launch_counts())
+    before = fq.build_query_launch_count()
+    got = _zero_call(path, kind, "cuda")
+    torch.cuda.synchronize()
+    assert fq.build_query_launch_count() == before + (path == "kf")
+    assert fq.user_launch_counts() == users
+    want = _zero_call(path, kind, "cpu")
+    assert (want == 0).any()
+    assert_same_bits(got, want)
 
 
 def test_non_kernel_combine_raises_naming_the_roadmap_item():

@@ -242,12 +242,19 @@ def stub_nvcc(monkeypatch, tmp_path):
 
 
 def test_builtins_keep_their_op_codes_and_build_nothing_new(stub_nvcc):
+    from windflow_tpu_torch.ops import minmax
     for combine, code in ((torch.add, 0), (torch.maximum, 1),
                           (torch.minimum, 2), ("sum", 0), ("count", 0),
-                          ("max", 1), ("min", 2)):
+                          ("max", 1), ("min", 2), (minmax.maximum, 1),
+                          (minmax.minimum, 2)):
         k = fq.resolve_combine(combine)
         assert (k.code, k.user) == (code, False)
         assert k.fn is fq.torch_combine(combine)
+    # the plain versions fold max and min in the reference's order
+    for combine, fn in ((torch.maximum, minmax.maximum), ("max",
+                        minmax.maximum), (torch.minimum, minmax.minimum),
+                        ("min", minmax.minimum)):
+        assert fq.torch_combine(combine) is fn
     assert [b[0] for b in stub_nvcc] == ["libwf_flatfat_query.so"]
     assert fq.builtin_op(torch.mul) is None
     assert fq.builtin_op(lambda a, b: a + b) is None  # a user combine

@@ -410,6 +410,16 @@ class _Rig:
         self.server.stop()
 
 
+def _settle(pred, timeout=5.0):
+    """Wait until ``pred()`` holds, for state the receiver's thread sets
+    just after it closes the consumer channel on EOS (edge completion)
+    or when the producer's trailer, shipped after its EOS, arrives (the
+    delivery check): a drain can return before either."""
+    deadline = time.monotonic() + timeout
+    while not pred() and time.monotonic() < deadline:
+        time.sleep(0.01)
+
+
 def _with_rig(pkg, plane, body, **kw):
     rig = _Rig(pkg, plane, **kw)
     try:
@@ -480,6 +490,7 @@ def _reconnect(rig):
         rig.sender.put(rig.pids[0], rig.batch(i * 10, 10))
     rig.sender.close(rig.pids[0])
     got = rig.drain()
+    _settle(lambda: rig.edge.completed)
     assert rig.sender.reconnects >= 1
     assert not rig.cgraph._cancel.cancelled
     assert rig.edge.completed
@@ -503,6 +514,8 @@ def _dropped(rig):
         rig.sender.put(rig.pids[0], rig.batch(i * 10, 10))
     rig.sender.close(rig.pids[0])
     got = rig.drain()
+    _settle(lambda: any(e.get("kind") == "conservation_violation"
+                        for e in rig.cgraph.flight.snapshot()))
     rows = rig.edge.blocks()
     events = rig.cgraph.flight.snapshot()
     gap = any(e.get("kind") == "wire_gap"

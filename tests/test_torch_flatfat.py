@@ -20,7 +20,11 @@ for those two, the bound the port promises.
 The plain query is held at n = 2^7, 2^8 and 2^9 (level counts either
 side of the kernel's chunk of walk steps) against both, at 2^16 and
 2^17 against ``FlatFATJax`` alone, and over a forest whose row ids
-include ones outside it (NaN there).
+include ones outside it (NaN there).  Max and min are also held bit for
+bit on leaves of +0 and -0 with a NaN (ROADMAP C12: ``jnp`` orders -0
+below +0, which torch's CPU ops do not): against the XLA query as they
+stand, against the Pallas kernel with every -0 of the port's result
+made +0, as that kernel's leaf loads make them (ROADMAP C13).
 
 The user combines no kernel builds in (``tests/torch_graphs.py``:
 a product, ``logaddexp``, a NaN-skipping max written with ``where``, and
@@ -44,8 +48,9 @@ from windflow_tpu_torch.ops.flatfat_torch import (BatchedFlatFAT,
                                                   FlatFATTorch, build_tree)
 from windflow_tpu_torch.ops.window_compute import WindowComputeEngine
 
-from torch_graphs import (PACKAGES, USER_EXACT, left_weighted,
-                          user_combines, user_values)
+from torch_graphs import (PACKAGES, USER_EXACT, assert_same_bits,
+                          left_weighted, signed_zeros, user_combines,
+                          user_values)
 
 RTOL = 1e-5
 
@@ -64,11 +69,14 @@ COMBINES.update({name: (_REF_USER[name][0], _PORT_USER[name][0],
                  for name in USER})
 
 
-def _values(name, rng, shape, integer):
-    """Integer-valued or normal leaves; a user combine's own law."""
+def _values(name, rng, shape, law):
+    """Leaves of a law: "int" integer-valued, "f32" normal, "zeros"
+    +0 and -0 with a NaN (max and min); a user combine's own law."""
     if name in USER:
         return user_values(name, rng, shape)
-    return (rng.integers(0, 100, shape) if integer
+    if law == "zeros":
+        return signed_zeros(rng, shape, name, n_nan=1)
+    return (rng.integers(0, 100, shape) if law == "int"
             else rng.normal(size=shape)).astype(np.float32)
 
 
@@ -90,37 +98,40 @@ def _extents(rng, n, B):
 
 
 def _query_cases():
-    """(name, integer, n, K): every combine at n = 2^8 (under the ids
-    these cases had before n varied), 2^7 and 2^9 -- level counts either
-    side of the kernel's chunk of walk steps; add and left_weighted at
-    2^16 and 2^17 (against FlatFATJax alone: the interpreted Pallas
-    kernel would walk those trees for minutes); and a forest of K = 3
-    trees whose row ids include ones outside it."""
+    """(name, law, n, K): every combine at n = 2^8 (under the ids these
+    cases had before n varied), 2^7 and 2^9 -- level counts either side
+    of the kernel's chunk of walk steps; add and left_weighted at 2^16
+    and 2^17 (against FlatFATJax alone: the interpreted Pallas kernel
+    would walk those trees for minutes); and a forest of K = 3 trees
+    whose row ids include ones outside it.  Max and min also on signed
+    zeros, at the same sizes."""
     cases = []
     for name in COMBINES:
-        for integer in (True, False):
-            base = f"{name}-{'int' if integer else 'f32'}"
-            cases.append(pytest.param(name, integer, 256, 0, id=base))
-            cases += [pytest.param(name, integer, n, 0, id=f"{base}-n{n}")
+        laws = ("int", "f32") + (("zeros",) if name in ("max", "min")
+                                 else ())
+        for law in laws:
+            base = f"{name}-{law}"
+            cases.append(pytest.param(name, law, 256, 0, id=base))
+            cases += [pytest.param(name, law, n, 0, id=f"{base}-n{n}")
                       for n in (128, 512)]
             if name in ("add", "left_weighted"):
-                cases += [pytest.param(name, integer, n, 0,
+                cases += [pytest.param(name, law, n, 0,
                                        id=f"{base}-n{n}")
                           for n in (1 << 16, 1 << 17)]
-            cases.append(pytest.param(name, integer, 256, 3,
+            cases.append(pytest.param(name, law, 256, 3,
                                       id=f"{base}-forest"))
     return cases
 
 
-@pytest.mark.parametrize("name,integer,n,K", _query_cases())
-def test_plain_query_matches_pallas_and_xla(name, integer, n, K):
+@pytest.mark.parametrize("name,law,n,K", _query_cases())
+def test_plain_query_matches_pallas_and_xla(name, law, n, K):
     ref_c, port_c, neutral, exact = COMBINES[name]
-    exact = exact and (integer or name != "add")
+    exact = exact and (law != "f32" or name != "add")
     rng = np.random.default_rng(list(COMBINES).index(name))
     B = 64
     trees, refs = [], []
     for _ in range(max(K, 1)):
-        leaves = _values(name, rng, n, integer)
+        leaves = _values(name, rng, n, law)
         f = FlatFATJax(ref_c, neutral, n)
         f.build(leaves)
         trees.append(np.array(f.tree))
@@ -143,13 +154,20 @@ def test_plain_query_matches_pallas_and_xla(name, integer, n, K):
     _check(got, want, exact)
     if n <= 512:
         _check(got, pallas, exact)
+    if law == "zeros":  # zero results, held bit for bit
+        assert (want == 0).any()
+        assert_same_bits(got, want)
+        # the Pallas kernel reads a leaf as the sum of its lane row with
+        # the other lanes zeroed, so a -0 leaf reads +0 (-0 + +0): its
+        # result is the XLA query's with every -0 made +0 (ROADMAP C13)
+        assert_same_bits(got + np.float32(0.0), pallas)
 
 
 @pytest.mark.parametrize("name", list(COMBINES))
 def test_build_tree_matches_reference(name):
     ref_c, port_c, neutral, exact = COMBINES[name]
     rng = np.random.default_rng(7)
-    leaves = _values(name, rng, 128, True)
+    leaves = _values(name, rng, 128, "int")
     f = FlatFATJax(ref_c, neutral, 128)
     f.build(leaves)
     got = build_tree(torch.from_numpy(leaves), port_c, neutral).numpy()
@@ -317,7 +335,7 @@ def test_engine_ffat_kind_matches_reference(name, pallas, monkeypatch):
     monkeypatch.setenv("WINDFLOW_PALLAS_FFAT", pallas)
     rng = np.random.default_rng(4)
     T, B = 500, 40
-    vals = _values(name, rng, T, True).astype(np.float64)
+    vals = _values(name, rng, T, "int").astype(np.float64)
     starts = rng.integers(0, T - 1, B)
     ends = np.minimum(starts + rng.integers(0, 80, B), T)
     gwids = np.arange(B, dtype=np.int64)

@@ -8,7 +8,8 @@ compute_kf's one-launch layout against a fold per row).
 
 Tolerances are the reference tests' own (rtol 1e-5, the ring 1e-4),
 for each package against numpy and for the port against the
-reference.
+reference.  Max and min on +0/-0 values with NaN are held bit for bit
+against the reference on every path (ROADMAP C12).
 """
 import os
 import socket
@@ -21,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_graphs import assert_same_bits, signed_zeros
 from torch_mesh import PACKAGES, PORT, make_mesh, mod
 
 REPO = Path(__file__).resolve().parents[1]
@@ -400,3 +402,38 @@ def test_compute_kf_at_config4_feed_matches_the_reference(kind):
     assert got[PORT].shape == (S, len(w)) and got[PORT].dtype == np.float32
     np.testing.assert_allclose(got[PORT], got[PACKAGES[0]], rtol=1e-5)
     np.testing.assert_allclose(got[PORT], want, rtol=1e-5)
+
+
+def _signed_zero_inputs(path, kind):
+    """(win_axis, win, slide, args) of one path's call: +0/-0 values
+    with NaN, at the shapes of the twins above."""
+    rng = np.random.default_rng(["kf", "wmr", "pf_ring"].index(path))
+    if path == "kf":  # 8 key rows, windows of 0..8 leaves
+        T, B = 64, 16
+        starts = rng.integers(0, T, (8, B)).astype(np.int32)
+        ends = np.minimum(starts + rng.integers(0, 9, (8, B)), T).astype(
+            np.int32)
+        return 1, 8, 4, (signed_zeros(rng, (8, T), kind, n_nan=2), starts,
+                         ends)
+    if path == "wmr":  # [K_rows, W_shards, B, stripe_len]
+        return 2, 8, 4, (signed_zeros(rng, (8, 2, 6, 5), kind, n_nan=2,
+                                      zero_rate=0.3),)
+    # [K, W_shards * P_loc, pane_len]: 8 panes a window, 2 a slide
+    return 4, 32, 8, (signed_zeros(rng, (8, 32, 4), kind, n_nan=2,
+                                   zero_rate=0.2), 4)
+
+
+@pytest.mark.parametrize("path", ["kf", "wmr", "pf_ring"])
+@pytest.mark.parametrize("kind", ["max", "min"])
+def test_signed_zeros_match_the_reference(kind, path):
+    """compute_kf (the plain K2r fold), compute_wmr and compute_pf_ring
+    (``_fold``'s reductions) order -0 below +0 and propagate NaN as the
+    reference's XLA programs do: bit for bit."""
+    win_axis, win, slide, args = _signed_zero_inputs(path, kind)
+    got = {}
+    for pkg in PACKAGES:
+        eng = _engine(pkg, make_mesh(pkg, win_axis), win, slide, kind)
+        got[pkg] = _np(getattr(eng, f"compute_{path}")(*args))
+    want = got[PACKAGES[0]]
+    assert (want == 0).any()
+    assert_same_bits(got[PORT], want)

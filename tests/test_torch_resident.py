@@ -16,7 +16,8 @@
   scripted lane flip with zero lost windows.
 
 Values are integer-valued, so every f32 sum is exact: keys, ids, order
-and values must be equal exactly.  The port runs with ``device="cpu"``
+and values must be equal exactly.  Max and min over +0/-0 values with a
+NaN are held bit for bit (ROADMAP C12).  The port runs with ``device="cpu"``
 (the plain versions of its kernels); tests/test_torch_card.py reruns
 the lanes on the card.
 """
@@ -30,6 +31,8 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+
+from torch_graphs import signed_zeros
 
 PACKAGES = ("windflow_tpu", "windflow_tpu_torch")
 N_KEYS = 3
@@ -83,12 +86,14 @@ def _pin_cost_model(monkeypatch, tmp_path):
         monkeypatch.setattr(planner, "_device_compute_ms", None)
 
 
-def _batch(pkg, lo, hi, n_keys=N_KEYS, vmod=7):
+def _batch(pkg, lo, hi, n_keys=N_KEYS, vmod=7, values=None):
+    """Tuples [lo, hi): value idx % vmod, or ``values[idx]``."""
     TupleBatch = _mod(pkg, "core.tuples").TupleBatch
     idx = np.arange(lo, hi)
     return TupleBatch({"key": idx % n_keys, "id": idx // n_keys,
                        "ts": idx // n_keys,
-                       "value": (idx % vmod).astype(np.float64)})
+                       "value": ((idx % vmod).astype(np.float64)
+                                 if values is None else values[lo:hi])})
 
 
 def _flat(out):
@@ -103,10 +108,13 @@ def _flat(out):
     return flat
 
 
-def _run_logic(pkg, lg, n, chunk=500, n_keys=N_KEYS):
+def _run_logic(pkg, lg, n, chunk=500, n_keys=N_KEYS, values=None):
+    """Drive ``lg`` over n tuples; ``values`` (an array of n) replaces
+    the value law."""
     out = []
     for c in range(0, n, chunk):
-        lg.svc(_batch(pkg, c, min(c + chunk, n), n_keys), 0, out.append)
+        lg.svc(_batch(pkg, c, min(c + chunk, n), n_keys, values=values),
+               0, out.append)
     lg.eos_flush(out.append)
     return _flat(out)
 
@@ -141,6 +149,28 @@ class TestResidentPaneCarry:
                 got[pkg, resident] = _run_logic(pkg, lg, 6000)
         want = got["windflow_tpu", True]
         assert want and got["windflow_tpu_torch", True] == want
+        assert got["windflow_tpu_torch", False] == want
+
+    @pytest.mark.parametrize("kind", ["max", "min"])
+    def test_signed_zeros_match_reference_and_rebuild(self, kind):
+        """The resident forest's fold and the rebuild lane's sparse
+        table order -0 below +0 as the reference's XLA programs do, NaN
+        propagating: every window's value bit for bit (by ``repr``),
+        windows that stay inside the pane ring."""
+        values = signed_zeros(np.random.default_rng(12), 6000, kind,
+                              n_nan=1).astype(np.float64)
+        got = {}
+        for pkg in PACKAGES:
+            for resident in (False, True):
+                lg = _win_logic(pkg, resident, kind)
+                got[pkg, resident] = {
+                    k: (repr(v), ts) for k, (v, ts) in
+                    _run_logic(pkg, lg, 6000, values=values).items()}
+        want = got["windflow_tpu", True]
+        assert "0.0" in {v for v, _ in want.values()}
+        assert "-0.0" in {v for v, _ in want.values()}
+        assert want == got["windflow_tpu", False]
+        assert got["windflow_tpu_torch", True] == want
         assert got["windflow_tpu_torch", False] == want
 
     def test_ships_the_reference_bytes_a_fraction_of_rebuild(self):

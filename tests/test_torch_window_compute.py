@@ -5,7 +5,9 @@ every builtin kind the headline and its neighbours launch.
 Inputs come from seeded numpy.  Integer-valued data makes every sum,
 count and prefix sum exact in f32, so the two engines must agree
 exactly; on random f32 data max/min (selections) stay exact and sums
-over short extents agree within ``rtol=1e-5``.
+over short extents agree within ``rtol=1e-5``.  On values of +0 and -0
+with NaN, max and min (the port's ``_sparse_table`` against the
+reference's ``_sparse_table_program``) agree bit for bit (ROADMAP C12).
 """
 import numpy as np
 import pytest
@@ -16,6 +18,8 @@ from windflow_tpu.ops.window_compute import \
 from windflow_tpu_torch.ops.cuda import window_sum as ws
 from windflow_tpu_torch.ops.window_compute import (ResidentPaneCarry,
                                                    WindowComputeEngine)
+
+from torch_graphs import assert_same_bits, signed_zeros
 
 # (T, B, widest extent): shapes on both sides of the 2048 bucket floor
 # and of the tile/scan switch at 32
@@ -61,6 +65,24 @@ def test_engine_matches_reference_on_random_f32(kind):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     else:
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", SHAPES[1:],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", ["max", "min"])
+def test_engine_matches_reference_on_signed_zeros(kind, shape):
+    """The sparse table's combines order -0 below +0 as ``jnp`` does,
+    and NaN propagates: bit for bit the reference's on +0/-0 values
+    with a few NaNs."""
+    T, B, max_w = shape
+    cols, starts, ends, gwids = _launch(T, B, max_w, seed=T + B)
+    cols["value"] = signed_zeros(np.random.default_rng(T), T, kind,
+                                 n_nan=2).astype(np.float64)
+    want = RefEngine(kind).compute(cols, starts, ends, gwids).block()
+    got = WindowComputeEngine(kind, device="cpu").compute(
+        cols, starts, ends, gwids).block()
+    assert (want[ends > starts] == 0).any()
+    assert_same_bits(got, want)
 
 
 def test_handle_on_cpu_is_ready_and_trimmed():

@@ -126,7 +126,7 @@ def assert_same(got, want, rtol=0.0):
     """Equal keys and per-key id order exactly; values equal (rtol 0)
     or within ``rtol``."""
     g, w = per_key(got), per_key(want)
-    assert sorted(g) == sorted(w)
+    assert sorted(g, key=repr) == sorted(w, key=repr)
     for k in w:
         assert g[k][0] == w[k][0], (k, g[k][0], w[k][0])
         if rtol:
@@ -217,6 +217,38 @@ def user_values(name, rng, shape):
         flat = v.reshape(-1)
         flat[rng.integers(0, flat.size, max(1, flat.size // 16))] = np.nan
     return v
+
+
+# ---------------------------------------------------------------------------
+# signed zeros under max and min (ROADMAP C12)
+# ---------------------------------------------------------------------------
+
+def signed_zeros(rng, shape, kind, n_nan=0, zero_rate=0.8):
+    """f32 values for a max or min fold whose result is often a zero of
+    either sign: a share ``zero_rate`` of +0 and -0 in equal measure,
+    the rest values that lose to a zero under ``kind`` (-1 or -2 for
+    max, 1 or 2 for min), and NaN at ``n_nan`` random places (fewer
+    zeros suit longer folds)."""
+    zeros = np.where(rng.random(shape) < 0.5, np.float32(0.0),
+                     np.float32(-0.0))
+    loser = rng.integers(1, 3, shape) * (-1 if kind == "max" else 1)
+    v = np.where(rng.random(shape) < zero_rate, zeros,
+                 loser).astype(np.float32)
+    if n_nan:
+        v.reshape(-1)[rng.integers(0, v.size, n_nan)] = np.nan
+    return v
+
+
+def assert_same_bits(got, want):
+    """``got`` equals ``want`` bit for bit as f32, -0 apart from +0; a
+    NaN must face a NaN (its payload is not compared)."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.uint32),
+                                  want[~nan].view(np.uint32))
 
 
 # ---------------------------------------------------------------------------

@@ -365,8 +365,9 @@ class WinSeqFFATTPUBuilder(_WinBuilderBase, _TPUBuilderMixin):
         if isinstance(self.combine, str) \
                 and self.combine in self._BUILTIN_COMBINES:
             import torch
-            fn = {"sum": torch.add, "max": torch.maximum,
-                  "min": torch.minimum}[self.combine]
+            from ..ops import minmax
+            fn = {"sum": torch.add, "max": minmax.maximum,
+                  "min": minmax.minimum}[self.combine]
             return fn, self._BUILTIN_COMBINES[self.combine][1]
         raise ValueError(
             "resident (rebuild=False) mode needs a (torch function, "

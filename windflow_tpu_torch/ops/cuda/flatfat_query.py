@@ -16,8 +16,9 @@ keeps oldest -> newest order; ``combine`` and ``neutral`` form a monoid.
   _build/`` on first use and bound through ctypes) on the current
   stream.  The kernel's combine is compiled in.  ``torch.add``,
   ``torch.maximum`` and ``torch.minimum`` (and the builtin names
-  ``sum``/``count``/``max``/``min``) are in the library built from the
-  source as it stands; any other combine is lowered from its torch ops
+  ``sum``/``count``/``max``/``min``, and ``ops/minmax.py``'s ``maximum``
+  and ``minimum``) are in the library built from the source as it
+  stands; any other combine is lowered from its torch ops
   to C++ (:mod:`.combine_lower`) and compiled into a library of its own,
   ``_build/libwf_flatfat_query_<key>.so``, keyed by the lowered text.
   :func:`resolve_combine` does both and returns a :class:`KernelCombine`
@@ -26,7 +27,8 @@ keeps oldest -> newest order; ``combine`` and ``neutral`` form a monoid.
   launch failure raises: there is no fallback.
 * On a CPU tensor it runs :func:`flatfat_query_plain`, the torch form of
   the reference's ``_query_body`` (windflow_tpu/ops/flatfat_jax.py:149),
-  for any torch combine.
+  for any torch combine.  Every plain version folds a builtin max or min
+  with ``ops/minmax.py``, which orders signed zeros as ``jnp`` does.
 
 The kernel replaces the Pallas TPU kernel
 ``windflow_tpu/ops/pallas/flatfat_query.py`` (``_build``'s kernel, entry
@@ -72,6 +74,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 from ...runtime.build import BUILD_DIR, build_shared, nvcc_command
+from .. import minmax
 from .combine_lower import combine_key, lower_combine
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -92,10 +95,14 @@ _user_launches = dict.fromkeys(_ENTRIES, 0)
 # combine -> the op code of the library built from flatfat_query.cu as
 # it stands; a user combine's library holds op code USER_OP only
 _BUILTIN_OPS = {torch.add: 0, torch.maximum: 1, torch.minimum: 2,
+                minmax.maximum: 1, minmax.minimum: 2,
                 "sum": 0, "count": 0, "max": 1, "min": 2}
 USER_OP = 3
-_BUILTIN_FNS = {"sum": torch.add, "count": torch.add, "max": torch.maximum,
-                "min": torch.minimum}
+# builtin combine -> what the plain versions fold with (max and min in
+# the reference's order for signed zeros)
+_BUILTIN_FNS = {"sum": torch.add, "count": torch.add, "max": minmax.maximum,
+                "min": minmax.minimum, torch.maximum: minmax.maximum,
+                torch.minimum: minmax.minimum}
 
 # lowered-body key -> its library; combine -> its KernelCombine
 _user_libs: Dict[str, ctypes.CDLL] = {}
@@ -151,12 +158,17 @@ def resolve_combine(combine: Any) -> KernelCombine:
 
 
 def torch_combine(combine: Any) -> Callable:
-    """``combine`` as a binary torch function (builtin names resolved)."""
+    """``combine`` as a binary torch function: builtin names resolved,
+    and ``torch.maximum``/``torch.minimum`` as ``ops/minmax.py`` orders
+    them."""
     if isinstance(combine, str):
         return _BUILTIN_FNS[combine]
     if isinstance(combine, KernelCombine):
         return combine.fn
-    return combine
+    try:
+        return _BUILTIN_FNS.get(combine, combine)
+    except TypeError:  # unhashable callable
+        return combine
 
 
 def _levels(n: int) -> int:

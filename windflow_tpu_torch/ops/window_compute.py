@@ -9,7 +9,8 @@ reference engine's jitted XLA programs.
   ``ops/cuda/window_sum.cu`` on a CUDA device -- always, with no
   fallback -- and its plain version (the tile/scan pair) on the CPU.
 * **max/min** use a sparse table (log-sweep of strided combines) + two
-  gathers per window, in plain torch.
+  gathers per window, in plain torch, with ``ops/minmax.py``'s combines
+  (signed zeros in the reference's order).
 * **custom window functions** (a torch callable ``fn(gwid, cols, mask)
   -> 0-d tensor``) gather every column into ``[B_pad, w_pad]`` tiles
   and run ``torch.vmap(fn)`` over the windows on the engine's device.
@@ -39,6 +40,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from . import minmax
 from .cuda.flatfat_query import flatfat_build_query, resolve_combine
 from .cuda.window_sum import next_pow2, window_sums
 from .device import resolve_device, stream_context
@@ -74,7 +76,7 @@ def _sparse_table(values: torch.Tensor, se: torch.Tensor, kind: str,
     combine over [i, i + 2^j).  Result = combine(table[j][start],
     table[j][end - 2^j]) with j = floor(log2(len)) per window."""
     neutral = float("-inf") if kind == "max" else float("inf")
-    comb = torch.maximum if kind == "max" else torch.minimum
+    comb = minmax.maximum if kind == "max" else minmax.minimum
     starts, ends = se[0].long(), se[1].long()
     T = values.shape[0]
     levels = [values]
@@ -228,7 +230,7 @@ class ResidentPaneCarry:
                              f"monoid kind, not {kind!r}")
         self.kind = kind
         self.combine = {"sum": torch.add, "count": torch.add,
-                        "max": torch.maximum, "min": torch.minimum}[kind]
+                        "max": minmax.maximum, "min": minmax.minimum}[kind]
         self.neutral = (0.0 if kind in ("sum", "count")
                         else (-np.inf if kind == "max" else np.inf))
         self.panes_per_window = panes_per_window

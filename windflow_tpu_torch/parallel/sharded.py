@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import minmax
 from ..ops.cuda.flatfat_query import (BUILD_QUERY_MIN_LEAVES,
                                       flatfat_build_query, resolve_combine)
 from ..ops.cuda.window_sum import next_pow2, window_sums
@@ -70,8 +71,9 @@ def _resolve_kind(kind):
     neutral) that farms_tpu._ffat_kind produces (lift rides separately
     there) or the mesh 4-tuple ('ffat', lift, combine, neutral) with a
     columnar lift.  The combine is a binary torch function forming a
-    monoid with the neutral (``torch.maximum`` and ``torch.minimum`` for
-    max and min); on the card it is compiled into K2r."""
+    monoid with the neutral (``ops/minmax.py``'s ``maximum`` and
+    ``minimum`` for max and min: signed zeros in the reference's order);
+    on the card it is compiled into K2r."""
     if isinstance(kind, tuple) and kind and kind[0] == "ffat":
         if len(kind) == 4:
             _, lift, combine, neutral = kind
@@ -83,9 +85,9 @@ def _resolve_kind(kind):
                 "('ffat', lift, combine, neutral)")
         return "ffat", combine, float(neutral), lift
     if kind == "max":
-        return "max", torch.maximum, float("-inf"), None
+        return "max", minmax.maximum, float("-inf"), None
     if kind == "min":
-        return "min", torch.minimum, float("inf"), None
+        return "min", minmax.minimum, float("inf"), None
     if kind in ("sum", "count", "mean"):
         return kind, None, 0.0, None
     raise ValueError(f"unknown mesh window kind: {kind!r}")
@@ -93,14 +95,15 @@ def _resolve_kind(kind):
 
 def _fold(x: torch.Tensor, kind: str, combine, neutral: float,
           dim: int) -> torch.Tensor:
-    """Combine-fold along one axis: one-op reductions for the builtins,
-    the log-depth pairwise tree for an FFAT combine."""
+    """Combine-fold along one axis: reductions for the builtins (max and
+    min with signed zeros in the reference's order), the log-depth
+    pairwise tree for an FFAT combine."""
     if kind in ("sum", "count"):
         return x.sum(dim)
     if kind == "max":
-        return x.amax(dim)
+        return minmax.amax(x, dim)
     if kind == "min":
-        return x.amin(dim)
+        return minmax.amin(x, dim)
     return pairwise_fold(x.movedim(dim, -1), combine, neutral)
 
 
@@ -232,15 +235,19 @@ class ShardedWindowEngine:
         row k holds its tuples round-robin striped over the 'win' axis
         (WinMap_Emitter's per-key round robin, wm_nodes.hpp:62), padded
         with the combine's neutral.  Each shard folds its stripe (the
-        MAP stage); the REDUCE over 'win' is a sum / max / min over the
-        shard axis for the builtins, or the gathered partials folded by
-        :func:`pairwise_fold` for an FFAT combine.  Returns
-        [K_rows, B]."""
+        MAP stage); the REDUCE over 'win' is a sum over the shard axis,
+        the reference's pmax / pmin (``ops/minmax.py``: shards folded in
+        order, NaN passed over) for max and min, or the gathered
+        partials folded by :func:`pairwise_fold` for an FFAT combine.
+        Returns [K_rows, B]."""
         if self.kind == "mean":
             raise ValueError("WinMapReduceMesh does not support 'mean' "
                              "(stripe partials carry no count channel)")
         x = self._put(stripes, torch.float32)
         partial = _fold(x, self.kind, self.combine, self.neutral, -1)
+        if self.kind in ("max", "min"):
+            reduce = minmax.pmax if self.kind == "max" else minmax.pmin
+            return self._gather(reduce(partial, 1))
         return self._gather(_fold(partial, self.kind, self.combine,
                                   self.neutral, 1))
 
