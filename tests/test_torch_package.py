@@ -257,14 +257,14 @@ def test_launch_span_is_a_record_function_only_when_asked(monkeypatch):
     from windflow_tpu_torch.telemetry import profiler
     monkeypatch.delenv("WINDFLOW_TORCH_PROFILE", raising=False)
     profiler.reset()
-    assert not isinstance(profiler.launch_span("x"),
+    assert not isinstance(profiler.span("x"),
                           torch.profiler.record_function)
     monkeypatch.setenv("WINDFLOW_TORCH_PROFILE", "1")
     profiler.reset()
     try:
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-            with profiler.launch_span("windflow/window_launch"):
+            with profiler.span("windflow/window_launch"):
                 torch.ones(4).sum()
         names = {e.key for e in prof.key_averages()}
         assert "windflow/window_launch" in names

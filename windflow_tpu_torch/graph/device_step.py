@@ -60,6 +60,7 @@ from ..runtime.emitters import StandardEmitter
 from ..runtime.node import (FusedLogic, RtNode, _FusedDownstreamError,
                             source_loop_of)
 from ..runtime.win_routing import KFEmitter
+from ..telemetry.profiler import spanned
 from .fuse import (_consumers_by_channel, _has_async_emit, _is_collector,
                    _is_elastic, _is_ingest_head, _merge, _partition_splits,
                    _segments_of)
@@ -79,21 +80,24 @@ class DeviceStepLogic(FusedLogic):
 
     def __init__(self, segments):
         super().__init__(segments)
-        # (segment index, engine) for every window engine in the chain,
-        # computed AFTER the base class flattened nested fusion
+        # (segment index, engine, its chunk flush) for every window
+        # engine in the chain, computed AFTER the base class flattened
+        # nested fusion; the flush is the engine's work, so it runs in
+        # the engine segment's profiler span (telemetry/profiler.py)
         self._step_engines = [
-            (k, s.logic) for k, s in enumerate(self.segments)
+            (k, s.logic, spanned(self._span_labels[k], s.logic.flush_chunk))
+            for k, s in enumerate(self.segments)
             if isinstance(s.logic, WinSeqTPULogic)]
         self.chunks_in = 0
         self.chunk_launches = 0
 
     # -- chunk boundary helpers -----------------------------------------
     def _hold(self):
-        for _k, eng in self._step_engines:
+        for _k, eng, _f in self._step_engines:
             eng.chunk_hold = True
 
     def _release(self):
-        for _k, eng in self._step_engines:
+        for _k, eng, _f in self._step_engines:
             eng.chunk_hold = False
 
     def _flush_boundary(self):
@@ -102,8 +106,8 @@ class DeviceStepLogic(FusedLogic):
         segments (and the node's outward emit) see results exactly as
         they would from an intra-chunk launch."""
         launches = 0
-        for k, eng in self._step_engines:
-            launches += eng.flush_chunk(self._exits[k])
+        for k, _eng, flush in self._step_engines:
+            launches += flush(self._exits[k])
         self.chunk_launches += launches
 
     # -- NodeLogic surface ----------------------------------------------

@@ -414,8 +414,9 @@ class MultiPipe:
             if (len(stages) == 1 and len(stages[0].replicas) == 1
                     and stages[0].collector is None):
                 self._mark_used(op)
-                self.tails[0].logic = ChainedLogic(self.tails[0].logic,
-                                                   stages[0].replicas[0])
+                self.tails[0].logic = ChainedLogic(
+                    self.tails[0].logic, stages[0].replicas[0],
+                    f"{self.name}/{op.name}.0")
                 if pin is not None:
                     # the pin survives chaining by pinning the merged
                     # node (a chained operator shares its tail's thread
@@ -427,8 +428,9 @@ class MultiPipe:
                 or self.graph.mode != Mode.DEFAULT):
             return self.add(op)
         self._mark_used(op)
-        for tail, logic in zip(self.tails, logics):
-            tail.logic = ChainedLogic(tail.logic, logic)
+        for i, (tail, logic) in enumerate(zip(self.tails, logics)):
+            tail.logic = ChainedLogic(tail.logic, logic,
+                                      f"{self.name}/{op.name}.{i}")
             if pin is not None:
                 tail.worker_pin = pin
         self._op_names.append(f"{op.name}(chained)")

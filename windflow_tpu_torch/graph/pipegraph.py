@@ -421,6 +421,11 @@ class PipeGraph:
                     # poisoning could unblock it (runtime/node.py
                     # SourceLoopLogic.eos_flush)
                     src.cancel_token = self._cancel
+                    # the source's profiler span, under the name of
+                    # the segment or node it heads
+                    src.span_label = "windflow/op/" + (
+                        n.logic.segments[0].name
+                        if isinstance(n.logic, FusedLogic) else n.name)
                     # adaptive-skew watermarked bodies
                     # (eventtime/watermarks.py skew="auto") announce
                     # their bound revisions on the flight recorder

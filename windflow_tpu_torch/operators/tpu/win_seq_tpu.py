@@ -48,7 +48,7 @@ from ...core import win_assign as wa
 from ...ops.window_compute import WindowComputeEngine
 from ...runtime.emitters import StandardEmitter
 from ...runtime.node import EOSMarker, NodeLogic
-from ...telemetry.profiler import launch_span
+from ...telemetry.profiler import span, spanned
 from ..base import Operator, StageSpec
 
 DEFAULT_BATCH_LEN = 256
@@ -235,19 +235,19 @@ class _AsyncDispatcher:
                 break
             if self.aborting or self.error is not None:
                 continue  # failed/aborted: drain the queue, launch nothing
-            (engine, cols, starts, ends, gwids, descs, birth, emit,
+            (engine, cols, starts, ends, gwids, descs, emit,
              nbytes_in) = item
             last_emit = emit
             try:
                 t_sub = _time.perf_counter()
                 # torch.profiler capture hook (telemetry/profiler.py):
                 # a no-op unless WINDFLOW_TORCH_PROFILE=1
-                with launch_span("windflow/window_launch"), \
+                with span("windflow/window_launch"), \
                         _launch_context(engine):
                     handle = engine.compute(cols, starts, ends, gwids)
                 logic.launched_batches += 1
-                pending.append((handle, descs, birth, t_sub,
-                                len(pending) + 1, nbytes_in))
+                pending.append((handle, descs, t_sub, len(pending) + 1,
+                                nbytes_in))
                 # flush at depth (backpressure) AND any batch whose
                 # async D2H already landed -- otherwise results wait
                 # for the pipeline to fill and latency grows with
@@ -372,7 +372,8 @@ class WinSeqTPULogic(NodeLogic):
         self.keys: Dict[Any, _TPUKeyState] = {}
         # batch under assembly: descriptors (key, gwid, start_key, end_key)
         self.descriptors: List = []
-        # in-flight batches, oldest first: (handle, descriptors, birth).
+        # in-flight batches, oldest first: (handle, descriptors, submit
+        # time, depth at submit, bytes in).
         # Depth > 1 keeps several device programs + async D2H copies in
         # flight so one high-latency transport roundtrip amortizes over
         # many launches (deepens the reference's 2-deep waitAndFlush
@@ -385,7 +386,6 @@ class WinSeqTPULogic(NodeLogic):
         self._dispatcher: Optional[_AsyncDispatcher] = None
         self.ignored_tuples = 0
         self.launched_batches = 0
-        self.last_launch_ms = 0.0  # newest submit->result wall (ms)
         # launch also when this much unshipped data is buffered, even if
         # the window batch is not full -- bounds host memory and keeps
         # device transfers pipelined (the adaptive resize analogue,
@@ -400,10 +400,6 @@ class WinSeqTPULogic(NodeLogic):
         # (full-batch fill time + RTT)
         self.max_batch_delay_ms = max_batch_delay_ms
         self._last_launch_t = 0.0
-        # window-result latency samples (descriptor creation -> emission),
-        # feeding the p99 metric of BASELINE.md
-        self.latency_samples: List[float] = []
-        self._batch_birth: Optional[float] = None
         # telemetry plane (telemetry/; docs/OBSERVABILITY.md): the
         # trace context of the most recent traced input crosses the
         # async dispatcher -- captured at svc, stamped with a device
@@ -462,6 +458,11 @@ class WinSeqTPULogic(NodeLogic):
                         kind=win_kind)
             except Exception:
                 self._native = None
+        # the native fold's calls: spanned at svc_init when the
+        # profiler switch is on (telemetry/profiler.py)
+        if self._native is not None:
+            self._ingest = self._native.ingest
+            self._synth_ingest = self._native.synth_ingest
         if resident is True:
             self._enable_resident(required=True)
 
@@ -590,6 +591,10 @@ class WinSeqTPULogic(NodeLogic):
                 if self._resident is not None else 0)
 
     def svc_init(self) -> None:
+        if self._native is not None:
+            self._ingest = spanned("windflow/fold", self._native.ingest)
+            self._synth_ingest = spanned("windflow/fold",
+                                         self._native.synth_ingest)
         if self.stats is not None and self.stats.operator_name:
             self._trace_name = self.stats.operator_name
         # adaptive x2 / /2 batch resize (win_seq_gpu.hpp:574-592): only
@@ -675,15 +680,12 @@ class WinSeqTPULogic(NodeLogic):
     # -- batch plane -------------------------------------------------------
     def _finish(self, entry, emit) -> None:
         """Flush one in-flight batch: block on its handle, record the
-        per-launch device time (submit -> result on host), sample the
-        window-result latency, feed the adaptive batch resize, emit."""
-        handle, descs, birth, t_sub, depth, nbytes_in = entry
+        per-launch device time (submit -> result on host), feed the
+        adaptive batch resize, emit."""
+        handle, descs, t_sub, depth, nbytes_in = entry
         results = handle.block()
         now = _time.perf_counter()
         launch_ms = (now - t_sub) * 1e3
-        self.last_launch_ms = launch_ms
-        if len(self.latency_samples) < 100_000:
-            self.latency_samples.append(now - birth)
         if self.stats is not None:  # single-writer: dispatcher thread
             self.stats.bytes_from_device += results.nbytes
             self.stats.device_time_ms += launch_ms
@@ -728,7 +730,7 @@ class WinSeqTPULogic(NodeLogic):
                 tr.hop(name, t_sub, now)
         self._emit_results(results, descs, emit, trace=tr)
 
-    def _submit(self, cols, starts, ends, gwids, descs, birth, emit,
+    def _submit(self, cols, starts, ends, gwids, descs, emit,
                 engine=None) -> None:
         """Hand one staged batch to the device: via the dispatcher
         thread (default) or inline with the waitAndFlush protocol."""
@@ -743,16 +745,14 @@ class WinSeqTPULogic(NodeLogic):
             if self._dispatcher is None:
                 self._dispatcher = _AsyncDispatcher(self)
             self._dispatcher.submit(
-                (eng, cols, starts, ends, gwids, descs, birth, emit,
-                 nbytes_in))
+                (eng, cols, starts, ends, gwids, descs, emit, nbytes_in))
         else:
             self._flush_pending(emit)  # waitAndFlush of the previous
             t_sub = _time.perf_counter()
-            with launch_span("windflow/window_launch"), \
-                    _launch_context(eng):
+            with span("windflow/window_launch"), _launch_context(eng):
                 handle = eng.compute(cols, starts, ends, gwids)
             self.launched_batches += 1
-            self.pending.append((handle, descs, birth, t_sub,
+            self.pending.append((handle, descs, t_sub,
                                  len(self.pending) + 1, nbytes_in))
         self._buffered_since_launch = 0
         self._last_launch_t = _time.perf_counter()
@@ -970,10 +970,8 @@ class WinSeqTPULogic(NodeLogic):
         eng = self.engine
         if use_panes and kind == "count":
             eng = self._count_engine()
-        birth = self._batch_birth or _time.perf_counter()
-        self._batch_birth = None
         self._submit({"value": flat_vals}, starts, ends, gwids, descs,
-                     birth, emit, engine=eng)
+                     emit, engine=eng)
         # the staged flat buffer is dispatcher-owned now: evict consumed
         # prefixes
         for k in keys_involved:
@@ -1067,9 +1065,7 @@ class WinSeqTPULogic(NodeLogic):
             "run_lens": np.asarray(run_lens, np.int32),
             "q_rows": q_rows,
         }
-        birth = self._batch_birth or _time.perf_counter()
-        self._batch_birth = None
-        self._submit(cols, starts, ends, gwids, descs, birth, emit,
+        self._submit(cols, starts, ends, gwids, descs, emit,
                      engine=carry.launch_engine())
         if self.stats is not None:  # single-writer: ingest thread
             self.stats.device_state_bytes = carry.state_bytes
@@ -1099,8 +1095,6 @@ class WinSeqTPULogic(NodeLogic):
             gwid = wa.gwid_of_lwid(first_gwid, lwid, cfg)
             rts = (gwid * self.slide_len + self.win_len - 1
                    if self.win_type == WinType.TB else -1)  # CB: at launch
-            if not self.descriptors:
-                        self._batch_birth = _time.perf_counter()
             self.descriptors.append((key, gwid, start, end, rts, key))
             st.next_fire += 1
             if (len(self.descriptors) >= self.batch_len
@@ -1117,10 +1111,6 @@ class WinSeqTPULogic(NodeLogic):
         if out is None:
             return
         vals, starts, ends, d_keys, d_gwids, d_rts = out[:6]
-        birth = self._batch_birth or _time.perf_counter()
-        # leftover ready windows (partial flush) restart the age clock
-        self._batch_birth = (_time.perf_counter() if self._native.ready()
-                             else None)
         cols = {"value": vals}
         # count windows sum their per-pane counts; mean windows divide
         # pane-sum totals by pane-count totals (pair program); max/min
@@ -1133,8 +1123,7 @@ class WinSeqTPULogic(NodeLogic):
         else:
             eng = None
         self._submit(cols, starts, ends, d_gwids,
-                     ("native", d_keys, d_gwids, d_rts), birth, emit,
-                     engine=eng)
+                     ("native", d_keys, d_gwids, d_rts), emit, engine=eng)
 
     def _mean_engine(self):
         if not hasattr(self, "_mean_eng"):
@@ -1147,10 +1136,7 @@ class WinSeqTPULogic(NodeLogic):
 
     def _svc_batch_native(self, batch: TupleBatch, emit):
         ids = batch.id if self.win_type == WinType.CB else batch.ts
-        ready = self._native.ingest(batch.key, ids, batch.ts,
-                                    batch["value"])
-        if ready and self._batch_birth is None:
-            self._batch_birth = _time.perf_counter()
+        ready = self._ingest(batch.key, ids, batch.ts, batch["value"])
         self._buffered_since_launch += len(batch)
         if (ready and not self.chunk_hold
                 and (ready >= self.batch_len
@@ -1240,11 +1226,9 @@ class WinSeqTPULogic(NodeLogic):
             # declared synthetic stream: the native engine generates and
             # folds the chunk in one pass (no host column materializes)
             if self._native is not None:
-                ready = self._native.synth_ingest(
+                ready = self._synth_ingest(
                     item.start, item.n, item.n_keys, item.vmod,
                     item.vscale, item.voff)
-                if ready and self._batch_birth is None:
-                    self._batch_birth = _time.perf_counter()
                 self._buffered_since_launch += item.n
                 if (ready and not self.chunk_hold
                         and (ready >= self.batch_len

@@ -18,6 +18,7 @@ from typing import Any, Callable, Optional, Sequence
 from ..core.tuples import SynthChunk
 from ..resilience.cancel import GraphCancelled
 from ..resilience.policies import POLICY_DEAD_LETTER, POLICY_FAIL
+from ..telemetry.profiler import spanned
 from ..telemetry.trace import attach_if_absent
 from .queues import Channel, CHANNEL_TIMEOUT, GET_MANY_MAX, Watermark
 
@@ -120,9 +121,17 @@ class ChainedLogic(NodeLogic):
     (the reference's combine_with_laststage, multipipe.hpp:381, and the
     ff_comb PLQ/WLQ fusion of optimize_PaneFarm, pane_farm.hpp:222-250)."""
 
-    def __init__(self, a: NodeLogic, b: NodeLogic):
+    def __init__(self, a: NodeLogic, b: NodeLogic,
+                 b_name: Optional[str] = None):
         self.a = a
         self.b = b
+        # profiler span of b's svc (telemetry/profiler.py), resolved at
+        # svc_init: b's operator name (None: b's work counts in the
+        # span around a); span_kind is the thread the chain runs on,
+        # set by the enclosing chain through span_kinds
+        self.b_name = b_name
+        self.span_kind = "op"
+        self._b_svc = b.svc
         # the chain accepts synth-chunk descriptors iff its first half
         # does (the runtime materializes them otherwise)
         self.accepts_synth_chunks = getattr(a, "accepts_synth_chunks",
@@ -152,6 +161,10 @@ class ChainedLogic(NodeLogic):
         # logic only; forward it so fused stages report device metrics
         self.a.stats = self.stats
         self.b.stats = self.stats
+        _, kind = span_kinds((self.a, self.b), self.span_kind)
+        if self.b_name is not None:
+            self._b_svc = spanned(f"windflow/{kind}/{self.b_name}",
+                                  self.b.svc)
         self.a.svc_init()
         self.b.svc_init()
 
@@ -165,7 +178,7 @@ class ChainedLogic(NodeLogic):
                 hook(x, emit)
             emit(x)
             return
-        self.b.svc(x, 0, emit)
+        self._b_svc(x, 0, emit)
 
     def svc(self, item, channel_id, emit):
         self.a.svc(item, channel_id,
@@ -224,6 +237,23 @@ class _FusedDownstreamError(BaseException):
     def __init__(self, error: BaseException):
         self.error = error
         super().__init__(str(error))
+
+
+def span_kinds(logics, kind: str = "op") -> list:
+    """The thread each of ``logics``, run inline one after another,
+    runs on, as its profiler span names it (telemetry/profiler.py): the
+    first on a thread of ``kind``, and every one behind a logic that
+    emits asynchronously on that window engine's dispatcher thread
+    (``"emit"``).  A ChainedLogic among them takes its kind here, for
+    its own halves at its svc_init."""
+    kinds = []
+    for logic in logics:
+        kinds.append(kind)
+        if isinstance(logic, ChainedLogic):
+            logic.span_kind = kind
+        if not getattr(logic, "sync_emit", True):
+            kind = "emit"
+    return kinds
 
 
 class FusedSegment:
@@ -296,6 +326,7 @@ class FusedLogic(NodeLogic):
         self.trace_sampler = None
         self._entry0 = None
         self._exits = None
+        self._span_labels = None
         self._build_chain()
         # idle ticks delegate only when some segment defines them (the
         # RtNode probes hasattr, exactly like ChainedLogic)
@@ -306,12 +337,18 @@ class FusedLogic(NodeLogic):
     def _build_chain(self):
         segs = self.segments
         n = len(segs)
+        # profiler span names (telemetry/profiler.py)
+        kinds = span_kinds([seg.logic for seg in segs])
+        labels = [f"windflow/{kind}/{seg.name}"
+                  for kind, seg in zip(kinds, segs)]
+        self._span_labels = labels
         exits = [None] * n
         entry_next = None
         for k in range(n - 1, -1, -1):
             seg = segs[k]
             exits[k] = self._make_exit(seg, entry_next, first=(k == 0))
-            entry_next = self._make_entry(seg, exits[k], first=(k == 0),
+            entry_next = self._make_entry(seg, exits[k], labels[k],
+                                          first=(k == 0),
                                           last=(k == n - 1))
         self._exits = exits
         self._entry0 = entry_next
@@ -352,9 +389,9 @@ class FusedLogic(NodeLogic):
                     raise _FusedDownstreamError(e) from e
         return exit_
 
-    def _make_entry(self, seg: FusedSegment, exit_, first: bool = False,
-                    last: bool = False):
-        svc = seg.logic.svc
+    def _make_entry(self, seg: FusedSegment, exit_, label: str,
+                    first: bool = False, last: bool = False):
+        svc = spanned(label, seg.logic.svc)
         # live-context inheritance is SAME-THREAD state: an async-
         # emitting segment (sync_emit=False, the device dispatcher)
         # runs exits from its own thread, which must not read the
@@ -787,6 +824,7 @@ class RtNode(threading.Thread):
         self.watermarks_out = 0
         self._accepts_chunks = False  # resolved per thread (durable path)
         self._sync_emit = True
+        self._svc = None  # the logic's svc, spanned or not (run)
 
     def bind_outlet_faults(self) -> None:
         """Propagate put-level fault state (FaultPlan drop_put /
@@ -840,13 +878,13 @@ class RtNode(threading.Thread):
                 self._obs_left -= 1
                 if self._obs_left <= 0:
                     t0 = _time.perf_counter()
-                    self.logic.svc(item, cid, self._emit)
+                    self._svc(item, cid, self._emit)
                     stats.observe((_time.perf_counter() - t0) * 1e6)
                     self._obs_left = 1 if stats.samples < 64 else 16
                 else:
-                    self.logic.svc(item, cid, self._emit)
+                    self._svc(item, cid, self._emit)
             else:
-                self.logic.svc(item, cid, self._emit)
+                self._svc(item, cid, self._emit)
         except Exception as e:
             if self.error_policy == POLICY_FAIL:
                 raise
@@ -888,7 +926,7 @@ class RtNode(threading.Thread):
         buf: list = []
         append = buf.append
         stats = self.stats
-        svc = self.logic.svc
+        svc = self._svc
         tele = self.telemetry
         processed = 0
         t0 = _time.perf_counter() if stats is not None else 0.0
@@ -1128,10 +1166,14 @@ class RtNode(threading.Thread):
             # logics that track device metrics (launches, staged bytes)
             # write them into the replica's record directly
             self.logic.stats = self.stats
+            self._fused = isinstance(self.logic, FusedLogic)
+            # the operator's profiler span (telemetry/profiler.py);
+            # a fused node's segments carry their own
+            self._svc = self.logic.svc if self._fused else \
+                spanned(f"windflow/op/{self.name}", self.logic.svc)
             # telemetry wiring resolved once per thread, not per item:
             # fused nodes attribute residency to their first segment and
             # e2e closures to their last (per-segment records)
-            self._fused = isinstance(self.logic, FusedLogic)
             if self._fused:
                 # segments observe residency and close traces in their
                 # own entries -- the consume loops must NOT observe too
@@ -1231,6 +1273,9 @@ class SourceLoopLogic(NodeLogic):
     pause_control = None
     epoch_injector = None
     cancel_token = None
+    # the source's profiler span around each generation step
+    # (telemetry/profiler.py; named by PipeGraph.start)
+    span_label = None
 
     def __init__(self, step: Callable[[Callable[[Any], None]], bool]):
         self.step = step
@@ -1239,6 +1284,8 @@ class SourceLoopLogic(NodeLogic):
         raise RuntimeError("source has no inputs")
 
     def eos_flush(self, emit):
+        step = self.step if self.span_label is None \
+            else spanned(self.span_label, self.step)
         while True:
             tok = self.cancel_token
             if tok is not None and tok.cancelled:
@@ -1249,5 +1296,5 @@ class SourceLoopLogic(NodeLogic):
             ctl = self.pause_control
             if ctl is not None:
                 ctl.gate()
-            if not self.step(emit):
+            if not step(emit):
                 break

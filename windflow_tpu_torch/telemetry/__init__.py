@@ -11,7 +11,7 @@ structured-event ring dumped on failure, and a Prometheus-scrapable
 """
 from .histogram import LogHistogram, bucket_le_us
 from .metrics import CONTENT_TYPE, render_openmetrics
-from .profiler import launch_span
+from .profiler import span
 from .recorder import FlightRecorder
 from .trace import (DEFAULT_TRACE_SAMPLE, TelemetryHub, TraceContext,
                     TraceSampler, attach_if_absent, get_trace)
@@ -22,5 +22,5 @@ __all__ = [
     "get_trace", "attach_if_absent", "DEFAULT_TRACE_SAMPLE",
     "FlightRecorder",
     "render_openmetrics", "CONTENT_TYPE",
-    "launch_span",
+    "span",
 ]
