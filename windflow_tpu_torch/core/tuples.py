@@ -201,6 +201,10 @@ class TupleBatch:
     flows over host queues on the batch plane and the host-side staging
     format for device transfers (the TPU analogue of the reference's
     pinned-buffer batch assembly, win_seq_gpu.hpp:552-596).
+
+    A BatchFilter's output may be a :class:`DeferredBatch`: a deferred
+    selection over its input's columns, each column gathered when first
+    read.  Its values are those of an eager ``take`` of the same rows.
     """
 
     # ``trace`` carries a sampled telemetry TraceContext end to end
@@ -268,18 +272,14 @@ class TupleBatch:
         return [c for c in self.cols if c not in self.CONTROL]
 
     # -- transforms --------------------------------------------------------
-    def take(self, idx, pool: Optional[ColumnPool] = None) -> "TupleBatch":
-        """Row subset.  Slices stay zero-copy views; boolean masks are
-        converted to indices once and gathered with np.take, which is
-        4-5x faster than boolean fancy indexing repeated per column
-        (the filter stages live on this path).  A contiguous index run
-        ships as a slice view (zero copies); with ``pool`` the gathered
-        columns reuse arena buffers instead of allocating.  A riding
-        trace context propagates to every sub-batch (KEYBY partitions
-        keep their sampled path traced)."""
+    def _rows(self, idx):
+        """The rows ``idx`` names, as ``take`` and a filter's deferred
+        selection read them: a slice (the one given, or a contiguous
+        ascending index run as its zero-copy view) or an intp index
+        array (a boolean mask converted once with nonzero, which is
+        4-5x faster than boolean fancy indexing repeated per column)."""
         if isinstance(idx, slice):
-            return self._carry(
-                TupleBatch({k: v[idx] for k, v in self.cols.items()}))
+            return idx
         idx = np.asarray(idx)
         if idx.dtype == np.bool_:
             if len(idx) != len(self):
@@ -292,11 +292,24 @@ class TupleBatch:
         n = len(idx)
         if n > 1 and int(idx[-1]) - int(idx[0]) == n - 1 \
                 and bool((np.diff(idx) == 1).all()):
-            # contiguous ascending run: zero-copy view instead of a
-            # gather (the cheap first/last guard gates the O(n) check)
+            # contiguous ascending run (the cheap first/last guard
+            # gates the O(n) check)
             lo = int(idx[0])
-            return self._carry(TupleBatch({k: v[lo:lo + n]
-                                           for k, v in self.cols.items()}))
+            return slice(lo, lo + n)
+        return idx
+
+    def take(self, idx, pool: Optional[ColumnPool] = None) -> "TupleBatch":
+        """Row subset.  Slices and contiguous index runs stay zero-copy
+        views; other indices (a boolean mask's once) are gathered with
+        np.take (``_rows``); with ``pool`` the gathered columns reuse
+        arena buffers instead of allocating.  A riding trace context
+        propagates to every sub-batch (KEYBY partitions keep their
+        sampled path traced)."""
+        idx = self._rows(idx)
+        if isinstance(idx, slice):
+            return self._carry(
+                TupleBatch({k: v[idx] for k, v in self.cols.items()}))
+        n = len(idx)
         if pool is None:
             return self._carry(TupleBatch({k: np.take(v, idx, axis=0)
                                            for k, v in self.cols.items()}))
@@ -345,6 +358,106 @@ class TupleBatch:
 
     def __repr__(self):
         return f"TupleBatch(n={len(self)}, cols={list(self.cols)})"
+
+
+class DeferredBatch(TupleBatch):
+    """A filter's scattered row selection, gathered column by column.
+
+    It holds its input's columns, the kept rows' indices and a cache:
+    a column is gathered with ``np.take`` the first time anything reads
+    it (``key``/``id``/``ts``, ``batch[name]``), and once.  ``len``
+    gathers nothing; ``cols`` (and so ``payload_names``, ``with_cols``,
+    ``concat``, ``records``, pickling) gathers every column, in the
+    input's order.  Every value is that of ``TupleBatch.take`` of the
+    same rows, byte for byte.  ``take`` composes the indices and
+    gathers nothing.
+
+    A BatchFilter emits one for a scattered selection: a chained or
+    fused successor on its thread gathers where it reads, and an outlet
+    materializes one (``materialize``) before it enters a channel, so
+    the gathers stay on the filter's thread and a queue never keeps the
+    input's columns alive.  ``stats`` is the filter's StatsRecord
+    (or None): each gather adds its bytes to ``bytes_gathered``."""
+
+    __slots__ = ("_src", "_idx", "_cache", "_all", "_stats")
+
+    def __init__(self, batch: TupleBatch, idx: np.ndarray, stats=None):
+        if isinstance(batch, DeferredBatch):
+            self._src = batch._src
+            self._idx = batch._idx[idx]
+        else:
+            self._src = batch.cols
+            self._idx = idx
+        self._cache: Dict[str, np.ndarray] = {}
+        self._all = None
+        self._stats = stats
+        tr = getattr(batch, "trace", None)
+        if tr is not None:
+            self.trace = tr
+
+    def _col(self, name: str) -> np.ndarray:
+        col = self._cache.get(name)
+        if col is None:
+            col = np.take(self._src[name], self._idx, axis=0)
+            self._cache[name] = col
+            st = self._stats
+            if st is not None:
+                st.bytes_gathered += col.nbytes
+        return col
+
+    @property
+    def cols(self) -> Dict[str, np.ndarray]:
+        if self._all is None:
+            self._all = {name: self._col(name) for name in self._src}
+        return self._all
+
+    def __len__(self) -> int:
+        return len(self._idx)
+
+    @property
+    def selected_nbytes(self) -> int:
+        """Bytes of every column over the kept rows: what an eager take
+        copies (read from the input's columns; nothing is gathered)."""
+        return len(self._idx) * sum(c[:1].nbytes for c in self._src.values())
+
+    @property
+    def key(self) -> np.ndarray:
+        return self._col("key")
+
+    @property
+    def id(self) -> np.ndarray:
+        return self._col("id")
+
+    @property
+    def ts(self) -> np.ndarray:
+        return self._col("ts")
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        return self._col(name)
+
+    def take(self, idx, pool: Optional[ColumnPool] = None) -> "TupleBatch":
+        """Row subset of the selection: the index arrays compose and
+        nothing is gathered (``pool`` is not needed)."""
+        return DeferredBatch(self, self._rows(idx), self._stats)
+
+    def materialize(self) -> TupleBatch:
+        """A plain TupleBatch of every column (the trace rides on)."""
+        return self._carry(TupleBatch(self.cols))
+
+    def __reduce__(self):
+        return _plain_batch, (self.cols, getattr(self, "trace", None))
+
+    def __repr__(self):
+        return (f"DeferredBatch(n={len(self)}, cols={list(self._src)}, "
+                f"gathered={list(self._cache)})")
+
+
+def _plain_batch(cols, trace):
+    """Unpickle a DeferredBatch as the plain TupleBatch it stands for."""
+    out = TupleBatch(cols)
+    if trace is not None:
+        out.trace = trace
+    return out
 
 
 class EOS:

@@ -67,6 +67,13 @@ class StatsRecord:
     bytes_received: int = 0
     outputs_sent: int = 0
     bytes_sent: int = 0
+    # a BatchFilter's scattered selections (operators/batch_ops.py):
+    # the bytes of the rows they keep, what an eager take copies, and
+    # of those the bytes gathered (core/tuples.DeferredBatch): the
+    # columns a logic on the filter's thread read, or all of them where
+    # an outlet materializes the selection before a channel
+    bytes_selected: int = 0
+    bytes_gathered: int = 0
     inputs_ignored: int = 0
     # tuples whose svc raised under a skip/dead_letter error policy
     # (resilience/policies.py); the replica stayed alive
@@ -193,6 +200,10 @@ class StatsRecord:
             "Frontier": round(self.frontier, 1),
             "Frontier_lag_ms": round(self.frontier_lag_ms, 1),
         }
+        if self.bytes_selected:
+            # filter replicas only (and the chain that holds one)
+            d["Bytes_selected"] = self.bytes_selected
+            d["Bytes_gathered"] = self.bytes_gathered
         if self.sched_wait_s:
             # fair-share gate wait (scheduler/leases.py): nonzero only
             # when co-resident tenants actually contended

@@ -17,6 +17,7 @@ from __future__ import annotations
 from ..core.basic import OrderingMode, Pattern, RoutingMode
 from ..core.context import RuntimeContext
 from ..core.meta import with_context
+from ..core.tuples import DeferredBatch
 from ..runtime.emitters import StandardEmitter
 from ..runtime.node import EOSMarker, NodeLogic, SourceLoopLogic
 from .base import Operator, StageSpec
@@ -70,6 +71,12 @@ class _BatchTransformLogic(NodeLogic):
 
 
 class _BatchFilterLogic(NodeLogic):
+    """The filter's row selection.  An empty selection emits nothing, a
+    contiguous run the zero-copy slice of its rows, and a scattered one
+    a :class:`DeferredBatch`: the next logic on this thread gathers
+    only the columns it reads, and an outlet gathers every column
+    before the selection enters a channel (``runtime.node.Outlet``)."""
+
     def __init__(self, fn):
         self.fn = fn
 
@@ -77,10 +84,19 @@ class _BatchFilterLogic(NodeLogic):
         if isinstance(item, EOSMarker):
             emit(item)
             return
-        mask = self.fn(item)
-        out = item.take(mask)
-        if len(out):
-            emit(out)
+        rows = item._rows(self.fn(item))
+        if isinstance(rows, slice):
+            out = item.take(rows)
+            if len(out):
+                emit(out)
+            return
+        if len(rows) == 0:
+            return
+        st = self.stats
+        out = DeferredBatch(item, rows, st)
+        if st is not None:
+            st.bytes_selected += out.selected_nbytes
+        emit(out)
 
 
 class BatchMap(Operator):
@@ -115,7 +131,17 @@ class BatchMap(Operator):
 
 class BatchFilter(Operator):
     """Vectorized predicate; also accepts a boolean ``Expr``
-    (``BatchFilter(F.value % 4 == 0)``)."""
+    (``BatchFilter(F.value % 4 == 0)``).
+
+    The output may hold a deferred selection over the input's columns
+    (``core.tuples.DeferredBatch``): a chained or fused successor on the
+    filter's thread gathers each column when it first reads it, and the
+    outlet gathers every column before the output enters a channel.
+    The values are those of an eager ``take`` of the kept rows, and the
+    input's columns must stay unchanged while the output lives, as for
+    the zero-copy slice a contiguous run already is.  Under tracing the replica's record
+    counts the bytes of the scattered selections (``Bytes_selected``)
+    and of the columns gathered (``Bytes_gathered``)."""
 
     def __init__(self, fn, parallelism=1, name="batch_filter", keyed=False):
         super().__init__(name, parallelism,

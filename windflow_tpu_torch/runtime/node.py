@@ -15,7 +15,7 @@ import time as _time
 import traceback
 from typing import Any, Callable, Optional, Sequence
 
-from ..core.tuples import SynthChunk
+from ..core.tuples import DeferredBatch, SynthChunk
 from ..resilience.cancel import GraphCancelled
 from ..resilience.policies import POLICY_DEAD_LETTER, POLICY_FAIL
 from ..telemetry.profiler import spanned
@@ -657,6 +657,11 @@ class Outlet:
             cell.inflight = False
 
     def send(self, item: Any) -> None:
+        if type(item) is DeferredBatch:
+            # a filter's deferred selection never enters a channel: its
+            # gathers belong to this thread, and its input's columns
+            # must not stay alive in a queue
+            item = item.materialize()
         if len(self.dests) > 1 and isinstance(item, SynthChunk):
             # routing emitters read key/id columns: materialize the
             # descriptor before fan-out (single-destination outlets
@@ -669,6 +674,10 @@ class Outlet:
         same-destination items into single transfers.  Emitters that
         implement ``emit_many`` (StandardEmitter) group; others fall
         back to per-item ``send``."""
+        if any(type(it) is DeferredBatch for it in items):
+            # as in send: gathered here, before any channel
+            items = [it.materialize() if type(it) is DeferredBatch
+                     else it for it in items]
         emit_many = getattr(self.emitter, "emit_many", None)
         if emit_many is None:
             for item in items:
