@@ -25,15 +25,26 @@
 // dropped, matching the scalar path's acceptance rule
 // (win_seq.hpp:417-428).
 //
+// Event-time firing (wfn_engine_watermark): a stream that carries
+// watermarks fires windows by event time instead of by each key's own
+// later tuples.  From the first watermark on, every key with an open
+// window waits in the bucket of its next window (windows are aligned,
+// so one bucket a slide); a watermark fires the due buckets in order of
+// (window, key), and a key whose windows have all fired and been staged
+// is freed, its probe-table slot with it.  A later tuple of a freed key
+// starts the key afresh, never below the watermark's fired frontier.
+// Without watermarks none of this runs.
+//
 // GIL-free: every entry point only touches caller-provided arrays and
 // internal state; Python calls via ctypes release the GIL.
 
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <deque>
 #include <limits>
+#include <map>
 #include <numeric>
-#include <unordered_map>
 #include <vector>
 
 namespace {
@@ -63,11 +74,25 @@ struct KeyState {
     i64 max_id = -1;
     i64 arrivals = 0;         // renumber lane: running arrival count
                               // (ids implicit, persists across eviction)
+    i64 key = 0;              // this state's key
+    bool live = false;        // holds a key (else on the free list)
+    i64 queued = 0;           // fired windows not yet staged
+    bool in_bucket = false;   // waits in the watermark bucket next_fire
+    // flush scratch: the span of this key's windows in one staging call
+    i64 fl_stamp = -1, fl_lo = 0, fl_hi = 0, fl_off = 0, fl_poff = 0;
 };
 
 struct Desc {
     i64 key, lwid, start, end;
+    KeyState* st;
 };
+
+// floor division (numpy's //): a negative numerator lands in its
+// containing pane or window, not in the one above it
+static inline i64 floordiv(i64 a, i64 b) {
+    i64 q = a / b;
+    return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
 
 enum class Kind : int { SUM = 0, COUNT = 1, MAX = 2, MIN = 3, MEAN = 4 };
 
@@ -81,20 +106,42 @@ struct Engine {
     i64 pane;                 // gcd(win, slide)
     int pshift;               // log2(pane) when pane is a power of two
     double neutral;
-    std::unordered_map<i64, KeyState> keys;
-    std::vector<Desc> ready;
+    // the keys' states: a slab of stable slots, freed ones reused (with
+    // their rings' capacity) before the slab grows; the scatter table
+    // below indexes every live one
+    std::deque<KeyState> slab;
+    std::vector<KeyState*> free_states;
+    i64 n_live = 0;
+    std::vector<Desc> ready;  // fired, unstaged: ready[ready_head:]
+    std::size_t ready_head = 0;
     i64 ignored = 0;          // tuples dropped behind the fired frontier
+    // event-time firing (entered at the first watermark): the keys
+    // waiting by their next window, and the first window not yet fired
+    // for every key (a fresh key never fires a window below it)
+    bool wm_mode = false;
+    i64 wm_next = INT64_MIN;
+    std::map<i64, std::vector<KeyState*>> buckets;
+    std::vector<KeyState*> to_evict;  // keys left with nothing to fire
+    i64 n_watermarks = 0, fired_wm = 0, evicted = 0;
+    // flush scratch: per-key count prefixes and the keys staged
+    i64 flush_id = 0;
+    std::vector<i64> st_prefix;
+    std::vector<KeyState*> touched;
     // staging buffers (valid until the next flush)
     std::vector<double> st_vals, st_cnts;
     std::vector<i64> st_starts, st_ends, st_keys, st_gwids, st_rts;
-    // scatter-ingest machinery: an open-addressing table maps key ->
-    // (KeyState*, per-call dense index).  Pass 1 does ONE table probe
-    // per tuple and gathers per-key min/max; pass 2 folds each tuple
-    // into its pane through the cached state pointer.
-    std::vector<i64> tab_key;
-    std::vector<KeyState*> tab_state;
-    std::vector<i64> tab_stamp;
-    std::vector<int32_t> tab_dense;
+    // scatter-ingest machinery: an open-addressing table maps every
+    // live key -> (KeyState*, per-call dense index).  Pass 1 does ONE
+    // table probe per tuple and gathers per-key min/max; pass 2 folds
+    // each tuple into its pane through the cached state pointer.
+    struct Slot {
+        i64 key = EMPTY;
+        KeyState* st = nullptr;   // occupancy: non-null (a real key may
+                                  // equal the EMPTY sentinel)
+        i64 stamp = -1;           // the ingest call that last touched it
+        int32_t dense = 0;        // its dense index in that call
+    };
+    std::vector<Slot> tab;
     i64 call_id = 0;
     // per-call dense arrays (index = order of first touch this call)
     std::vector<KeyState*> d_state;
@@ -107,64 +154,228 @@ struct Engine {
           kind(k), pane(std::gcd(w, s)) {
         pshift = (pane & (pane - 1)) == 0 ? __builtin_ctzll(pane) : -1;
         neutral = kind == Kind::MAX ? -INF : kind == Kind::MIN ? INF : 0.0;
-        tab_key.assign(1024, EMPTY);
-        tab_state.assign(1024, nullptr);
-        tab_stamp.assign(1024, -1);
-        tab_dense.assign(1024, 0);
+        tab.assign(1024, Slot());
     }
 
     inline i64 pane_of(i64 id) const {
         return pshift >= 0 ? id >> pshift : id / pane;
     }
 
+    // a key's home slot: consecutive keys 17 slots apart, so that a
+    // stretch of live consecutive keys (NEXMark's auctions) interleaves
+    // with empty slots -- short probe runs, which keeps deletion cheap
+    // -- while a batch's neighbouring keys still probe in strided order
+    static inline std::size_t home(i64 key, std::size_t mask) {
+        return (std::size_t)((uint64_t)key * 17u) & mask;
+    }
+
     void grow_table() {
-        std::size_t m = tab_key.size() * 4;
-        std::vector<i64> nk(m, EMPTY);
-        std::vector<KeyState*> ns(m, nullptr);
-        std::vector<i64> nst(m, -1);
-        std::vector<int32_t> nd(m, 0);
-        for (std::size_t s = 0; s < tab_key.size(); ++s) {
-            // occupancy = non-null state pointer, NOT the key sentinel:
-            // a real key may equal INT64_MIN
-            if (tab_state[s] == nullptr) continue;
-            std::size_t h = std::hash<i64>{}(tab_key[s]) & (m - 1);
-            while (ns[h] != nullptr) h = (h + 1) & (m - 1);
-            nk[h] = tab_key[s];
-            ns[h] = tab_state[s];
-            nst[h] = tab_stamp[s];
-            nd[h] = tab_dense[s];
+        std::vector<Slot> nt(tab.size() * 4);
+        std::size_t mask = nt.size() - 1;
+        for (const Slot& sl : tab) {
+            if (sl.st == nullptr) continue;
+            std::size_t h = home(sl.key, mask);
+            while (nt[h].st != nullptr) h = (h + 1) & mask;
+            nt[h] = sl;
         }
-        tab_key.swap(nk);
-        tab_state.swap(ns);
-        tab_stamp.swap(nst);
-        tab_dense.swap(nd);
+        tab.swap(nt);
+    }
+
+    // a state for ``key`` from the free list, else a new slab slot
+    KeyState* new_state(i64 key) {
+        KeyState* st;
+        if (free_states.empty()) {
+            st = &slab.emplace_back();
+        } else {
+            st = free_states.back();
+            free_states.pop_back();
+        }
+        st->key = key;
+        st->live = true;
+        ++n_live;
+        return st;
+    }
+
+    // the table slot holding ``key``, or the empty slot where it goes
+    inline std::size_t slot_of_key(i64 key) const {
+        std::size_t mask = tab.size() - 1;
+        std::size_t h = home(key, mask);
+        while (tab[h].st != nullptr && tab[h].key != key)
+            h = (h + 1) & mask;
+        return h;
+    }
+
+    KeyState* find_state(i64 key) const {
+        return tab[slot_of_key(key)].st;
+    }
+
+    // ``key``'s state, made (and indexed) on first use
+    KeyState& state_of(i64 key) {
+        std::size_t h = slot_of_key(key);
+        if (tab[h].st != nullptr) return *tab[h].st;
+        if (n_live * 4 >= (i64)tab.size()) {
+            grow_table();
+            h = slot_of_key(key);
+        }
+        tab[h] = Slot{key, new_state(key), -1, 0};
+        return *tab[h].st;
     }
 
     inline int32_t dense_of(i64 key) {
-        std::size_t mask = tab_key.size() - 1;
-        std::size_t h = std::hash<i64>{}(key) & mask;
-        while (true) {
-            if (tab_state[h] != nullptr && tab_key[h] == key) break;
-            if (tab_state[h] == nullptr) {
-                if (keys.size() * 4 >= tab_key.size()) {
-                    grow_table();
-                    return dense_of(key);
-                }
-                tab_key[h] = key;
-                tab_state[h] = &keys[key];
-                tab_stamp[h] = -1;
-                break;
-            }
-            h = (h + 1) & mask;
+        std::size_t h = slot_of_key(key);
+        if (tab[h].st == nullptr) {
+            state_of(key);
+            h = slot_of_key(key);
         }
-        if (tab_stamp[h] != call_id) {
-            tab_stamp[h] = call_id;
-            tab_dense[h] = (int32_t)d_key.size();
-            d_key.push_back(tab_key[h]);
-            d_state.push_back(tab_state[h]);
+        Slot& sl = tab[h];
+        if (sl.stamp != call_id) {
+            sl.stamp = call_id;
+            sl.dense = (int32_t)d_key.size();
+            d_key.push_back(sl.key);
+            d_state.push_back(sl.st);
             d_count.push_back(0);
         }
-        return tab_dense[h];
+        return sl.dense;
+    }
+
+    // drop ``key``'s table slot (backward-shift deletion: every later
+    // entry of the probe run moves up to the freed slot unless its home
+    // lies after it)
+    void table_erase(i64 key) {
+        std::size_t mask = tab.size() - 1;
+        std::size_t i = slot_of_key(key);
+        if (tab[i].st == nullptr) return;
+        std::size_t j = i;
+        while (true) {
+            j = (j + 1) & mask;
+            if (tab[j].st == nullptr) break;
+            std::size_t h = home(tab[j].key, mask);
+            bool stays = i <= j ? (i < h && h <= j) : (i < h || h <= j);
+            if (stays) continue;
+            tab[i] = tab[j];
+            i = j;
+        }
+        tab[i] = Slot();
+    }
+
+    // free a key's state: its slot leaves the table, the state (its
+    // rings emptied, their capacity kept) goes to the free list
+    void evict(KeyState* st) {
+        table_erase(st->key);
+        std::vector<double> pacc = std::move(st->pacc);
+        std::vector<i64> pcnt = std::move(st->pcnt);
+        std::vector<i64> plid = std::move(st->plid);
+        std::vector<i64> plts = std::move(st->plts);
+        *st = KeyState();
+        pacc.clear();
+        pcnt.clear();
+        plid.clear();
+        plts.clear();
+        st->pacc = std::move(pacc);
+        st->pcnt = std::move(pcnt);
+        st->plid = std::move(plid);
+        st->plts = std::move(plts);
+        free_states.push_back(st);
+        --n_live;
+        ++evicted;
+    }
+
+    void clear_keys() {
+        slab.clear();
+        free_states.clear();
+        n_live = 0;
+        std::fill(tab.begin(), tab.end(), Slot());
+    }
+
+    inline i64 n_ready() const { return (i64)(ready.size() - ready_head); }
+
+    inline void fire(KeyState& st, i64 key, i64 w) {
+        ready.push_back(Desc{key, w, w * slide, w * slide + win, &st});
+        ++st.queued;
+    }
+
+    // first data of a key: anchor its frontier at the first window that
+    // holds the earliest tuple -- firing from 0 on an epoch-scale first
+    // id/ts would emit ~id/slide empty windows (flood/OOM) -- and never
+    // below the windows a watermark has already fired
+    inline void anchor_at(KeyState& st, i64 first) {
+        st.anchor = first < win ? 0 : (first - win) / slide + 1;
+        st.next_fire = std::max(st.anchor, wm_next);
+        st.pane_base = pane_of(st.next_fire * slide);
+    }
+
+    // after a key's tuples folded: the windows they opened, then either
+    // per-key firing (a window fires once the key's own tuples pass its
+    // end + delay) or, under watermarks, the key's bucket
+    void settle(KeyState& st, i64 key, bool hopping) {
+        if (!hopping && st.max_id >= 0) {
+            i64 last_w = (st.max_id + 1 + slide - 1) / slide - 1;
+            if (last_w > st.opened_max) st.opened_max = last_w;
+        }
+        if (wm_mode) {
+            if (st.in_bucket) return;
+            if (st.next_fire <= st.opened_max) {
+                buckets[st.next_fire].push_back(&st);
+                st.in_bucket = true;
+            } else if (st.queued == 0) {
+                to_evict.push_back(&st);  // only late tuples: nothing open
+            }
+            return;
+        }
+        while (true) {
+            i64 end = st.next_fire * slide + win;
+            if (st.max_id < end + delay || st.next_fire > st.opened_max)
+                break;
+            fire(st, key, st.next_fire);
+            ++st.next_fire;
+        }
+    }
+
+    void evict_pending() {
+        for (KeyState* st : to_evict) evict(st);
+        to_evict.clear();
+    }
+
+    // Fire, in order of (window, key), every window whose end is at or
+    // below the watermark ``wm``.  Returns the windows fired.
+    i64 watermark(i64 wm) {
+        if (!wm_mode) {
+            // from now on windows fire by event time: every key with an
+            // open window joins the bucket of its next one
+            wm_mode = true;
+            for (KeyState& st : slab) {
+                if (!st.live) continue;
+                if (st.next_fire <= st.opened_max) {
+                    buckets[st.next_fire].push_back(&st);
+                    st.in_bucket = true;
+                } else if (st.queued == 0) {
+                    to_evict.push_back(&st);
+                }
+            }
+            evict_pending();
+        }
+        ++n_watermarks;
+        if (wm < INT64_MIN / 2) return 0;
+        const i64 due = floordiv(wm - win, slide);  // last window due
+        if (due + 1 > wm_next) wm_next = due + 1;
+        i64 fired = 0;
+        while (!buckets.empty() && buckets.begin()->first <= due) {
+            const i64 w = buckets.begin()->first;
+            std::vector<KeyState*> wait = std::move(buckets.begin()->second);
+            buckets.erase(buckets.begin());
+            for (KeyState* st : wait) {
+                fire(*st, st->key, w);
+                st->next_fire = w + 1;
+                if (st->next_fire <= st->opened_max) {
+                    buckets[w + 1].push_back(st);
+                } else {
+                    st->in_bucket = false;  // freed once staged (flush)
+                }
+            }
+            fired += (i64)wait.size();
+        }
+        fired_wm += fired;
+        return fired;
     }
 
     // grow the pane ring so relative pane p_rel is addressable
@@ -239,16 +450,7 @@ struct Engine {
                 d_min[d] = st.arrivals;
                 d_max[d] = st.arrivals + d_count[d] - 1;
             }
-            if (st.max_id < 0) {
-                // first data for this key: anchor the fire frontier at
-                // the first window containing the earliest tuple --
-                // firing from 0 on an epoch-scale first id/ts would
-                // emit ~id/slide empty windows (flood/OOM)
-                i64 first = d_min[d];
-                st.anchor = first < win ? 0 : (first - win) / slide + 1;
-                st.next_fire = st.anchor;
-                st.pane_base = pane_of(st.anchor * slide);
-            }
+            if (st.max_id < 0) anchor_at(st, d_min[d]);
             d_accept[d] = st.next_fire > st.anchor
                 ? (st.next_fire - 1) * slide + win : st.anchor * slide;
             // pre-grow the ring to this batch's frontier so the fold
@@ -324,22 +526,11 @@ struct Engine {
         for (std::size_t d = 0; d < nd; ++d) {
             KeyState& st = *d_state[d];
             if (d_max[d] > st.max_id) st.max_id = d_max[d];
-            if (!hopping && st.max_id >= 0) {
-                i64 last_w = (st.max_id + 1 + slide - 1) / slide - 1;
-                if (last_w > st.opened_max) st.opened_max = last_w;
-            }
-            i64 key = d_key[d];
-            while (true) {
-                i64 end = st.next_fire * slide + win;
-                if (st.max_id < end + delay || st.next_fire > st.opened_max)
-                    break;
-                ready.push_back(Desc{key, st.next_fire,
-                                     st.next_fire * slide, end});
-                ++st.next_fire;
-            }
+            settle(st, d_key[d], hopping);
             d_min[d] = INT64_MAX;
             d_max[d] = INT64_MIN;
         }
+        evict_pending();
     }
 
     // Fused synthesis + ingest: generate events [start, start+n) of the
@@ -373,13 +564,11 @@ struct Engine {
             // first event e >= start with e % K == k
             i64 e0 = start + (((k - start % K) % K) + K) % K;
             if (e0 >= endE) continue;
-            KeyState& st = keys[k];
+            KeyState& st = state_of(k);
             const i64 id0 = e0 / K;
             const i64 cnt = (endE - e0 + K - 1) / K;
             if (st.max_id < 0 && !mask) {
-                st.anchor = id0 < win ? 0 : (id0 - win) / slide + 1;
-                st.next_fire = st.anchor;
-                st.pane_base = pane_of(st.anchor * slide);
+                anchor_at(st, id0);
             } else if (st.max_id < 0 && mask) {
                 // anchor on the first SURVIVING id (a masked prefix
                 // must not open windows the record plane never sees)
@@ -391,9 +580,7 @@ struct Engine {
                     if (vm0 >= vmod) vm0 -= vmod;
                 }
                 if (first < 0) continue;  // whole chunk filtered out
-                st.anchor = first < win ? 0 : (first - win) / slide + 1;
-                st.next_fire = st.anchor;
-                st.pane_base = pane_of(st.anchor * slide);
+                anchor_at(st, first);
             }
             i64 hi_rel = pane_of(id0 + cnt - 1) - st.pane_base;
             if (hi_rel >= 0) ensure_pane(st, hi_rel);
@@ -459,19 +646,9 @@ struct Engine {
                 }
                 if (last_ok > st.max_id) st.max_id = last_ok;
             }
-            if (!hopping) {
-                const i64 last_w = (st.max_id + 1 + slide - 1) / slide - 1;
-                if (last_w > st.opened_max) st.opened_max = last_w;
-            }
-            while (true) {
-                const i64 end = st.next_fire * slide + win;
-                if (st.max_id < end + delay || st.next_fire > st.opened_max)
-                    break;
-                ready.push_back(Desc{k, st.next_fire,
-                                     st.next_fire * slide, end});
-                ++st.next_fire;
-            }
+            settle(st, k, hopping);
         }
+        evict_pending();
     }
 
     // pane accessors tolerant of extents beyond the retained ring
@@ -485,11 +662,6 @@ struct Engine {
         return (r >= 0 && r < (i64)st.pcnt.size()) ? st.pcnt[r] : 0;
     }
 
-    struct SpanInfo {
-        i64 off, base_key;
-        std::vector<i64> prefix;  // prefix tuple counts over the span
-    };
-
     // Stage up to max_windows ready windows as pane partials.
     // Returns the number staged.
     i64 flush(i64 max_windows) {
@@ -500,55 +672,56 @@ struct Engine {
         st_keys.clear();
         st_gwids.clear();
         st_rts.clear();
-        if (ready.empty()) return 0;
-        i64 take = std::min<i64>(max_windows, (i64)ready.size());
-        // group taken descriptors per key (they were appended per key
-        // in order, but batches interleave keys)
-        std::unordered_map<i64, std::pair<i64, i64>> span;  // key->min,max
+        if (n_ready() == 0) return 0;
+        const i64 take = std::min<i64>(max_windows, n_ready());
+        const Desc* rd = ready.data() + ready_head;
+        // the span of each key's taken windows (a key's windows were
+        // fired in order, but keys interleave)
+        ++flush_id;
+        touched.clear();
         for (i64 d = 0; d < take; ++d) {
-            const Desc& ds = ready[d];
-            auto it = span.find(ds.key);
-            if (it == span.end()) {
-                span[ds.key] = {ds.start, ds.end};
+            KeyState& st = *rd[d].st;
+            if (st.fl_stamp != flush_id) {
+                st.fl_stamp = flush_id;
+                st.fl_lo = rd[d].start;
+                st.fl_hi = rd[d].end;
+                touched.push_back(&st);
             } else {
-                it->second.first = std::min(it->second.first, ds.start);
-                it->second.second = std::max(it->second.second, ds.end);
+                st.fl_lo = std::min(st.fl_lo, rd[d].start);
+                st.fl_hi = std::max(st.fl_hi, rd[d].end);
             }
         }
-        std::unordered_map<i64, SpanInfo> info;
-        for (auto& [key, mm] : span) {
-            KeyState& st = keys[key];
-            i64 base_key = mm.first, max_end = mm.second;
-            i64 p0 = pane_of(base_key);
-            i64 n_panes = (max_end - base_key) / pane;
-            SpanInfo si;
-            si.off = (i64)st_vals.size();
-            si.base_key = base_key;
-            si.prefix.resize(n_panes + 1);
-            si.prefix[0] = 0;
+        st_prefix.clear();
+        for (KeyState* stp : touched) {
+            KeyState& st = *stp;
+            i64 p0 = pane_of(st.fl_lo);
+            i64 n_panes = (st.fl_hi - st.fl_lo) / pane;
+            st.fl_off = (i64)st_vals.size();
+            st.fl_poff = (i64)st_prefix.size();
+            st_prefix.push_back(0);  // prefix tuple counts over the span
             for (i64 p = 0; p < n_panes; ++p) {
                 st_vals.push_back(pane_at(st, p0 + p));
-                si.prefix[p + 1] = si.prefix[p] + cnt_at(st, p0 + p);
+                st_prefix.push_back(st_prefix.back() + cnt_at(st, p0 + p));
                 if (kind == Kind::MEAN)
                     st_cnts.push_back((double)cnt_at(st, p0 + p));
             }
-            info.emplace(key, std::move(si));
         }
         for (i64 d = 0; d < take; ++d) {
-            const Desc& ds = ready[d];
-            const SpanInfo& si = info[ds.key];
+            const Desc& ds = rd[d];
+            KeyState& st = *ds.st;
+            const i64* pf = st_prefix.data() + st.fl_poff;
             st_keys.push_back(ds.key);
             st_gwids.push_back(ds.lwid);
-            i64 ps = (ds.start - si.base_key) / pane;
-            i64 pe = (ds.end - si.base_key) / pane;
+            i64 ps = (ds.start - st.fl_lo) / pane;
+            i64 pe = (ds.end - st.fl_lo) / pane;
             // a fired window whose extent holds no tuples (gapped id
             // space) stages an EMPTY pane range (start==end) so the
             // device combine emits the masked neutral 0, exactly like
             // the Python/XLA path (window_compute.py `jnp.where`) --
             // otherwise max/min kinds would emit the +-inf pane fill
-            bool empty = si.prefix[pe] == si.prefix[ps];
-            st_starts.push_back(si.off + (empty ? 0 : ps));
-            st_ends.push_back(si.off + (empty ? 0 : pe));
+            bool empty = pf[pe] == pf[ps];
+            st_starts.push_back(st.fl_off + (empty ? 0 : ps));
+            st_ends.push_back(st.fl_off + (empty ? 0 : pe));
             if (is_tb) {
                 st_rts.push_back(ds.lwid * slide + win - 1);
             } else if (empty) {
@@ -557,34 +730,32 @@ struct Engine {
                 // CB: result ts = ts of the max-id tuple in the extent,
                 // which lives in the last non-empty pane of the range
                 // (binary search on the span's count prefix)
-                const auto& pf = si.prefix;
-                i64 q = std::lower_bound(pf.begin() + ps,
-                                         pf.begin() + pe + 1,
-                                         pf[pe]) - pf.begin();
-                KeyState& st = keys[ds.key];
-                i64 p_abs = pane_of(si.base_key) + (q - 1);
+                i64 q = std::lower_bound(pf + ps, pf + pe + 1, pf[pe]) - pf;
+                i64 p_abs = pane_of(st.fl_lo) + (q - 1);
                 i64 r = p_abs - st.pane_base;
                 st_rts.push_back(
                     (r >= 0 && r < (i64)st.plts.size()) ? st.plts[r] : 0);
             }
+            --st.queued;
         }
-        ready.erase(ready.begin(), ready.begin() + take);
+        ready_head += take;
+        if (ready_head == ready.size()) {
+            ready.clear();
+            ready_head = 0;
+        } else if (ready_head >= 4096 && 2 * ready_head >= ready.size()) {
+            ready.erase(ready.begin(), ready.begin() + ready_head);
+            ready_head = 0;
+        }
         // evict consumed pane prefixes -- but never past the earliest
-        // window still queued in `ready` for the key (a partial take
-        // leaves fired-but-unstaged windows whose extents must stay
-        // resident)
-        std::unordered_map<i64, i64> queued_floor;
-        for (const Desc& ds : ready) {
-            auto it = queued_floor.find(ds.key);
-            if (it == queued_floor.end() || ds.start < it->second)
-                queued_floor[ds.key] = ds.start;
-        }
-        for (auto& [key, mm] : span) {
-            KeyState& st = keys[key];
+        // window still queued for the key (a partial take leaves
+        // fired-but-unstaged windows whose extents must stay resident;
+        // a key's windows are fired in order, so the first of them
+        // starts a slide after the last one staged)
+        for (KeyState* stp : touched) {
+            KeyState& st = *stp;
             i64 keep_from = st.next_fire * slide;
-            auto qf = queued_floor.find(key);
-            if (qf != queued_floor.end() && qf->second < keep_from)
-                keep_from = qf->second;
+            if (st.queued > 0)
+                keep_from = std::min(keep_from, st.fl_hi - win + slide);
             i64 cut = pane_of(keep_from) - st.pane_base;
             i64 sz = (i64)st.pacc.size();
             if (cut <= 0) continue;
@@ -597,15 +768,26 @@ struct Engine {
             }
             st.pane_base += cut;
         }
+        // under watermarks, a key with every window fired and staged
+        // holds nothing more: free it
+        if (wm_mode) {
+            for (KeyState* stp : touched)
+                if (stp->queued == 0 && !stp->in_bucket)
+                    to_evict.push_back(stp);
+            evict_pending();
+        }
         return take;
     }
 
     void eos() {
-        for (auto& [key, st] : keys) {
+        if (wm_mode) {
+            watermark(INT64_MAX);
+            return;
+        }
+        for (KeyState& st : slab) {
+            if (!st.live) continue;
             while (st.next_fire <= st.opened_max) {
-                ready.push_back(Desc{key, st.next_fire,
-                                     st.next_fire * slide,
-                                     st.next_fire * slide + win});
+                fire(st, st.key, st.next_fire);
                 ++st.next_fire;
             }
         }
@@ -617,6 +799,7 @@ struct Engine {
     // checkpointing at all (SURVEY.md §5); this feeds the policy layer
     // in utils/checkpoint.py through the Python state_dict hooks.
     static constexpr i64 SNAP_MAGIC = 0x33'4E'46'57;  // "WFN3"
+    static constexpr i64 WM_MAGIC = 0x4D'57'4E'46'57;  // "WFNWM"
 
     template <typename T>
     static void put(std::vector<unsigned char>& b, const T& v) {
@@ -660,9 +843,18 @@ struct Engine {
         put(b, (i64)(is_tb ? 1 : 0));
         put(b, (i64)(renumber ? 1 : 0));
         put(b, (i64)kind);
-        put(b, (i64)keys.size());
-        for (const auto& [key, st] : keys) {
-            put(b, key);
+        put(b, n_live);
+        // in key order, so that a restored engine snapshots to the
+        // same bytes
+        std::vector<const KeyState*> order;
+        order.reserve(n_live);
+        for (const KeyState& st : slab)
+            if (st.live) order.push_back(&st);
+        std::sort(order.begin(), order.end(),
+                  [](auto* x, auto* y) { return x->key < y->key; });
+        for (const KeyState* stp : order) {
+            const KeyState& st = *stp;
+            put(b, st.key);
             put(b, st.next_fire); put(b, st.anchor);
             put(b, st.opened_max); put(b, st.max_id);
             put(b, st.pane_base); put(b, st.arrivals);
@@ -671,9 +863,22 @@ struct Engine {
             put_vec(b, st.plid);
             put_vec(b, st.plts);
         }
-        put(b, (i64)ready.size());
-        for (const Desc& d : ready) {
+        put(b, (i64)n_ready());
+        for (std::size_t i = ready_head; i < ready.size(); ++i) {
+            const Desc& d = ready[i];
             put(b, d.key); put(b, d.lwid); put(b, d.start); put(b, d.end);
+        }
+        if (wm_mode) {
+            // event-time section, present once a watermark has come:
+            // the fired frontier and each bucket's keys in firing order
+            put(b, WM_MAGIC);
+            put(b, wm_next);
+            put(b, (i64)buckets.size());
+            for (const auto& [w, wait] : buckets) {
+                put(b, w);
+                put(b, (i64)wait.size());
+                for (const KeyState* st : wait) put(b, st->key);
+            }
         }
         return b;
     }
@@ -691,12 +896,19 @@ struct Engine {
             || kd != (i64)kind)
             return false;
         if (!get(p, end, nk) || nk < 0) return false;
-        keys.clear();
+        clear_keys();
         ready.clear();
+        ready_head = 0;
+        buckets.clear();
+        to_evict.clear();
+        wm_mode = false;
+        wm_next = INT64_MIN;
         for (i64 i = 0; i < nk; ++i) {
             i64 key;
-            KeyState st;
-            if (!get(p, end, key) || !get(p, end, st.next_fire)
+            if (!get(p, end, key) || find_state(key) != nullptr)
+                return false;
+            KeyState& st = state_of(key);
+            if (!get(p, end, st.next_fire)
                 || !get(p, end, st.anchor)
                 || !get(p, end, st.opened_max) || !get(p, end, st.max_id)
                 || !get(p, end, st.pane_base) || !get(p, end, st.arrivals)
@@ -711,7 +923,6 @@ struct Engine {
             // the pairwise checks above and then write out of bounds
             if (!is_tb && st.plid.size() != st.pacc.size())
                 return false;
-            keys.emplace(key, std::move(st));
         }
         i64 nr;
         if (!get(p, end, nr) || nr < 0) return false;
@@ -720,12 +931,32 @@ struct Engine {
             if (!get(p, end, ds.key) || !get(p, end, ds.lwid)
                 || !get(p, end, ds.start) || !get(p, end, ds.end))
                 return false;
+            ds.st = &state_of(ds.key);
+            ++ds.st->queued;
             ready.push_back(ds);
         }
-        // the scatter table caches KeyState pointers; rebuild lazily
-        tab_key.assign(tab_key.size(), EMPTY);
-        std::fill(tab_state.begin(), tab_state.end(), nullptr);
-        std::fill(tab_stamp.begin(), tab_stamp.end(), (i64)-1);
+        if (p != end) {
+            i64 wmm, nb;
+            if (!get(p, end, wmm) || wmm != WM_MAGIC
+                || !get(p, end, wm_next) || !get(p, end, nb) || nb < 0)
+                return false;
+            wm_mode = true;
+            for (i64 i = 0; i < nb; ++i) {
+                i64 w, n;
+                if (!get(p, end, w) || !get(p, end, n) || n < 0)
+                    return false;
+                std::vector<KeyState*>& wait = buckets[w];
+                for (i64 j = 0; j < n; ++j) {
+                    i64 key;
+                    if (!get(p, end, key)) return false;
+                    KeyState* st = find_state(key);
+                    if (st == nullptr || st->in_bucket || st->next_fire != w)
+                        return false;
+                    st->in_bucket = true;
+                    wait.push_back(st);
+                }
+            }
+        }
         return p == end;
     }
 };
@@ -748,7 +979,7 @@ i64 wfn_engine_ingest(void* ep, const i64* keys, const i64* ids,
                       const i64* tss, const double* vals, i64 n) {
     Engine& e = *static_cast<Engine*>(ep);
     e.ingest_batch(keys, ids, tss, vals, n);
-    return (i64)e.ready.size();
+    return e.n_ready();
 }
 
 // f32 value column variant (no widening copy on the host side).
@@ -756,7 +987,7 @@ i64 wfn_engine_ingest_f32(void* ep, const i64* keys, const i64* ids,
                           const i64* tss, const float* vals, i64 n) {
     Engine& e = *static_cast<Engine*>(ep);
     e.ingest_batch(keys, ids, tss, vals, n);
-    return (i64)e.ready.size();
+    return e.n_ready();
 }
 
 // Fused synthesis + ingest of the declared synthetic law; returns the
@@ -765,7 +996,7 @@ i64 wfn_engine_synth_ingest(void* ep, i64 start, i64 n, i64 n_keys,
                             i64 vmod, double vscale, double voff) {
     Engine& e = *static_cast<Engine*>(ep);
     e.synth_ingest(start, n, n_keys, vmod, vscale, voff);
-    return (i64)e.ready.size();
+    return e.n_ready();
 }
 
 // Masked/tabled variant: mask is uint8[vmod] (entry 0 drops the event
@@ -779,11 +1010,30 @@ i64 wfn_engine_synth_ingest_masked(void* ep, i64 start, i64 n,
                                    const double* vtab) {
     Engine& e = *static_cast<Engine*>(ep);
     e.synth_ingest(start, n, n_keys, vmod, vscale, voff, mask, vtab);
-    return (i64)e.ready.size();
+    return e.n_ready();
 }
 
 i64 wfn_engine_ready(void* ep) {
-    return (i64)static_cast<Engine*>(ep)->ready.size();
+    return static_cast<Engine*>(ep)->n_ready();
+}
+
+// Fire every window whose end is at or below the watermark ``wm`` (the
+// first call switches the engine to event-time firing); returns the
+// number of ready (fired, unstaged) windows afterwards.
+i64 wfn_engine_watermark(void* ep, i64 wm) {
+    Engine& e = *static_cast<Engine*>(ep);
+    e.watermark(wm);
+    return e.n_ready();
+}
+
+// Event-time counters: out = [watermarks, windows fired by them, keys
+// evicted, keys live].
+void wfn_engine_counters(void* ep, i64* out) {
+    Engine& e = *static_cast<Engine*>(ep);
+    out[0] = e.n_watermarks;
+    out[1] = e.fired_wm;
+    out[2] = e.evicted;
+    out[3] = e.n_live;
 }
 
 i64 wfn_engine_ignored(void* ep) {
@@ -831,8 +1081,12 @@ int wfn_engine_deserialize(void* ep, const unsigned char* buf, i64 len) {
     Engine& e = *static_cast<Engine*>(ep);
     bool ok = e.deserialize(buf, len);
     if (!ok) {  // never leave partially-restored state behind
-        e.keys.clear();
+        e.buckets.clear();
+        e.clear_keys();
         e.ready.clear();
+        e.ready_head = 0;
+        e.wm_mode = false;
+        e.wm_next = INT64_MIN;
     }
     return ok ? 1 : 0;
 }
@@ -845,12 +1099,8 @@ namespace {
 // collapse one columnar chunk to per-(key, pane) sum partials over a
 // dense grid, fused min/max scan + accumulate in two passes.  Values
 // fold in arrival order, exactly like the engine's own pane ring.
-// floor division (numpy's //): the Python fallback floors, and a
+// floor division (floordiv, above): the Python fallback floors, and a
 // negative timestamp must land in its containing pane, not pane 0
-static inline i64 floordiv(i64 a, i64 b) {
-    i64 q = a / b;
-    return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
 
 template <typename V>
 i64 pane_prereduce_impl(const i64* keys, const i64* tss, const V* vals,

@@ -10,9 +10,11 @@ It runs the cell once through ``wfbench``'s harness with
 WINDFLOW_TORCH_PROFILE=1 and writes (and prints) a JSON object with:
 
 * ``share_pct``: each operator's self time (``self windflow/op/<op>``,
-  as ``ops_self_pct`` counts it), the fold (``windflow/fold``), the
-  application's ranges (``wfbench/filter``, ``wfbench/join``) and the
-  generator (``wfbench/generate``), each as a share of the window;
+  as ``ops_self_pct`` counts it, less the watermark ranges), the fold
+  (``windflow/fold``), the window engines' watermarks
+  (``windflow/watermark``), the application's ranges
+  (``wfbench/filter``, ``wfbench/join``) and the generator
+  (``wfbench/generate``), each as a share of the window;
 * ``no_span_pct``: the window that none of these covers;
 * ``in_graph_pct`` and ``covered_in_graph_pct``: the source thread's
   time between two generator calls, and how much of it the program's
@@ -35,7 +37,8 @@ os.environ["WINDFLOW_TORCH_PROFILE"] = "1"
 
 from wfbench import harness, roofline  # noqa: E402
 
-CHAIN = ("windflow/op/", "windflow/fold", "wfbench/filter",
+WATERMARK = "windflow/watermark"
+CHAIN = ("windflow/op/", "windflow/fold", WATERMARK, "wfbench/filter",
          "wfbench/join")
 NAMED = ("windflow/fold", "wfbench/filter", "wfbench/join",
          "wfbench/generate")
@@ -59,6 +62,23 @@ def intersect(x, y):
     return out
 
 
+def subtract(x, y):
+    """The sorted disjoint intervals ``x`` less the union ``y``."""
+    out, j = [], 0
+    for a, b in x:
+        while j < len(y) and y[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(y) and y[k][0] < b:
+            if y[k][0] > a:
+                out.append((a, y[k][0]))
+            a = max(a, y[k][1])
+            k += 1
+        if a < b:
+            out.append((a, b))
+    return out
+
+
 def breakdown(run, spec):
     lo, hi, window = run.t_start, run.t_end, run.window_s
     host = run.profile.host
@@ -71,7 +91,11 @@ def breakdown(run, spec):
     cats = {}
     for name, a, b in ops.self_intervals(host):
         cats.setdefault("self " + name, []).append((a, b))
-    cats = {k: union(v) for k, v in cats.items()}
+    # a watermark's work runs inside the operator that takes it
+    marks = union([(a, b) for n, a, b in host if n == WATERMARK])
+    cats = {k: subtract(union(v), marks) for k, v in cats.items()}
+    if marks:
+        cats[WATERMARK] = marks
     for name in NAMED:
         cats[name] = union([(a, b) for n, a, b in host if n == name])
     every = union([iv for v in cats.values() for iv in v])

@@ -117,6 +117,203 @@ def build_q5_hot_items(graph, n_bids: int, win_len: int, slide_len: int,
     return graph
 
 
+# -- NEXMark's own generator law and Q5 as the Nexmark suite runs it -------
+
+PERSON, AUCTION, BID = 0, 1, 2
+_M32 = 0xFFFFFFFF
+# multipliers below 2^31: a 32-bit value times one stays below 2^63, so
+# the law holds alike in any int64 implementation of it
+_C1, _C2 = 0x7FEB352D, 0x1B873593
+
+
+def mix32(x):
+    """A 32-bit integer hash (xor-shift-multiply) of an integer in
+    [0, 2^32)."""
+    x ^= x >> 16
+    x = (x * _C1) & _M32
+    x ^= x >> 15
+    x = (x * _C2) & _M32
+    return x ^ (x >> 16)
+
+
+def _mix32_u32(x: np.ndarray) -> np.ndarray:
+    """``mix32`` of a uint32 array, in place (uint32 products wrap
+    modulo 2^32, which is the mask)."""
+    x ^= x >> 16
+    x *= np.uint32(_C1)
+    x ^= x >> 15
+    x *= np.uint32(_C2)
+    x ^= x >> 16
+    return x
+
+
+def seed_words(seed: int, stream: int) -> tuple:
+    """The two 32-bit words that key draw stream ``stream`` of
+    ``seed``."""
+    seed &= (1 << 64) - 1
+    s1 = mix32((seed & _M32) ^ ((0x9E3779B9 * (stream + 1)) & _M32))
+    return s1, mix32(((seed >> 32) & _M32) ^ s1)
+
+
+class NexmarkGenerator:
+    """NEXMark's events by the law of Beam's Nexmark generator
+    (``NexmarkConfiguration`` defaults, ``BidGenerator``,
+    ``AuctionGenerator``), each event a function of its index and the
+    seed.  Event ``n`` is at event time ``n`` (units of 1/rate s);
+    events come as ``proportions`` persons, auctions and bids in every
+    period of ``sum(proportions)``.  A bid goes to the hot auction (the
+    newest auction id rounded down to a multiple of
+    ``hot_auction_stride``) when its coin falls so, with probability
+    1 - 1/``hot_auction_ratio``, else uniformly to one of the
+    ``in_flight_auctions`` newest auctions or the ``auction_id_lead`` ids
+    after them.  The coin and the choice are 32-bit hashes of the event
+    index keyed by the seed (draw streams 0 and 1).  The rest of a bid
+    comes from seeded tables indexed by the event index modulo
+    ``ROWS`` (a whole number of periods): its bidder, uniform over the
+    ``active_people`` newest persons; its price, Beam's
+    ``round(10^(6u) * 100)`` cents; its text fields (channel, url,
+    extra) at the widths ``text_bytes``.
+
+    ``columns(first, n)`` gives events [first, first + n) as columns:
+    ``event_type``, ``key`` (a bid's auction), ``id`` (the index),
+    ``ts`` (dateTime), ``bidder``, ``price`` and the text columns;
+    persons and auctions carry only ``event_type``, ``id`` and ``ts``
+    (zeros and empty text elsewhere)."""
+
+    TEXT = ("channel", "url", "extra")
+    PERIODS = 8192              # the tables' rows: PERIODS periods
+
+    def __init__(self, seed: int, proportions=(1, 3, 46),
+                 in_flight_auctions: int = 100, auction_id_lead: int = 10,
+                 hot_auction_ratio: int = 2, hot_auction_stride: int = 100,
+                 first_auction_id: int = 1000, first_person_id: int = 1000,
+                 active_people: int = 1000, text_bytes=(12, 40, 16)):
+        self.seed = seed
+        self.persons, self.auctions, self.bids = map(int, proportions)
+        self.total = self.persons + self.auctions + self.bids
+        self.in_flight = int(in_flight_auctions)
+        self.lead = int(auction_id_lead)
+        self.hot_ratio = int(hot_auction_ratio)
+        self.stride = int(hot_auction_stride)
+        self.first_auction = int(first_auction_id)
+        self.first_person = int(first_person_id)
+        self.active_people = int(active_people)
+        self.words = [seed_words(seed, k) for k in range(2)]
+        # the tables: row r holds the bid fields of every event whose
+        # index is r modulo rows; non-bid rows hold zeros
+        rows = self.PERIODS * self.total
+        self.rows = rows
+        self.types = np.tile(np.repeat(
+            np.array([PERSON, AUCTION, BID], np.uint8),
+            [self.persons, self.auctions, self.bids]), self.PERIODS)
+        not_bid = self.types != BID
+        rng = np.random.default_rng(seed & ((1 << 64) - 1))
+        letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+        self.text = {}
+        for name, w in zip(self.TEXT, text_bytes):
+            t = letters[rng.integers(0, 26, (rows, w))]
+            t[not_bid] = 0
+            self.text[name] = t.view(f"S{w}").ravel()
+        u = rng.integers(0, 1 << 16, rows) / float(1 << 16)
+        self.price = np.where(not_bid, 0, np.round(
+            10.0 ** (u * 6.0) * 100.0).astype(np.int64))
+        self.bidder_draw = rng.integers(0, 1 << 16, rows).astype(np.int64)
+        self._n = -1            # batch length the step tables fit
+
+    def _steps(self, n: int) -> None:
+        """Tables over j in [0, n + period): the period of j, and j as
+        uint32."""
+        if n <= self._n:
+            return
+        self._q = np.arange(n + self.total, dtype=np.int64) // self.total
+        self._j32 = np.arange(n, dtype=np.uint32)
+        self._n = n
+
+    def _draw(self, first: int, n: int, words: tuple) -> np.ndarray:
+        """The 32-bit draws of events [first, first + n) in the stream
+        keyed by ``words``: mix32(mix32(lo ^ w0) ^ hi ^ w1) of each
+        index's low and high 32 bits."""
+        x = self._j32[:n] + np.uint32(first & _M32)    # wraps: the low bits
+        x ^= np.uint32(words[0])
+        _mix32_u32(x)
+        if (first >> 32) == ((first + n - 1) >> 32):
+            x ^= np.uint32(((first >> 32) & _M32) ^ words[1])
+        else:
+            hi = np.arange(first, first + n, dtype=np.int64) >> 32
+            x ^= (hi & _M32).astype(np.uint32) ^ np.uint32(words[1])
+        return _mix32_u32(x)
+
+    def columns(self, first: int, n: int) -> dict:
+        self._steps(n)
+        total = self.total
+        off = first % total
+        # the period of each event, as an index into per-period tables
+        q = self._q[off:off + n]
+        period = first // total + np.arange(q[-1] + 1 if n else 0,
+                                            dtype=np.int64)
+        last = period * self.auctions + self.auctions - 1
+        lo = np.maximum(last - self.in_flight, 0)
+        span = last - lo + 1 + self.lead
+        hot_id = last // self.stride * self.stride
+        coin = self._draw(first, n, self.words[0])
+        choice = self._draw(first, n, self.words[1])
+        hot = (coin.astype(np.int64) * self.hot_ratio) >> 32 > 0
+        auction = np.where(hot, hot_id[q],
+                           lo[q] + ((choice * span[q]) >> 32))
+        r0 = first % self.rows
+        sl = slice(r0, r0 + n) if r0 + n <= self.rows else \
+            np.arange(first, first + n, dtype=np.int64) % self.rows
+        etype = self.types[sl]
+        is_bid = etype == BID
+        auction += self.first_auction
+        auction[~is_bid] = 0
+        p_lo = np.maximum(period - self.active_people + 1, 0)
+        bidder = self.first_person + p_lo[q] + (
+            (self.bidder_draw[sl] * (period - p_lo + 1)[q]) >> 16)
+        bidder[~is_bid] = 0
+        ids = np.arange(first, first + n, dtype=np.int64)
+        cols = {"event_type": etype, "key": auction, "id": ids, "ts": ids,
+                "bidder": bidder, "price": self.price[sl]}
+        for name, t in self.text.items():
+            cols[name] = t[sl]
+        return cols
+
+
+def build_q5_nexmark(graph, source, sink, *, win_len: int, slide_len: int,
+                     watermark_lag: int, device_batch: int,
+                     inflight_depth: int, record=None):
+    """NEXMark Q5 as the Nexmark suite runs it (nexmark-flink q5.sql):
+    bids counted per auction in ``HOP(dateTime, slide, win)`` windows
+    fired by the watermark ``dateTime - watermark_lag``, then per
+    window every auction whose count reaches the window's largest.
+    ``source`` gives batches of ``NexmarkGenerator.columns``; ``sink``
+    takes the hot rows (``key`` auction, ``id`` window, ``value``
+    count).  ``record(batch)``, when given, sees every count batch
+    before the hot-items step.  Times are event-time units."""
+    from ..core.basic import WinType
+    from ..operators.basic_ops import Sink
+    from ..operators.batch_ops import BatchFilter, BatchMap, BatchSource
+    from ..operators.hot_items import HotItems
+    from ..operators.tpu.farms_tpu import KeyFarmTPU
+
+    counts = KeyFarmTPU("count", win_len, slide_len, WinType.TB,
+                        batch_len=device_batch, name="q5_counts",
+                        emit_batches=True, inflight_depth=inflight_depth)
+    pipe = graph.add_source(BatchSource(source, name="q5_source",
+                                        watermark_lag=watermark_lag)) \
+        .chain(BatchFilter(lambda b: b["event_type"] == BID,
+                           name="q5_bids")) \
+        .add(counts)
+    if record is not None:
+        def seen(batch):
+            record(batch)
+            return batch
+        pipe = pipe.add(BatchMap(seen, name="q5_record"))
+    pipe.add(HotItems(win_len, slide_len, name="q5_hot_items")) \
+        .add_sink(Sink(sink, name="q5_sink"))
+    return graph
+
+
 def build_q7_highest_bid(graph, n_bids: int, win_len: int, sink,
                          n_auctions: int = 1000,
                          batch_size: int = 65_536,

@@ -147,6 +147,13 @@ class StatsRecord:
     late_tuples: int = 0
     sessions_open: int = 0
     join_state_keys: int = 0
+    # a window engine fired by event time (operators/tpu/win_seq_tpu
+    # on_watermark, native/window_engine.cpp): watermarks it took, the
+    # windows they fired, the keys it freed, the keys it holds
+    watermarks: int = 0
+    windows_fired_watermark: int = 0
+    keys_evicted: int = 0
+    keys_live: int = 0
     # telemetry plane (telemetry/; docs/OBSERVABILITY.md): per-replica
     # single-writer log-bucketed latency histograms, merged across
     # replicas at report time.  ``service`` is fed by the sampled
@@ -217,6 +224,16 @@ class StatsRecord:
             d["Sessions_open"] = self.sessions_open
         if self.join_state_keys:
             d["Join_state_keys"] = self.join_state_keys
+        # event-time firing of a window engine: nonzero only under
+        # watermarks
+        if self.watermarks:
+            d["Watermarks"] = self.watermarks
+        if self.windows_fired_watermark:
+            d["Windows_fired_watermark"] = self.windows_fired_watermark
+        if self.keys_evicted:
+            d["Keys_evicted"] = self.keys_evicted
+        if self.keys_live:
+            d["Keys_live"] = self.keys_live
         if self.num_launches:
             # per-launch derivations + the roofline estimate: achieved
             # bytes/s over the launch wall time as a fraction of the

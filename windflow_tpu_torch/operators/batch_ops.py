@@ -23,18 +23,38 @@ from ..runtime.node import EOSMarker, NodeLogic, SourceLoopLogic
 from .base import Operator, StageSpec
 
 
+class _EmitShipper:
+    """The shipper a watermarked source body pushes into: the step's
+    emit."""
+
+    __slots__ = ("push",)
+
+    def __init__(self, emit):
+        self.push = emit
+
+
 class BatchSourceLogic(SourceLoopLogic):
-    def __init__(self, fn, parallelism, replica_index, closing_func=None):
+    def __init__(self, fn, parallelism, replica_index, closing_func=None,
+                 watermark_lag=None):
         self.context = RuntimeContext(parallelism, replica_index)
         self.user_fn = with_context(fn, 0, self.context)
         self.closing_func = closing_func
 
-        def step(emit):
+        def ship(emit):
             batch = self.user_fn()
             if batch is None:
                 return False
             emit(batch)
             return True
+
+        step = ship
+        if watermark_lag is not None:
+            from ..eventtime.watermarks import WatermarkedSource
+            wms = WatermarkedSource(lambda shipper: ship(shipper.push),
+                                    every=1, skew=watermark_lag)
+
+            def step(emit):
+                return wms(_EmitShipper(emit))
 
         super().__init__(step)
 
@@ -44,15 +64,22 @@ class BatchSourceLogic(SourceLoopLogic):
 
 
 class BatchSource(Operator):
+    """``fn(ctx) -> TupleBatch | None`` (None ends the stream).  With
+    ``watermark_lag`` (event-time units) the source also promises event
+    time: after each batch it emits ``Watermark(max ts shipped -
+    watermark_lag)`` when that advances, and ``Watermark(inf)`` at the
+    end of the stream (``eventtime.watermarks.WatermarkedSource``)."""
+
     def __init__(self, fn, parallelism=1, name="batch_source",
-                 closing_func=None):
+                 closing_func=None, watermark_lag=None):
         super().__init__(name, parallelism, RoutingMode.NONE, Pattern.SOURCE)
         self.fn = fn
         self.closing_func = closing_func
+        self.watermark_lag = watermark_lag
 
     def stages(self):
         reps = [BatchSourceLogic(self.fn, self.parallelism, i,
-                                 self.closing_func)
+                                 self.closing_func, self.watermark_lag)
                 for i in range(self.parallelism)]
         return [StageSpec(self.name, reps, StandardEmitter(), self.routing)]
 

@@ -235,6 +235,15 @@ class _AsyncDispatcher:
                 break
             if self.aborting or self.error is not None:
                 continue  # failed/aborted: drain the queue, launch nothing
+            if type(item) is _Forward:
+                # a watermark follows every result launched before it
+                try:
+                    while pending:
+                        logic._finish(pending.popleft(), item.emit)
+                    item.emit(item.wm)
+                except BaseException as e:
+                    self.error = e
+                continue
             (engine, cols, starts, ends, gwids, descs, emit,
              nbytes_in) = item
             last_emit = emit
@@ -263,6 +272,17 @@ class _AsyncDispatcher:
                 logic._finish(pending.popleft(), last_emit)
             except BaseException as e:
                 self.error = e
+
+
+class _Forward:
+    """A watermark handed to the dispatcher: it leaves through ``emit``
+    once every batch launched before it has been emitted."""
+
+    __slots__ = ("wm", "emit")
+
+    def __init__(self, wm, emit):
+        self.wm = wm
+        self.emit = emit
 
 
 def _launch_context(engine):
@@ -309,6 +329,10 @@ class _TPUKeyState:
 class WinSeqTPULogic(NodeLogic):
     # the runtime hands SynthChunk descriptors through un-materialized
     accepts_synth_chunks = True
+    # on_watermark emits the watermark itself, behind the results it
+    # fired (they may leave from the dispatcher thread): the runtime
+    # must not forward it again
+    forwards_watermarks = True
     # async dispatch calls emit from the dispatcher thread AFTER svc
     # returns: the runtime must not hand this logic a buffered emit
     # (set per instance in __init__; inline dispatch is synchronous)
@@ -438,6 +462,10 @@ class WinSeqTPULogic(NodeLogic):
         self._key_intern: Dict[Any, int] = {}
         self._key_extern: Dict[int, Any] = {}
         self._saw_nonint_key = False
+        # a count reads no values: its batches need no value column
+        self._reads_values = not (isinstance(win_kind, str)
+                                  and win_kind == "count")
+        self._zeros = np.zeros(0, np.float32)
         cfg = self.config
         if (isinstance(win_kind, str)
                 and win_kind in ("sum", "count", "max", "min", "mean")
@@ -1134,9 +1162,19 @@ class WinSeqTPULogic(NodeLogic):
         return ((_time.perf_counter() - self._last_launch_t) * 1e3
                 >= self.max_batch_delay_ms)
 
+    def _values(self, batch: TupleBatch) -> np.ndarray:
+        """The batch's value column, or zeros where the kind reads
+        none (a count)."""
+        if self._reads_values:
+            return batch["value"]
+        n = len(batch)
+        if len(self._zeros) < n:
+            self._zeros = np.zeros(n, np.float32)
+        return self._zeros[:n]
+
     def _svc_batch_native(self, batch: TupleBatch, emit):
         ids = batch.id if self.win_type == WinType.CB else batch.ts
-        ready = self._ingest(batch.key, ids, batch.ts, batch["value"])
+        ready = self._ingest(batch.key, ids, batch.ts, self._values(batch))
         self._buffered_since_launch += len(batch)
         if (ready and not self.chunk_hold
                 and (ready >= self.batch_len
@@ -1150,7 +1188,7 @@ class WinSeqTPULogic(NodeLogic):
             return
         keys = batch.key
         ids = batch.id if self.win_type == WinType.CB else batch.ts
-        vals = batch["value"]
+        vals = self._values(batch)
         tss = batch.ts
         order, keys_s, bounds = _key_groups(keys)
         if order is None:
@@ -1298,24 +1336,21 @@ class WinSeqTPULogic(NodeLogic):
                 and not self.chunk_hold):
             self._launch(emit)
 
-    def eos_flush(self, emit):
-        """Fire every opened window, then drain both batches (the
-        reference computes leftovers on CPU at EOS,
-        win_seq_gpu.hpp:648-710; we just launch a final batch)."""
-        if self._native is not None:
-            self._native.eos()
-            while self._native.ready():
-                self._native_launch(emit)
-            self._drain_all(emit)
-            return
+    def _fire_open(self, emit, until=None) -> None:
+        """Python lane: fire every opened window of every key (whose
+        end is at or below ``until``, when given), launching full
+        batches as they fill and the rest at the end."""
+        cfg = self.config
         for key, st in self.keys.items():
             hashcode = default_hash(key)
-            cfg = self.config
             first_gwid = wa.first_gwid_of_key(hashcode, cfg)
             initial_id = wa.initial_id_of_key(hashcode, cfg, self.role)
-            for lwid in range(st.next_fire, st.opened_max + 1):
+            while st.next_fire <= st.opened_max:
+                lwid = st.next_fire
                 start = initial_id + lwid * self.slide_len
                 end = start + self.win_len
+                if until is not None and end > until:
+                    break
                 gwid = wa.gwid_of_lwid(first_gwid, lwid, cfg)
                 # CB: -1 sentinel -> _launch resolves the result ts to
                 # the last tuple in the extent (same as the fired path)
@@ -1326,7 +1361,48 @@ class WinSeqTPULogic(NodeLogic):
                 if len(self.descriptors) >= self.batch_len:
                     self._launch(emit)
         self._launch(emit)
+
+    def eos_flush(self, emit):
+        """Fire every opened window, then drain both batches (the
+        reference computes leftovers on CPU at EOS,
+        win_seq_gpu.hpp:648-710; we just launch a final batch)."""
+        if self._native is not None:
+            self._native.eos()
+            while self._native.ready():
+                self._native_launch(emit)
+        else:
+            self._fire_open(emit)
         self._drain_all(emit)
+
+    def on_watermark(self, wm, emit) -> None:
+        """Event-time firing (runtime/queues.Watermark): fire every
+        window whose end is at or below the watermark, launch what
+        fired, then forward the watermark behind those results.  The
+        native engine fires in order of (window, key), fires nothing by
+        a key's own tuples from its first watermark on, and frees the
+        keys left with no window to fire.  The Python lane fires the
+        due windows of every key and frees nothing."""
+        with span("windflow/watermark"):
+            if self._native is not None:
+                ready = self._native.watermark(wm.ts)
+                while ready:
+                    self._native_launch(emit)
+                    ready = self._native.ready()
+                st = self.stats
+                if st is not None:
+                    c = self._native.counters()
+                    st.watermarks = c["watermarks"]
+                    st.windows_fired_watermark = \
+                        c["windows_fired_watermark"]
+                    st.keys_evicted = c["keys_evicted"]
+                    st.keys_live = c["keys_live"]
+            else:
+                self._fire_open(emit, until=wm.ts)
+        if self._dispatcher is not None:
+            self._dispatcher.submit(_Forward(wm, emit))
+        else:
+            self._flush_pending(emit, drain=True)
+            emit(wm)
 
     def idle_tick(self, emit) -> None:
         """Stalled-stream launch trigger (RtNode timed gets): windows

@@ -143,6 +143,9 @@ def get_lib():
         lib.wfn_engine_ignored.restype = LL
         lib.wfn_engine_ignored.argtypes = [ctypes.c_void_p]
         lib.wfn_engine_eos.argtypes = [ctypes.c_void_p]
+        lib.wfn_engine_watermark.restype = LL
+        lib.wfn_engine_watermark.argtypes = [ctypes.c_void_p, LL]
+        lib.wfn_engine_counters.argtypes = [ctypes.c_void_p, PLL]
         lib.wfn_engine_flush.restype = LL
         lib.wfn_engine_flush.argtypes = [
             ctypes.c_void_p, LL, ctypes.POINTER(PD), PLL,
@@ -602,6 +605,29 @@ class NativeWindowEngine:
 
     def eos(self) -> None:
         self.lib.wfn_engine_eos(self.ptr)
+
+    # event-time units a watermark may name: beyond them it is +-inf
+    _WM_CLAMP = 1 << 62
+
+    def watermark(self, ts: float) -> int:
+        """Fire every window whose end is at or below the watermark
+        ``ts`` (event-time units; +inf fires everything), in order of
+        (window, key).  The first call switches the engine to firing by
+        event time: a key's own later tuples fire nothing from then on,
+        and a key whose windows have all fired and been staged is
+        freed.  Returns the ready-window count."""
+        import math
+        c = self._WM_CLAMP
+        wm = c if ts >= c else -c if ts <= -c else math.floor(ts)
+        return self.lib.wfn_engine_watermark(self.ptr, wm)
+
+    def counters(self) -> dict:
+        """The event-time counters: watermarks seen, windows they
+        fired, keys evicted, and keys live now."""
+        out = (ctypes.c_longlong * 4)()
+        self.lib.wfn_engine_counters(self.ptr, out)
+        return {"watermarks": out[0], "windows_fired_watermark": out[1],
+                "keys_evicted": out[2], "keys_live": out[3]}
 
     def flush(self, max_windows: int):
         """Returns (vals[f64], starts, ends, keys, gwids, rts[, cnts])

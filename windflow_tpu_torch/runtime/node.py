@@ -113,7 +113,15 @@ class NodeLogic:
     # without the hook never see watermarks: the RtNode intercepts and
     # forwards them generically.  Deliberately NOT defined on the base
     # class so ``getattr(logic, "on_watermark", None)`` stays a cheap
-    # one-time probe.
+    # one-time probe.  A logic whose results may leave after its hook
+    # returns (a window engine's dispatcher thread) sets
+    # ``forwards_watermarks = True`` and emits the watermark itself,
+    # behind them; the runtime then does not forward it.
+
+
+def forwards_watermarks(logic) -> bool:
+    """True when ``logic`` emits the watermarks it is offered itself."""
+    return getattr(logic, "forwards_watermarks", False)
 
 
 class ChainedLogic(NodeLogic):
@@ -142,6 +150,8 @@ class ChainedLogic(NodeLogic):
         # buffered emit
         self.sync_emit = (getattr(a, "sync_emit", True)
                           and getattr(b, "sync_emit", True))
+        self.forwards_watermarks = (forwards_watermarks(a)
+                                    or forwards_watermarks(b))
         # delegate idle ticks only when a half defines them: RtNode
         # probes hasattr, and unconditional definition would put every
         # fused map chain on timed gets for nothing
@@ -176,7 +186,8 @@ class ChainedLogic(NodeLogic):
             hook = getattr(self.b, "on_watermark", None)
             if hook is not None:
                 hook(x, emit)
-            emit(x)
+            if not forwards_watermarks(self.b):
+                emit(x)
             return
         self._b_svc(x, 0, emit)
 
@@ -189,6 +200,8 @@ class ChainedLogic(NodeLogic):
         ha = getattr(self.a, "on_watermark", None)
         if ha is not None:
             ha(wm, lambda x: self._feed_b(x, emit))
+        if forwards_watermarks(self.a):
+            return  # a's own watermark reaches b through _feed_b
         hb = getattr(self.b, "on_watermark", None)
         if hb is not None:
             hb(wm, emit)
@@ -306,6 +319,8 @@ class FusedLogic(NodeLogic):
         self.accepts_synth_chunks = first.accepts_chunks
         self.sync_emit = all(getattr(s.logic, "sync_emit", True)
                              for s in self.segments)
+        self.forwards_watermarks = any(forwards_watermarks(s.logic)
+                                       for s in self.segments)
         self.pool = None            # graph ColumnPool (boundary
         #                             materialization), set at fuse time
         self._emit_out = None       # the node's outward emit, set per call
@@ -398,6 +413,7 @@ class FusedLogic(NodeLogic):
         # consume thread's in-flight context (the engine carries its
         # context across the dispatcher itself -- win_seq_tpu.py)
         inherit = getattr(seg.logic, "sync_emit", True)
+        forwards = forwards_watermarks(seg.logic)
 
         def entry(item, cid):
             if isinstance(item, Watermark):
@@ -408,7 +424,8 @@ class FusedLogic(NodeLogic):
                 hook = getattr(seg.logic, "on_watermark", None)
                 if hook is not None:
                     hook(item, exit_)
-                exit_(item)
+                if not forwards:
+                    exit_(item)
                 return
             if isinstance(item, SynthChunk) and not seg.accepts_chunks:
                 item = item.materialize(self.pool)  # plane boundary
@@ -496,6 +513,8 @@ class FusedLogic(NodeLogic):
                 hook = getattr(seg.logic, "on_watermark", None)
                 if hook is not None:
                     hook(wm, self._exits[k])
+                if forwards_watermarks(seg.logic):
+                    break  # its watermark feeds the segments after it
         except _FusedDownstreamError as w:
             raise w.error
 
@@ -1030,7 +1049,7 @@ class RtNode(threading.Thread):
         hook = self._wm_hook
         if hook is not None:
             hook(out, emit)
-        if self.outlets:
+        if self.outlets and not forwards_watermarks(self.logic):
             emit(out)
 
     def _process_one(self, cid: int, item: Any) -> None:

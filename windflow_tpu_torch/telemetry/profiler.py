@@ -18,6 +18,9 @@ what ran and on which thread:
   pane fold, ctypes marshalling included).
 * ``windflow/window_launch``: one device launch on the dispatcher
   thread.
+* ``windflow/watermark``: one watermark taken by a window engine: its
+  firing by event time, the keys it frees and the launch of what
+  fired.
 
 Off (the default), no span is built: the fused chain's closures and
 the per-chunk sites hold the plain calls, so the hot path makes no
