@@ -13,7 +13,10 @@ slide of event time) with ``torch.bincount`` -- an auction's ids in a
 pane form a contiguous range -- and sums ``window / slide`` panes to a
 window.  Window ``w >= 0`` spans event time ``[w * slide, w * slide +
 window)``; event ``n`` lies at time ``n``.  Every window holding a bid
-is counted, the stream's tail too.  Imports neither JAX nor the port.
+is counted, the stream's tail too.  ``totals`` sums each window's whole
+count table as the benchmark's comparison does: its bids, its auctions
+and its counts weighted by a 16-bit hash of each auction.  Imports
+neither JAX nor the port.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 M32 = 0xFFFFFFFF
 C1, C2 = 0x7FEB352D, 0x1B873593
 BLOCK = 1 << 22
+TOTAL, AUCTIONS, CHECKSUM = -1, -2, -3
 
 
 def _mix(x: torch.Tensor) -> torch.Tensor:
@@ -126,3 +130,19 @@ def windows(config: dict, cell: dict, stream, n_events: int) -> dict:
     top = top.scatter_reduce(0, wid, t["value"], reduce="amax")
     hot = t["value"] == top[wid]
     return {k: v[hot] for k, v in t.items()}
+
+
+def totals(table: dict) -> dict:
+    """{key, wid, value} of each window's sums over a count table in
+    order of window: keys TOTAL (its bids), AUCTIONS (its rows) and
+    CHECKSUM (its counts times a 16-bit hash of each auction)."""
+    wid, key, val = table["wid"], table["key"], table["value"]
+    wins, idx = torch.unique_consecutive(wid, return_inverse=True)
+    weight = ((key * 0x9E3779B1) & M32) >> 16
+    sums = torch.zeros(len(wins), 3, dtype=torch.int64)
+    sums[:, 0].index_add_(0, idx, val)
+    sums[:, 1].index_add_(0, idx, torch.ones_like(val))
+    sums[:, 2].index_add_(0, idx, val * weight)
+    return {"key": torch.tensor([TOTAL, AUCTIONS, CHECKSUM]).repeat(
+                len(wins)),
+            "wid": wins.repeat_interleave(3), "value": sums.flatten()}

@@ -16,10 +16,18 @@ sliding by 20,000, a watermark 40,000 behind; nine windows close in
 * without watermarks the engine fires by each key's own tuples, as
   before;
 * the benchmark's NumPy copy of the reference and the torch copy agree,
-  and both agree with the generator's own events.
+  and both agree with the generator's own events;
+* the hot-items step's snapshot, taken mid-close beside the engine's,
+  restores into logics that emit what the uninterrupted pair emits;
+* the benchmark's cell, through its harness on the CPU, is judged on
+  every window's sums as well as its hot rows, and those sums catch a
+  fault at a count off the window's maximum.
 """
 import importlib.util
 import json
+import pickle
+import shutil
+from contextlib import nullcontext
 import threading
 import time
 from pathlib import Path
@@ -383,8 +391,11 @@ def test_q5_reference_copies_agree(seed):
     t_np = ref_np.counts(CFG, {}, gen, n)
     t_torch = ref_torch.counts(CFG, {}, gen, n)
     assert _same(t_np, t_torch)
+    sums = ref_torch.totals(t_torch)
+    assert _same(ref_np.totals(t_np), sums)
+    hot = ref_torch.windows(CFG, {}, gen, n)
     assert _same(ref_np.windows(CFG, {}, gen, n),
-                 ref_torch.windows(CFG, {}, gen, n))
+                 {k: torch.cat([hot[k], sums[k]]) for k in hot})
     # both against the generator's own bids, counted per (auction, window)
     c = gen.columns(0, n)
     bid = c["event_type"] == BID
@@ -404,3 +415,160 @@ def test_q5_reference_copies_agree(seed):
         + CFG["first_auction_id"]
     assert abs(float(hot.float().mean()) - 0.5) < 0.01
     assert int((auc - last).max()) == CFG["auction_id_lead"]
+
+
+@needs_native
+def test_q5_hot_items_snapshot_round_trips_mid_close():
+    """Snapshots of the window engine and of the hot-items step, taken
+    when a close's counts have reached the step and the watermark that
+    emits them has not, restore into fresh logics that emit what the
+    uninterrupted pair emits."""
+    def logics():
+        return (WinSeqTPULogic("count", WIN, SLIDE, WinType.TB,
+                               batch_len=512, emit_batches=True,
+                               async_dispatch=False, device="cpu"),
+                _HotItemsLogic(WIN, SLIDE))
+
+    gen = _generator(SEEDS[1])
+    n = -(-N // BATCH) * BATCH
+    lg, hot = logics()
+    before, after_a, after_b = _Rows(), _Rows(), _Rows()
+    held = []
+
+    def feed(lg, hot, rows, a):
+        """Batch a into the engine; its counts go on to the step, its
+        watermarks are held back."""
+        def emit(x):
+            if isinstance(x, Watermark):
+                held.append(x)
+            else:
+                hot.svc(x, 0, rows)
+        c = gen.columns(a, BATCH)
+        lg.svc(TupleBatch(c).take(c["event_type"] == BID), 0, emit)
+        lg.on_watermark(Watermark(a + BATCH - 1 - LAG), emit)
+
+    def release(hot, rows):
+        for wm in held:
+            hot.on_watermark(wm, rows)
+        held.clear()
+
+    starts = list(range(0, n, BATCH))
+    closes = 0
+    for i, a in enumerate(starts):
+        feed(lg, hot, before, a)
+        closes += bool(hot.best)
+        if closes == 2:
+            break
+        release(hot, before)
+    assert hot.best and held          # mid-close
+    snap = pickle.loads(pickle.dumps((lg.state_dict(), hot.state_dict())))
+    lg2, hot2 = logics()
+    lg2.load_state(snap[0])
+    hot2.load_state(snap[1])
+    wms = list(held)
+    for lgx, hotx, rows in ((lg, hot, after_a), (lg2, hot2, after_b)):
+        held[:] = wms
+        release(hotx, rows)
+        for a in starts[i + 1:]:
+            feed(lgx, hotx, rows, a)
+            release(hotx, rows)
+        lgx.on_watermark(Watermark(float("inf")),
+                         lambda x: hotx.on_watermark(x, rows)
+                         if isinstance(x, Watermark)
+                         else hotx.svc(x, 0, rows))
+        assert not hotx.best
+    assert len(after_a.parts) > 0
+    assert _same(after_a.table(), after_b.table())
+    whole = {k: np.concatenate([before.table()[k], after_b.table()[k]])
+             for k in ("key", "wid", "value")}
+    assert _same(whole, ref_torch.windows(CFG, {}, gen, n))
+
+
+def _bench_modules():
+    return (_load("wfbench/configs/nexmark_q5.py", "q5_cfg_bench"),
+            _load("wfbench/reference/nexmark_q5.py", "q5_ref_bench"))
+
+
+def _count_batches(table: dict, rows: int = 1000):
+    for a in range(0, len(table["key"]), rows):
+        key = np.asarray(table["key"][a:a + rows], np.int64)
+        wid = np.asarray(table["wid"][a:a + rows], np.int64)
+        yield TupleBatch({"key": key, "id": wid, "ts": wid * SLIDE,
+                          "value": np.asarray(table["value"][a:a + rows],
+                                              np.float32)})
+
+
+@pytest.mark.parametrize("fault", [None, "drop", "shift", "swap",
+                                   "double"])
+def test_q5_window_sums_catch_a_fault_off_the_maximum(fault):
+    """The benchmark's window sums, computed from the counts the engine
+    emits, hold the whole count table to the reference: a count dropped,
+    moved to another auction, swapped between two auctions or emitted
+    twice fails the comparison even where every hot row is right."""
+    from wfbench import harness
+    cfg_mod, ref_np = _bench_modules()
+    gen = _generator(SEEDS[0])
+    n = 123_457
+    table = ref_np.counts(CFG, {}, gen, n)
+    want = ref_np.windows(CFG, {}, gen, n)
+    hot = want["key"] >= 0
+    # a window, and two of its auctions below its maximum whose counts
+    # and hash weights differ
+    w = int(table["wid"][len(table["wid"]) // 2])
+    rows = np.flatnonzero(table["wid"] == w)
+    top = table["value"][rows].max()
+    low = rows[table["value"][rows] < top - 1]
+    i = low[0]
+    j = next(r for r in low if table["value"][r] != table["value"][i]
+             and cfg_mod.weight(table["key"][r])
+             != cfg_mod.weight(table["key"][i]))
+    t = {k: v.copy() for k, v in table.items()}
+    if fault == "drop":
+        t = {k: np.delete(v, i) for k, v in t.items()}
+    elif fault == "shift":
+        t["value"][i] += 1
+        t["value"][j] -= 1
+    elif fault == "swap":
+        t["value"][[i, j]] = t["value"][[j, i]]
+    elif fault == "double":
+        t = {k: np.insert(v, i, v[i]) for k, v in t.items()}
+    out = harness.Sink(harness.make_span(False))
+    totals = cfg_mod.WindowTotals(out, lambda label: nullcontext(),
+                                  WIN, SLIDE)
+    for b in _count_batches(t):
+        totals.record(b)
+    for v in np.unique(want["wid"][hot]):
+        sel = hot & (want["wid"] == v)
+        totals(TupleBatch({"key": want["key"][sel], "id": want["wid"][sel],
+                           "ts": want["wid"][sel] * SLIDE + WIN - 1,
+                           "value": want["value"][sel]}))
+    checks = harness.compare(out.arrays(), want, 0.0)[0]
+    assert harness.verdict(checks) == (fault is None), checks
+
+
+@needs_native
+def test_q5_cell_runs_correct_through_the_harness(tmp_path):
+    """The cell, with its configuration at event rate 10,000 a second,
+    through the benchmark's harness on the CPU: correct, its first
+    window closed before the measured window, and every window judged
+    by its three sums beside its hot rows."""
+    from wfbench import harness
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    shutil.copytree(ROOT / "wfbench", tmp_path / "wfbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    p = tmp_path / "wfbench" / "configs" / "nexmark_q5.json"
+    d = json.loads(p.read_text())
+    d["event_rate"] = RATE
+    p.write_text(json.dumps(d))
+    spec = harness.Spec("nexmark_q5.saturate", tmp_path)
+    run, stream = harness.run_cell(spec, SEEDS[1], 1.0, False,
+                                   device="cpu", warm_timeout_s=120.0)
+    checks = harness.judge(run, stream)
+    assert harness.verdict(checks), checks
+    got = run.results
+    wins = np.unique(got["wid"])
+    assert len(wins) >= 6
+    for key in (-1, -2, -3):
+        assert np.array_equal(np.sort(got["wid"][got["key"] == key]), wins)
+    n_hot = int((got["key"] >= 0).sum())
+    assert run.attempted == n_hot + 3 * len(wins)

@@ -15,9 +15,9 @@ the window engine's counters (``Keys_live``, ``Keys_evicted``,
 ``Windows_fired_watermark``) and the process's RSS at every close,
 with ``--table`` records every count the engine emits, then stops and
 drains, and prints one JSON line: the samples, whether every window
-due a slide before the stop reached the sink before it, and the hot
-rows (with ``--table`` the full count table too) compared exactly with
-the benchmark's reference.
+due a slide before the stop reached the sink before it, and the rows
+the cell compares (hot rows and window sums; with ``--table`` the full
+count table too) compared exactly with the benchmark's reference.
 """
 from __future__ import annotations
 
@@ -100,21 +100,24 @@ def state(args) -> None:
         return b
 
     counts, lock = [], threading.Lock()
+    sink = harness.Sink(harness.make_span(False))
+    totals = spec.config_mod.WindowTotals(sink, harness.make_span(False),
+                                          win, slide)
 
     def record(b):
-        with lock:
-            counts.append((np.asarray(b.key, np.int64).copy(),
-                           np.asarray(b.id, np.int64).copy(),
-                           np.asarray(b["value"], np.float64).copy()))
+        totals.record(b)
+        if args.table:
+            with lock:
+                counts.append((np.asarray(b.key, np.int64).copy(),
+                               np.asarray(b.id, np.int64).copy(),
+                               np.asarray(b["value"], np.float64).copy()))
 
-    sink = harness.Sink(harness.make_span(False))
     g = wf.PipeGraph("nexmark_q5_probe", wf.Mode.DEFAULT,
                      config=wf.RuntimeConfig(device=args.device))
-    build_q5_nexmark(g, source, sink, win_len=win, slide_len=slide,
+    build_q5_nexmark(g, source, totals, win_len=win, slide_len=slide,
                      watermark_lag=lag,
                      device_batch=int(cell["device_batch"]),
-                     inflight_depth=int(cell["inflight"]),
-                     record=record if args.table else None)
+                     inflight_depth=int(cell["inflight"]), record=record)
     g.run()
     drained = time.perf_counter()
     got = sink.arrays()
@@ -142,7 +145,7 @@ def state(args) -> None:
         "seconds": args.seconds, "drain_s": drained - st["t_stop"],
         "samples": samples, "windows_due_a_slide_before_stop": len(due),
         "of_them_after_stop": late, "count_rows": rows,
-        "count_table": table, "hot_rows": len(got["key"]), "hot": hot,
+        "count_table": table, "rows": len(got["key"]), "compared": hot,
         "stats": [r for op in json.loads(g.stats.to_json())["Operators"]
                   for r in op["Replicas"] if "Watermarks" in r]}))
 

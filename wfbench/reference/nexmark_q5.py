@@ -8,8 +8,11 @@ pane (one slide of event time) with ``np.bincount`` -- an auction's ids
 in a pane form a contiguous range -- and sums five panes to a window.
 A window ``w >= 0`` spans event time ``[w * slide, w * slide + win)``;
 event ``n`` lies at time ``n``.  Every window holding a bid is counted,
-the tail's too (the stream's end closes them).  Imports nothing of the
-program.
+the tail's too (the stream's end closes them).  Beside its hot rows,
+each window has three rows under keys no auction takes: its bids
+(``TOTAL``), its auctions (``AUCTIONS``) and its counts weighted by a
+16-bit hash of each auction (``CHECKSUM``), the sums of its whole count
+table.  Imports nothing of the program.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import numpy as np
 M32 = 0xFFFFFFFF
 C1, C2 = 0x7FEB352D, 0x1B873593
 BLOCK = 1 << 22
+TOTAL, AUCTIONS, CHECKSUM = -1, -2, -3
 
 
 def _mix(x):
@@ -104,16 +108,38 @@ def counts(config: dict, cell: dict, stream, n_events: int):
             "value": np.concatenate(vals)}
 
 
+def totals(table: dict) -> dict:
+    """{key, wid, value} of each window's sums over a count table in
+    order of window: keys TOTAL (its bids), AUCTIONS (its rows) and
+    CHECKSUM (its counts times a 16-bit hash of each auction)."""
+    wid, key, val = table["wid"], table["key"], table["value"]
+    if len(wid) == 0:
+        z = np.zeros(0, np.int64)
+        return {"key": z, "wid": z, "value": z.astype(np.float64)}
+    starts = np.concatenate([[0], np.flatnonzero(np.diff(wid)) + 1])
+    weight = ((key * 0x9E3779B1) & M32) >> 16
+    sums = np.stack([np.add.reduceat(val, starts),
+                     np.diff(np.append(starts, len(wid))),
+                     np.add.reduceat(val * weight, starts)], axis=1)
+    return {"key": np.tile(np.array([TOTAL, AUCTIONS, CHECKSUM], np.int64),
+                           len(starts)),
+            "wid": np.repeat(wid[starts], 3),
+            "value": sums.ravel().astype(np.float64)}
+
+
 def windows(config: dict, cell: dict, stream, n_events: int) -> dict:
-    """{key, wid, value} of every window's hot auctions over events
-    [0, n_events): those whose count equals the window's largest."""
+    """{key, wid, value} over events [0, n_events): every window's hot
+    auctions (those whose count equals the window's largest), then every
+    window's sums (``totals``)."""
     t = counts(config, cell, stream, n_events)
+    sums = totals(t)
     if len(t["key"]) == 0:
-        return {"key": t["key"], "wid": t["wid"],
-                "value": t["value"].astype(np.float64)}
+        return sums
     starts = np.concatenate([[0], np.flatnonzero(np.diff(t["wid"])) + 1])
     top = np.maximum.reduceat(t["value"], starts)
     lens = np.diff(np.append(starts, len(t["wid"])))
     hot = t["value"] == np.repeat(top, lens)
-    return {"key": t["key"][hot], "wid": t["wid"][hot],
-            "value": t["value"][hot].astype(np.float64)}
+    return {"key": np.concatenate([t["key"][hot], sums["key"]]),
+            "wid": np.concatenate([t["wid"][hot], sums["wid"]]),
+            "value": np.concatenate([t["value"][hot].astype(np.float64),
+                                     sums["value"]])}

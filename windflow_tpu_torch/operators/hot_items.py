@@ -84,6 +84,15 @@ class _HotItemsLogic(NodeLogic):
     def eos_flush(self, emit) -> None:
         self._emit_windows(list(self.best), emit)
 
+    # -- checkpoint / resume: the open windows' maxima and their keys --
+    def state_dict(self):
+        return {"best": {w: (m, np.concatenate(parts))
+                         for w, (m, parts) in self.best.items()}}
+
+    def load_state(self, state) -> None:
+        self.best = {int(w): [float(m), [np.asarray(keys, np.int64)]]
+                     for w, (m, keys) in state["best"].items()}
+
 
 class HotItems(Operator):
     """Per window of ``win_len`` / ``slide_len`` (event-time units, as
